@@ -8,24 +8,36 @@ needs one card and exits non-zero without CUDA). Phases, none of whose
 failures is caught:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the host library (g++) and the K1/K2 kernels (nvcc, sm_90a)
-     from the checkout's sources, in parallel;
+  2. build the host library (g++) and each kernel library (one nvcc per
+     CUDA source, sm_90a) from the checkout's sources, all in parallel;
   3. K1 (gather_rows) and K2 (scatter_rows) against their plain versions at
-     the main path's shapes (pool [2^21, 128] f32, 32768 rows, ~10% -1):
-     bit-exact; each timed (kernel, plain version, one library call) beside
-     its bound;
-  4. the main path: full-width DeepFM (bench.py's deepfm config: capacity
-     2^21, unique_cap 32768, batch 8192, hidden (256, 128, 64)) through
-     Trainer.train_step for 10 steps and Trainer.evaluate for 2 batches,
-     with the kernels' launch counts read right after;
-  5. a small trainer on the card and on the CPU from one carried state,
-     3 steps each: losses agree to rtol 1e-4;
-  6. the port's NORTHSTAR (6000 steps, batch 1024, data seed 7) trained on
+     each path's shapes (DeepFM: pool [2^21, 128] f32, 32768 rows;
+     multislot bf16: pool [17 x 2^18, 128] bf16, 49152 rows; ~10% of rows
+     -1), and K3 (stochastic_round_bf16) at [49152, 128] f32: bit-exact;
+     each timed (kernel, plain version, one library call) beside its bound;
+  4. the DeepFM path: full-width DeepFM (bench.py's deepfm config:
+     capacity 2^21, unique_cap 32768, batch 8192, hidden (256, 128, 64))
+     through Trainer.train_step for 10 steps and Trainer.evaluate for 2
+     batches, with the kernels' launch counts read right after;
+  5. the multislot bf16 path: bench.py's multislot config with
+     MT_BENCH_DTYPE=bf16 at full width (16 + 1 tables merged into one bf16
+     pool of 17 x 2^18 rows, stochastic rounding, 40 slots + a 20-long
+     DIN history, bf16 dense tower (256, 128, 64), unique_cap 49152, batch
+     8192), 10 train steps and 2 eval batches, launch counts read right
+     after;
+  6. small trainers on the card and on the CPU from one carried state,
+     3 steps each: DeepFM f32 losses agree to rtol 1e-4; the multislot
+     bf16 variant (bf16 pools, stochastic rounding, bf16 tower) to rtol
+     1e-3;
+  7. the multislot bf16 bench variant at the JAX package's test size
+     trained on the card for 41 steps: train AUC > 0.515;
+  8. the port's NORTHSTAR (6000 steps, batch 1024, data seed 7) trained on
      the card: eval AUC inside NORTHSTAR_BAND.
 
 TF32 is off for matrix products and convolutions (torch.backends), so the
-card's dense tower runs in full f32 like the CPU's. The second-to-last line
-is the kernels' JSON; the last is {"ok": true, "device": {...}}.
+card's f32 dense towers run in full f32 like the CPU's. The second-to-last
+line is the kernels' JSON (one entry per kernel and path); the last is
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -38,7 +50,12 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-CAP, WIDTH, U = 1 << 21, 128, 32768
+# peak f32 rate outside the tensor cores (H100 SXM data sheet), the peak
+# used for K3's integer operations: a lower bound, as no 32-bit ALU
+# operation issues faster
+ALU_OPS_PER_S = 67e12
+CAP, WIDTH, U = 1 << 21, 128, 32768            # the DeepFM path
+MS_CAP, MS_U = 17 * (1 << 18), 49152           # the multislot bf16 path
 
 
 def log(msg):
@@ -65,6 +82,18 @@ def time_ms(fn, reps=20):
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
+def warm_up(seconds=1.0):
+    """Keep the card busy for about `seconds` before the first timing, so
+    that it is not taken while the clocks still ramp up."""
+    import torch
+    a = torch.randn((4096, 4096), device="cuda")
+    t0 = time.time()
+    while time.time() - t0 < seconds:
+        for _ in range(10):
+            a = torch.tanh(a @ a)
+        torch.cuda.synchronize()
+
+
 def phase_build():
     from monolith_tpu_torch import build
     results, errors = {}, []
@@ -73,12 +102,13 @@ def phase_build():
         try:
             t0 = time.time()
             results[name] = (fn(), time.time() - t0)
-        except Exception as e:  # re-raised below, after both builds end
+        except Exception as e:  # re-raised below, after every build ends
             errors.append(e)
 
-    threads = [threading.Thread(target=run, args=(n, f)) for n, f in
-               (("host", build.build_host_library),
-                ("kernels", build.build_kernel_library))]
+    jobs = [("host", build.build_host_library)] + [
+        (f"lib{k}", lambda k=k: build.build_kernel_library(k))
+        for k in build.KERNEL_SOURCES]
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
     for t in threads:
         t.start()
     for t in threads:
@@ -87,121 +117,186 @@ def phase_build():
         raise errors[0]
     for name, (path, secs) in results.items():
         log(f"built {name}: {os.path.relpath(path)} in {secs:.1f} s")
-    log("ptxas: " + " | ".join(
-        ln.strip() for ln in build.build_log("librows").splitlines()
-        if "registers" in ln or "Compiling" in ln))
+    for k in build.KERNEL_SOURCES:
+        log(f"ptxas lib{k}: " + " | ".join(
+            ln.strip() for ln in build.build_log(f"lib{k}").splitlines()
+            if "registers" in ln or "Compiling" in ln))
 
 
-def phase_kernels():
-    """K1/K2 at the main path's shapes against their plain versions."""
+def phase_rows(cap, width, dtype, u, path):
+    """K1/K2 at one path's shapes against their plain versions."""
     import torch
     from monolith_tpu_torch.ops import scatter as ops
     g = torch.Generator(device="cuda").manual_seed(0)
-    pool = torch.randn((CAP, WIDTH), generator=g, device="cuda")
-    rows = torch.randperm(CAP, generator=g, device="cuda")[:U].to(torch.int32)
-    rows[torch.rand(U, generator=g, device="cuda") < 0.1] = -1
-    values = torch.randn((U, WIDTH), generator=g, device="cuda")
+    pool = torch.randn((cap, width), generator=g, device="cuda").to(dtype)
+    rows = torch.randperm(cap, generator=g, device="cuda")[:u].to(torch.int32)
+    rows[torch.rand(u, generator=g, device="cuda") < 0.1] = -1
+    values = torch.randn((u, width), generator=g, device="cuda").to(dtype)
     valid = rows >= 0
     n_valid = int(valid.sum())
-    row_bytes = WIDTH * 4
+    row_bytes = width * pool.element_size()
+    tname = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    shape = f"pool [{cap},{width}] {tname}, rows [{u}] ({n_valid} valid)"
 
     out = ops.gather_rows(pool, rows)
     ref = ops.gather_rows_plain(pool, rows)
     torch.cuda.synchronize()
-    assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), \
-        "gather_rows differs from its plain version"
-    gather_err = float((out - ref).abs().max())
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16)), \
+        f"gather_rows differs from its plain version ({shape})"
+    gather_err = float((out.float() - ref.float()).abs().max())
 
     pool_k, pool_p = pool.clone(), pool.clone()
     ops.scatter_rows(pool_k, rows, values)
     ops.scatter_rows_plain(pool_p, rows, values)
     torch.cuda.synchronize()
-    assert torch.equal(pool_k.view(torch.int32), pool_p.view(torch.int32)), \
-        "scatter_rows differs from its plain version"
-    scatter_err = float((pool_k - pool_p).abs().max())
+    assert torch.equal(pool_k.view(torch.int16), pool_p.view(torch.int16)), \
+        f"scatter_rows differs from its plain version ({shape})"
+    scatter_err = float((pool_k.float() - pool_p.float()).abs().max())
     del pool_p, ref, out
 
     safe = rows.clamp(min=0).long()
     vrows, vvals = rows[valid].long(), values[valid]
-    k1 = {"name": "gather_rows", "route": "cuda",
+    k1 = {"name": "gather_rows", "path": path, "route": "cuda",
           "source": "monolith_tpu_torch/csrc/rows.cu",
-          "replaces": "monolith_tpu/ops/scatter.py:143",
-          "shape": f"pool [{CAP},{WIDTH}] f32, rows [{U}] ({n_valid} valid)",
+          "replaces": "monolith_tpu/ops/scatter.py:143", "shape": shape,
           "max_abs_err": gather_err,
           "ms": time_ms(lambda: ops.gather_rows(pool, rows)),
           "plain_ms": time_ms(lambda: ops.gather_rows_plain(pool, rows)),
           # rows read + valid pool rows read + every output row written
-          "bound_ms": (U * 4 + n_valid * row_bytes + U * row_bytes)
+          "bound_ms": (u * 4 + n_valid * row_bytes + u * row_bytes)
           / HBM_BYTES_PER_S * 1e3,
           "bound_by": "bytes",
           "library_ms": time_ms(lambda: torch.index_select(pool, 0, safe))}
-    k2 = {"name": "scatter_rows", "route": "cuda",
+    k2 = {"name": "scatter_rows", "path": path, "route": "cuda",
           "source": "monolith_tpu_torch/csrc/rows.cu",
-          "replaces": "monolith_tpu/ops/scatter.py:177",
-          "shape": f"pool [{CAP},{WIDTH}] f32, rows [{U}] ({n_valid} valid)",
+          "replaces": "monolith_tpu/ops/scatter.py:177", "shape": shape,
           "max_abs_err": scatter_err,
           "ms": time_ms(lambda: ops.scatter_rows(pool_k, rows, values)),
           "plain_ms": time_ms(lambda: ops.scatter_rows_plain(pool_k, rows,
                                                              values)),
           # rows read + valid value rows read + valid pool rows written
-          "bound_ms": (U * 4 + 2 * n_valid * row_bytes)
+          "bound_ms": (u * 4 + 2 * n_valid * row_bytes)
           / HBM_BYTES_PER_S * 1e3,
           "bound_by": "bytes",
           "library_ms": time_ms(lambda: pool_k.index_copy_(0, vrows, vvals))}
     for k in (k1, k2):
-        log(f"{k['name']}: bit-exact; {k['ms']:.4f} ms (plain "
+        log(f"{k['name']} [{path}]: bit-exact; {k['ms']:.4f} ms (plain "
             f"{k['plain_ms']:.4f}, library {k['library_ms']:.4f}, bound "
-            f"{k['bound_ms']:.4f})")
+            f"{k['bound_ms']:.4f}); {shape}")
     return [k1, k2]
 
 
-def phase_main_path():
-    """Full-width DeepFM: 10 train steps + 2 eval batches; returns the
-    kernels' launch counts over exactly that run."""
+def phase_rounding(path):
+    """K3 at the multislot path's shape against its plain version."""
     import torch
-    from monolith_tpu_torch.data.synthetic import SyntheticCTR
-    from monolith_tpu_torch.embedding.engine import EngineConfig
-    from monolith_tpu_torch.models.deepfm import DeepFMTask
-    from monolith_tpu_torch.ops import scatter as ops
-    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
-    steps, evals, batch = 10, 2, 8192
-    trainer = Trainer(DeepFMTask(embedding_dim=16, capacity_per_shard=CAP,
-                                 hidden=(256, 128, 64)),
-                      TrainerConfig(engine=EngineConfig(
-                          num_shards=1, unique_cap=U, new_cap=U), log_every=0))
-    data = SyntheticCTR(num_users=1_000_000, num_items=200_000,
-                        batch_size=batch, seed=0)
-    batches = [data.batch() for _ in range(steps + evals)]
+    from monolith_tpu_torch.ops import rounding
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((MS_U, WIDTH), generator=g, device="cuda")
+    seed = 0x0123456789ABCDEF
+    out = rounding.stochastic_round_bf16(x, seed)
+    ref = rounding.stochastic_round_bf16_plain(x, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16)), \
+        "stochastic_round_bf16 differs from its plain version"
+    mean_gap = float((out.float().mean(dtype=torch.float64)
+                      - x.mean(dtype=torch.float64)).abs())
+    assert mean_gap < 2 ** -10, mean_gap
+    n = x.numel()
+    # Philox4x32-10 for each 4 elements: 10 rounds of 2 mul-hi, 2 mul-lo,
+    # 4 xor and 2 key adds; then an add and two shifts per element
+    ops_count = (n // 4) * 10 * 10 + n * 3
+    bytes_ms = n * (4 + 2) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_count / ALU_OPS_PER_S * 1e3
+    k3 = {"name": "stochastic_round_bf16", "path": path, "route": "cuda",
+          "source": "monolith_tpu_torch/csrc/rounding.cu",
+          "replaces": "monolith_tpu/ops/rounding.py:33",
+          "shape": f"x [{MS_U},{WIDTH}] f32 -> bf16",
+          "max_abs_err": float((out.float() - ref.float()).abs().max()),
+          "mean_gap": mean_gap,
+          "ms": time_ms(lambda: rounding.stochastic_round_bf16(x, seed)),
+          "plain_ms": time_ms(
+              lambda: rounding.stochastic_round_bf16_plain(x, seed)),
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+          # round-to-nearest over the same bytes: no PyTorch call rounds
+          # stochastically, so this is a yardstick, not the same function
+          "library_ms": time_ms(lambda: x.to(torch.bfloat16)),
+          "library_call": "x.to(torch.bfloat16) (round to nearest)"}
+    log(f"stochastic_round_bf16 [{path}]: bit-exact, mean gap {mean_gap:.3e}; "
+        f"{k3['ms']:.4f} ms (plain {k3['plain_ms']:.4f}, x.to(bf16) "
+        f"{k3['library_ms']:.4f}, bound {k3['bound_ms']:.4f} by "
+        f"{k3['bound_by']}; ops bound {ops_ms:.4f})")
+    return [k3]
+
+
+def drive_path(name, trainer, batches, steps, evals, expect):
+    """`steps` train steps and `evals` eval batches through the Trainer's
+    entry points, with every kernel's launch count set to 0 just before and
+    read just after; checks the counts against `expect` and returns them."""
+    import torch
+    from monolith_tpu_torch import ops
+    batch = len(batches[0][1]["label"])
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    losses, times = [], []
+    losses, times, uniques = [], [], []
     for fb, b in batches[:steps]:
         t0 = time.perf_counter()
         out = trainer.train_step(fb, b)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(out["loss"])
+        uniques.append(sum(out["stats"]["unique"].values()))
         assert out["preds"].shape == (batch,)
+        assert not any(out["stats"]["overflow"].values()), out["stats"]
     ev = trainer.evaluate(iter(batches[steps:]), max_steps=evals)
     torch.cuda.synchronize()
-    launches = {"gather_rows": ops.gather_rows.launches,
-                "scatter_rows": ops.scatter_rows.launches}
+    launches = ops.launch_counts()
     losses = torch.stack(losses).cpu().numpy()
     assert np.isfinite(losses).all(), f"non-finite losses {losses}"
     assert np.isfinite(ev["loss"]) and 0.0 <= ev["auc"] <= 1.0, ev
-    assert launches["gather_rows"] == steps + evals, launches
-    assert launches["scatter_rows"] == steps, launches
-    log(f"main path: losses {np.round(losses, 5).tolist()}; eval {ev}; "
+    assert launches == expect, (launches, expect)
+    log(f"{name} path: losses {np.round(losses, 5).tolist()}; eval {ev}; "
         f"ms/step {1e3 * np.mean(times[2:]):.3f} (steps 3-{steps}, host "
         f"clock with synchronize; first step {1e3 * times[0]:.1f} ms); "
-        f"launches {launches}")
+        f"uniques/step {int(np.mean(uniques))}; launches {launches}")
+    return launches
+
+
+def phase_deepfm_path():
+    """Full-width DeepFM: 10 train steps + 2 eval batches."""
+    from monolith_tpu_torch.profile_step import CONFIGS
+    steps, evals = 10, 2
+    trainer, data = CONFIGS["deepfm"]()
+    batches = [data.batch() for _ in range(steps + evals)]
+    return drive_path("deepfm_f32", trainer, batches, steps, evals,
+                      {"gather_rows": steps + evals, "scatter_rows": steps,
+                       "stochastic_round_bf16": 0})
+
+
+def phase_multislot_path():
+    """Full-width multislot bf16 (bench.py:224-242 with
+    MT_BENCH_DTYPE=bf16): 10 train steps + 2 eval batches."""
+    import torch
+    from monolith_tpu_torch.profile_step import CONFIGS
+    steps, evals = 10, 2
+    trainer, data = CONFIGS["multislot_bf16"]()
+    pool = trainer.table_states["table_all"]["data"]
+    assert pool.dtype == torch.bfloat16 and tuple(pool.shape) == \
+        (MS_CAP, WIDTH), (pool.dtype, pool.shape)
+    batches = [data.batch() for _ in range(steps + evals)]
+    launches = drive_path("multislot_bf16", trainer, batches, steps, evals,
+                          {"gather_rows": steps + evals,
+                           "scatter_rows": steps,
+                           "stochastic_round_bf16": steps})
+    assert trainer.table_states["table_all"]["data"].dtype == torch.bfloat16
     return launches
 
 
 def phase_card_vs_cpu():
-    """One carried state, 3 steps on the card and on the CPU: losses agree
-    to rtol 1e-4 (the card's index-add backward uses atomics in a varying
-    order, and its reductions sum in another order than the CPU's)."""
+    """DeepFM f32: one carried state, 3 steps on the card and on the CPU:
+    losses agree to rtol 1e-4 (the card's index-add backward uses atomics
+    in a varying order, and its reductions sum in another order than the
+    CPU's)."""
     from monolith_tpu_torch import convert
     from monolith_tpu_torch.data.synthetic import SyntheticCTR
     from monolith_tpu_torch.embedding.engine import EngineConfig
@@ -230,6 +325,64 @@ def phase_card_vs_cpu():
     log(f"card vs cpu losses: {lg} vs {lc}")
 
 
+def small_multislot(device, **kw):
+    """The bench's bf16 variant at the JAX package's test size
+    (tests/test_models.py)."""
+    import torch
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.models.multislot import MultiSlotTask
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+    task = MultiSlotTask(**{**dict(
+        num_tables=4, num_slots=10, embedding_dim=8, capacity_per_shard=8192,
+        history_length=6, hidden=(32,), merge=True,
+        table_dtype=torch.bfloat16, stochastic_rounding=True,
+        dense_dtype=torch.bfloat16), **kw})
+    return Trainer(task, TrainerConfig(engine=EngineConfig(
+        unique_cap=2048, new_cap=2048), log_every=0), device=device)
+
+
+def phase_multislot_card_vs_cpu():
+    """The small bf16 variant (bf16 pools, stochastic rounding, bf16
+    tower): one carried state, 3 steps on the card and on the CPU, with
+    init_scale=0.0 (new rows draw their init from the device's generator,
+    whose numbers differ between card and CPU). K3 draws the plain
+    version's bits, but the pooling backward's atomics and the card's bf16
+    matrix products change bits, which can flip a rounding: losses agree
+    to rtol 1e-3."""
+    from monolith_tpu_torch import convert
+    from monolith_tpu_torch.data.synthetic import SyntheticMultiSlot
+    data = SyntheticMultiSlot(num_slots=10, vocab_per_slot=300,
+                              history_length=6, batch_size=256, seed=11)
+    batches = [data.batch() for _ in range(6)]
+    cpu = small_multislot("cpu", init_scale=0.0)
+    for i in range(3):
+        cpu.train_step(*batches[i], ts=500 + i)
+    card = small_multislot("cuda", init_scale=0.0)
+    convert.load_state(card, convert.export_state(cpu))
+    lc, lg = [], []
+    for i in range(3, 6):
+        lc.append(cpu.train_step(*batches[i], ts=500 + i)["loss"].item())
+        lg.append(card.train_step(*batches[i], ts=500 + i)["loss"].item())
+    gap = float(np.max(np.abs(np.array(lg) / np.array(lc) - 1)))
+    log(f"multislot bf16 card vs cpu losses: {lg} vs {lc}; worst relative "
+        f"gap {gap:.3e}")
+    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+
+
+def phase_multislot_trains():
+    """The small bf16 bench variant trained on the card for 41 steps
+    reaches the JAX package's AUC bar (tests/test_models.py)."""
+    import torch
+    from monolith_tpu_torch.data.synthetic import SyntheticMultiSlot
+    tr = small_multislot("cuda")
+    data = SyntheticMultiSlot(num_slots=10, vocab_per_slot=300,
+                              history_length=6, batch_size=256, seed=1)
+    res = tr.train(iter(data), steps=41)
+    log(f"multislot bf16 small, 41 steps on the card: {res}")
+    assert np.isfinite(res["loss"]) and res["auc"] > 0.515, res
+    assert tr.table_states["table_all"]["data"].dtype == torch.bfloat16
+
+
 def phase_northstar():
     from monolith_tpu_torch.demo import NORTHSTAR_BAND, northstar
     t0 = time.time()
@@ -254,11 +407,21 @@ def main():
         f"python {sys.version.split()[0]}")
     t0 = time.time()
     phase_build()
-    kernels = phase_kernels()
-    launches = phase_main_path()
+    warm_up()
+    kernels = phase_rows(CAP, WIDTH, torch.float32, U, "deepfm_f32")
+    kernels += phase_rows(MS_CAP, WIDTH, torch.bfloat16, MS_U,
+                          "multislot_bf16")
+    kernels += phase_rounding("multislot_bf16")
+    torch.cuda.empty_cache()
+    launches = {"deepfm_f32": phase_deepfm_path()}
+    torch.cuda.empty_cache()
+    launches["multislot_bf16"] = phase_multislot_path()
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches[k["path"]][k["name"]]
+    torch.cuda.empty_cache()
     phase_card_vs_cpu()
+    phase_multislot_card_vs_cpu()
+    phase_multislot_trains()
     phase_northstar()
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

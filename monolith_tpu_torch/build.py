@@ -4,8 +4,9 @@ Two shared libraries with a plain C interface, both loaded with ctypes:
 
 - the host sparse core (`cpp/store.cc`, `batching.cc`, `batching2d.cc`),
   compiled with g++ and the flags of `cpp/Makefile`;
-- the row gather/scatter CUDA kernels (`monolith_tpu_torch/csrc/rows.cu`),
-  compiled with nvcc for `sm_90a`.
+- one library per CUDA source of `monolith_tpu_torch/csrc/` (`rows.cu`:
+  the row gather/scatter; `rounding.cu`: stochastic rounding), each
+  compiled by its own nvcc for `sm_90a`, so they can build in parallel.
 
 Outputs go to `monolith_tpu_torch/_build/` (never into `cpp/`), under a name
 that carries a hash of the sources, the command line and the host name, so
@@ -18,13 +19,15 @@ into place, so a reader never sees half a library.
 
 from __future__ import annotations
 
+import ctypes
 import fcntl
 import hashlib
 import os
 import platform
 import shutil
 import subprocess
-from typing import Callable, List, Sequence
+import threading
+from typing import Callable, Dict, List, Sequence
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_DIR = os.path.dirname(PKG_DIR)
@@ -102,12 +105,35 @@ def nvcc_path() -> str:
     return path
 
 
-def build_kernel_library() -> str:
-    """librows.so: the K1/K2 row kernels for sm_90a (csrc/rows.cu)."""
-    src = os.path.join(CSRC_DIR, "rows.cu")
+#: the port's CUDA sources, csrc/<name>.cu -> _build/lib<name>.so
+KERNEL_SOURCES = ("rows", "rounding")
+
+
+def build_kernel_library(name: str = "rows") -> str:
+    """lib<name>.so: the kernels of csrc/<name>.cu for sm_90a."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
     nvcc = nvcc_path()
     return build_shared(
-        "librows", [src],
+        f"lib{name}", [src],
         lambda out: [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                      "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v", "-o", out, src])
+
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+
+
+def load_kernel_library(name: str,
+                        declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """lib<name>.so loaded with ctypes (built at first use); `declare`
+    sets its functions' argtypes once, before any caller sees it."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    with _load_lock:
+        if name not in _loaded:
+            lib = ctypes.CDLL(build_kernel_library(name))
+            declare(lib)
+            _loaded[name] = lib
+    return _loaded[name]

@@ -5,7 +5,8 @@ The state format is the JAX trainer's, in numpy:
     {"params":         flax params tree, e.g. {"deep": {"dense_0":
                        {"kernel": [in, out], "bias": [out]}, ...}},
      "sum_of_squares": optax adagrad's accumulators, the same tree,
-     "tables":         {table: packed pool [1, cap, P] (or [cap, P])},
+     "tables":         {table: packed pool [1, cap, P] (or [cap, P]),
+                       f32 whatever the pool's dtype},
      "stores":         {table: HostStore.save() -> (fids, rows, tss, counts)},
      "step":           int}
 
@@ -14,6 +15,10 @@ transposed into `nn.Linear`'s [out, in]); `export_state` reads a port
 trainer back out in the same form, so a state also moves between two port
 trainers (the card and the CPU). `jax_trainer_state` reads the JAX
 package's trainer into the format with numpy alone.
+
+A bf16 pool travels as f32: widening it is exact, and `load_state` narrows
+it back exactly (it raises on a value that bf16 cannot hold, rather than
+round it).
 """
 
 from __future__ import annotations
@@ -83,8 +88,15 @@ def load_state(trainer, state: Dict) -> None:
             dst[name].copy_(torch.from_numpy(np.array(arr)))
     for tname, pool in state["tables"].items():
         data = trainer.table_states[tname]["data"]
-        pool = np.array(pool, dtype=np.float32).reshape(data.shape)
-        data.copy_(torch.from_numpy(pool))
+        src = torch.from_numpy(
+            np.array(pool, dtype=np.float32).reshape(data.shape))
+        if data.dtype != torch.float32:
+            narrowed = src.to(data.dtype)
+            if not torch.equal(narrowed.float(), src):
+                raise ValueError(f"table {tname}: the state holds values "
+                                 f"that a {data.dtype} pool cannot hold")
+            src = narrowed
+        data.copy_(src)
     for tname, saved in state["stores"].items():
         trainer.engine.stores[tname].restore(*saved)
     trainer.step = int(state["step"])
@@ -99,7 +111,7 @@ def export_state(trainer) -> Dict:
     sos = {n: copy(a) for n, a in trainer.opt_state.items()}
     return {"params": _to_flax_tree(params),
             "sum_of_squares": _to_flax_tree(sos),
-            "tables": {t: copy(st["data"])[None]
+            "tables": {t: copy(st["data"].float())[None]
                        for t, st in trainer.table_states.items()},
             "stores": {t: s.save() for t, s in trainer.engine.stores.items()},
             "step": trainer.step}
@@ -107,11 +119,12 @@ def export_state(trainer) -> Dict:
 
 def jax_trainer_state(jax_trainer) -> Dict:
     """The JAX package's single-shard Trainer state in the numpy format
-    (np.asarray on its arrays; nothing of JAX is imported here)."""
+    (np.asarray on its arrays; nothing of JAX is imported here). A bf16
+    pool reads as f32."""
     sos = jax_trainer.opt_state[0].sum_of_squares  # scale_by_rss state
     return {"params": _to_flax_tree(_to_module_tensors(jax_trainer.params)),
             "sum_of_squares": _to_flax_tree(_to_module_tensors(sos)),
-            "tables": {t: np.asarray(st["data"])
+            "tables": {t: np.asarray(st["data"]).astype(np.float32)
                        for t, st in jax_trainer.table_states.items()},
             "stores": {t: stores[0].save()
                        for t, stores in jax_trainer.engine.stores.items()},

@@ -1,8 +1,8 @@
-"""Synthetic CTR data with learnable latent structure (numpy).
-
-Users/items have latent vectors; click probability = sigmoid(<u, v> * scale
-+ user bias + item bias). The same seed gives the same batches as the JAX
-package's `SyntheticCTR`, so the two packages train on identical data.
+"""Synthetic training streams (numpy): `SyntheticCTR` (users/items with
+latent vectors; click probability = sigmoid(<u, v> * scale + user bias +
+item bias)) and `SyntheticMultiSlot` (many zipf-distributed slots plus a
+click history). The same seed gives the same batches as the JAX package's
+generators, so the two packages train on identical data.
 """
 
 from __future__ import annotations
@@ -75,3 +75,49 @@ class SyntheticCTR:
         p = 1.0 / (1.0 + np.exp(-logits))
         label = (rng.random(n) < p).astype(np.float32)
         return auc(p, label)
+
+
+@dataclasses.dataclass
+class SyntheticMultiSlot:
+    """Many sparse slots plus a click-history sequence. Slot fids are
+    v1-encoded ((slot id << 54) | index); per-slot indices are
+    zipf-distributed so dedup rates look like real traffic; labels carry
+    light latent structure (enough for AUC > 0.5). The same seed gives the
+    same batches as the JAX package's `SyntheticMultiSlot`."""
+
+    num_slots: int = 40        # scalar sparse features slot_0..slot_{n-1}
+    vocab_per_slot: int = 100_000
+    history_length: int = 20
+    batch_size: int = 8192
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self._rng = rng
+        # per-slot popularity skew: zipf exponent in [1.2, 1.8]
+        self._zipf_a = rng.uniform(1.2, 1.8, size=self.num_slots)
+        self._slot_w = rng.normal(size=self.num_slots) * 0.5
+
+    def batch(self) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+        rng = self._rng
+        B, S = self.batch_size, self.num_slots
+        fid_batch = {}
+        latent = np.zeros(B)
+        for s in range(S):
+            idx = rng.zipf(self._zipf_a[s], size=B) % self.vocab_per_slot
+            fid_batch[f"slot_{s}"] = (
+                ((s + 1) << 54) + idx).astype(np.int64)[:, None]
+            latent += self._slot_w[s] * ((idx % 7) / 7.0 - 0.5)
+        hist = rng.zipf(1.3, size=(B, self.history_length)) % self.vocab_per_slot
+        hist_len = rng.integers(1, self.history_length + 1, size=B)
+        mask = np.arange(self.history_length)[None, :] < hist_len[:, None]
+        fid_batch["hist_items"] = np.where(
+            mask, ((S + 1) << 54) + hist, -1).astype(np.int64)
+        p = 1.0 / (1.0 + np.exp(-latent))
+        label = (rng.random(B) < p).astype(np.float32)
+        return fid_batch, {"label": label,
+                           "hist_len": hist_len.astype(np.int32)}
+
+    def __iter__(self) -> Iterator:
+        while True:
+            yield self.batch()

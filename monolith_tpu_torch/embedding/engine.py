@@ -7,7 +7,8 @@ The port's single-shard fused path of the JAX package's engine. Each step:
   device:      decode_wire -> gather the unique packed rows (K1) with
                new-row init as a select (fused_lookup) -> per-feature
                gather + pool (pool_features) -> model fwd/bwd -> per-segment
-               row optimize -> ONE scatter per table (K2, fused_apply)
+               row optimize -> [bf16 pools: narrow, stochastically by K3]
+               -> ONE scatter per table (K2, fused_apply)
 
 Autograd through the per-feature gather produces the per-unique-row summed
 gradients (an index-add into the unique buffer). Per-step shapes are fixed:
@@ -52,6 +53,14 @@ class EngineConfig:
 def _init_seed(seed: int, step: int, table_index: int) -> int:
     """Philox seed of one table's new-row init at one step."""
     return ((seed * 1_000_003 + step) * 1_009 + table_index) % (1 << 63)
+
+
+def _round_seed(seed: int, step: int, table_index: int) -> int:
+    """Philox key of one table's stochastic bf16 write-back (K3) at one
+    step: bit 63 set keeps it apart from every _init_seed, as the JAX
+    package keeps its rounding keys (PRNGKey(1)) apart from its init
+    keys."""
+    return _init_seed(seed, step, table_index) | (1 << 63)
 
 
 class EmbeddingEngine:
@@ -206,7 +215,8 @@ class EmbeddingEngine:
         generator seeded from (seed, step, table index) — not the JAX
         package's threefry draws.
 
-        Returns (prows {table: [U, P]}, unique {table: [U, dim]})."""
+        Returns (prows {table: [U, P] f32}, unique {table: [U, dim] f32}),
+        f32 for a bf16 pool too."""
         prows, unique = {}, {}
         for i, (tname, tin) in enumerate(sorted(inputs.items())):
             spec = self.tables[tname]
@@ -221,18 +231,23 @@ class EmbeddingEngine:
         return prows, unique
 
     def fused_apply(self, states: Dict, inputs: Dict, prows: Dict,
-                    unique_grads: Dict[str, torch.Tensor], step: int) -> Dict:
+                    unique_grads: Dict[str, torch.Tensor], step: int,
+                    seed: int = 0) -> Dict:
         """Optimize the gathered packed rows and write them back in place
-        with ONE scatter (K2) per table."""
-        for tname, tin in sorted(inputs.items()):
+        with ONE scatter (K2) per table; a bf16 pool with stochastic
+        rounding narrows them first with K3, keyed by (seed, step, table
+        index)."""
+        for i, (tname, tin) in enumerate(sorted(inputs.items())):
             spec = self.tables[tname]
             new_p = table_lib.optimize_packed(spec, prows[tname],
                                               unique_grads[tname], step)
-            table_lib.scatter_packed(spec, states[tname], tin["rows"], new_p)
+            table_lib.scatter_packed(spec, states[tname], tin["rows"], new_p,
+                                     seed=_round_seed(seed, step, i))
         return states
 
     def lookup_unique(self, states: Dict, inputs: Dict) -> Dict[str, torch.Tensor]:
-        """Gather each table's unique rows (K1): {table: [U, dim] f32}."""
+        """Gather each table's unique rows (K1): {table: [U, dim] f32}, f32
+        for a bf16 pool too."""
         return {tname: table_lib.lookup(self.tables[tname], states[tname],
                                         tin["rows"])
                 for tname, tin in inputs.items()}

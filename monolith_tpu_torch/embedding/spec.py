@@ -2,15 +2,18 @@
 
 A `TableSpec` is a merged table: one row pool whose row vector is the
 concatenation of `segments`, each with its own dim, optimizer and
-initializer. The port carries the subset its slice runs: f32 pools, the
-`Constant` learning-rate schedule, no compressors, no expiry (the engine
-rejects a table with a ttl).
+initializer. The port carries the subset its slices run: f32 or bf16 pools
+(bf16 optionally with stochastic rounding on write-back), the `Constant`
+learning-rate schedule, no compressors, no expiry (the engine rejects a
+table with a ttl).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+import torch
 
 from monolith_tpu_torch.embedding.initializers import Initializer, RandomUniform
 from monolith_tpu_torch.embedding.optimizers import RowOptimizer, SGD
@@ -67,6 +70,18 @@ class TableSpec:
     segments: Tuple[TableSegment, ...]
     admission: AdmissionConfig = dataclasses.field(default_factory=AdmissionConfig)
     eviction: EvictionConfig = dataclasses.field(default_factory=EvictionConfig)
+    dtype: torch.dtype = torch.float32
+    # narrow optimized rows to a bf16 pool stochastically (K3) instead of
+    # to nearest; requires dtype=torch.bfloat16
+    stochastic_rounding: bool = False
+
+    def __post_init__(self):
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"table {self.name}: pools are float32 or "
+                             f"bfloat16 (got {self.dtype})")
+        if self.stochastic_rounding and self.dtype != torch.bfloat16:
+            raise ValueError(f"table {self.name}: stochastic_rounding needs "
+                             f"a bfloat16 pool (got {self.dtype})")
 
     @property
     def dim(self) -> int:

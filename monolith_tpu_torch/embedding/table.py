@@ -1,6 +1,7 @@
 """Device-resident embedding table: the packed row pool.
 
-Each id's full state is one row of a single `[capacity, P]` f32 pool:
+Each id's full state is one row of a single `[capacity, P]` pool of
+`spec.dtype` (f32 or bf16):
 
     [ seg0 params | seg1 params | ... | seg0 slots | seg1 slots | pad ]
 
@@ -14,6 +15,13 @@ optimize and scatter run on the device. Rows = -1 (filtered / padded) read
 zeros and drop their writes. The one gather and the one scatter of a step
 are the K1/K2 kernels (ops/scatter.py).
 
+A bf16 pool stores the same packed row in half the bytes (256 B a row at
+P = 128). All row math (init, optimize) runs in f32 on the gathered rows:
+`gather_packed` widens after K1, and `scatter_packed` narrows before K2,
+stochastically (K3, ops/rounding.py) when `spec.stochastic_rounding` is
+set and a seed is given, to nearest otherwise. Optimizer slots are 16-bit
+too in such a pool, as in the JAX package's packed layout.
+
 State is `{"data": [cap, P]}` for one shard (the port runs single-shard
 tables; the JAX package's states carry a leading shard axis). Unlike the
 JAX program, which donates the pool to each step, the port updates it in
@@ -23,12 +31,13 @@ place: `scatter_packed` writes into the pool tensor.
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from monolith_tpu_torch.embedding.spec import TableSpec
+from monolith_tpu_torch.ops.rounding import stochastic_round_bf16
 from monolith_tpu_torch.ops.scatter import gather_rows, scatter_rows
 
 TableState = Dict[str, torch.Tensor]
@@ -54,10 +63,11 @@ def _layout(spec: TableSpec):
 
 
 def create_state(spec: TableSpec, device) -> TableState:
-    """Allocate the f32 pool: zeros, with slot columns at their init
-    value."""
+    """Allocate the pool in `spec.dtype`: zeros, with slot columns at their
+    init value (rounded to nearest in a bf16 pool: 0.01 is stored as
+    0.010009765625, as in the JAX package)."""
     _, padded, slots = _layout(spec)
-    data = torch.zeros((spec.capacity_per_shard, padded), dtype=torch.float32,
+    data = torch.zeros((spec.capacity_per_shard, padded), dtype=spec.dtype,
                        device=device)
     for (_, _name), (off, k, init_value) in slots.items():
         if init_value != 0.0:
@@ -84,15 +94,26 @@ def init_packed(spec: TableSpec, generator: torch.Generator, n: int,
 
 def gather_packed(spec: TableSpec, state: TableState,
                   rows: torch.Tensor) -> torch.Tensor:
-    """Gather full packed rows [n, P]; -1 rows read zeros (inside K1)."""
-    return gather_rows(state["data"], rows)
+    """Gather full packed rows [n, P] as f32; -1 rows read zeros (inside
+    K1). A bf16 pool is widened after the gather."""
+    return gather_rows(state["data"], rows).float()
 
 
 def scatter_packed(spec: TableSpec, state: TableState, rows: torch.Tensor,
-                   values: torch.Tensor) -> TableState:
+                   values: torch.Tensor, seed: Optional[int] = None
+                   ) -> TableState:
     """Write full packed rows in place; -1 rows dropped (K2). THE one
-    scatter per step."""
-    scatter_rows(state["data"], rows, values)
+    scatter per step. f32 values are narrowed to a bf16 pool
+    stochastically (K3, with `seed`) when spec.stochastic_rounding is set
+    and a seed is given; to nearest otherwise (init, assign, restore of
+    values that were never wider)."""
+    pool = state["data"]
+    if values.dtype != pool.dtype:
+        if spec.stochastic_rounding and seed is not None:
+            values = stochastic_round_bf16(values, seed)
+        else:
+            values = values.to(pool.dtype)
+    scatter_rows(pool, rows, values)
     return state
 
 

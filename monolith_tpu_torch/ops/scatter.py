@@ -10,10 +10,12 @@ kernels. On the card each launches a CUDA kernel from csrc/rows.cu
 - K2: pool[rows[i]] = values[i] for rows in [0, cap), in place; rows are
   unique (host-deduped), so plain stores suffice.
 
-Both are pure data movement, bounded by HBM bytes: at the main path's
+Both are pure data movement, bounded by HBM bytes: at the DeepFM path's
 shapes (pool [2^21, 128] f32, 32768 rows) about 33.5 MB, ~10 us at
-3.35 TB/s. Design: one warp per row, 16 bytes a lane, coalesced; a
-grid-stride loop over rows (see the note in csrc/rows.cu).
+3.35 TB/s; at the multislot bf16 path's (pool [17 x 2^18, 128] bf16, 256-B
+rows, 49152 rows) about 24 MB, ~7 us. Design: one warp per row, 16 bytes a
+lane, coalesced; a grid-stride loop over rows (see the note in
+csrc/rows.cu). A 256-byte row keeps 16 of the warp's 32 lanes busy.
 
 On a CPU tensor a wrapper runs its plain PyTorch version
 (`gather_rows_plain`, `scatter_rows_plain`, same semantics). On a CUDA
@@ -24,36 +26,23 @@ counts its kernel launches in `<wrapper>.launches`.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from monolith_tpu_torch import build
 
-_lock = threading.Lock()
-_lib = None
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.mt_gather_rows.restype = ctypes.c_int
+    lib.mt_gather_rows.argtypes = [vp, i64, vp, i64, vp, i64, vp]
+    lib.mt_scatter_rows.restype = ctypes.c_int
+    lib.mt_scatter_rows.argtypes = [vp, i64, vp, vp, i64, i64, vp]
 
 
 def kernel_library() -> ctypes.CDLL:
     """The built K1/K2 library (compiled with nvcc at first use)."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build.build_kernel_library())
-            vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.mt_gather_rows.restype = ctypes.c_int
-            lib.mt_gather_rows.argtypes = [vp, i64, vp, i64, vp, i64, vp]
-            lib.mt_scatter_rows.restype = ctypes.c_int
-            lib.mt_scatter_rows.argtypes = [vp, i64, vp, vp, i64, i64, vp]
-            _lib = lib
-    return _lib
-
-
-def reset_launch_counts() -> None:
-    gather_rows.launches = 0
-    scatter_rows.launches = 0
+    return build.load_kernel_library("rows", _declare)
 
 
 def gather_rows_plain(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,27 @@
-"""Where the time of the port's full-width DeepFM train step goes, on the card.
+"""Where the time of a full-width train step of the port goes, on the card.
 
-    python -m monolith_tpu_torch.profile_step [--steps 20] [--trace PATH]
+    python -m monolith_tpu_torch.profile_step [--config deepfm|multislot_bf16]
+                                              [--steps 20] [--trace PATH]
 
-Builds the main path's trainer (bench.py's deepfm config: capacity 2^21,
-unique_cap 32768, batch 8192, hidden (256, 128, 64)), warms it up, then
-runs four windows of `--steps` train steps each, on fresh batches:
+Builds the trainer of one of bench.py's configs at full width:
+
+- `deepfm` (default): capacity 2^21, unique_cap 32768, batch 8192, hidden
+  (256, 128, 64), f32 pool;
+- `multislot_bf16` (MT_BENCH_DTYPE=bf16): 16 + 1 tables merged into one
+  bf16 pool of 17 x 2^18 rows with stochastic rounding, 40 slots + a
+  20-long DIN history, bf16 dense tower (256, 128, 64), unique_cap 49152,
+  batch 8192;
+
+warms it up, then runs four windows of `--steps` train steps each, on
+fresh batches:
 
 1. no profiler: ms/step on the host clock (synchronised at both ends);
 2. torch.profiler (CPU + CUDA): device time per step (the union of device
-   intervals) and by kernel name, largest first; the busy share is that
-   time over window 1's step (the profiler slows the host, so its own
-   window's ms/step is not the step time; idle share = 1 - busy);
+   intervals), by kernel name and by backward node (the device time of
+   the kernels each autograd node launched), largest first; the busy
+   share is that time over window 1's step (the profiler slows the host,
+   so its own window's ms/step is not the step time; idle share =
+   1 - busy);
 3. cProfile: host time by Python function (tottime), largest first;
 4. prepare_wire alone (the C++ dedup + map + pack), ms per batch.
 
@@ -20,6 +31,7 @@ runs four windows of `--steps` train steps each, on fresh batches:
 from __future__ import annotations
 
 import argparse
+import collections
 import cProfile
 import io
 import pstats
@@ -51,26 +63,63 @@ def _union_us(intervals):
     return total
 
 
+def _kernel_count(event):
+    """Kernels launched by a profiler event and the ops under it."""
+    return len(event.kernels) + sum(_kernel_count(c)
+                                    for c in event.cpu_children)
+
+
+def _deepfm():
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+    trainer = Trainer(DeepFMTask(embedding_dim=16, capacity_per_shard=1 << 21,
+                                 hidden=(256, 128, 64)),
+                      TrainerConfig(engine=EngineConfig(
+                          num_shards=1, unique_cap=32768, new_cap=32768),
+                          log_every=0))
+    return trainer, SyntheticCTR(num_users=1_000_000, num_items=200_000,
+                                 batch_size=8192, seed=0)
+
+
+def _multislot_bf16():
+    from monolith_tpu_torch.data.synthetic import SyntheticMultiSlot
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.models.multislot import MultiSlotTask
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+    trainer = Trainer(
+        MultiSlotTask(num_tables=16, num_slots=40, embedding_dim=16,
+                      capacity_per_shard=1 << 18, history_length=20,
+                      hidden=(256, 128, 64), merge=True,
+                      table_dtype=torch.bfloat16, stochastic_rounding=True,
+                      dense_dtype=torch.bfloat16),
+        TrainerConfig(engine=EngineConfig(num_shards=1, unique_cap=49152,
+                                          new_cap=49152), log_every=0))
+    return trainer, SyntheticMultiSlot(num_slots=40, vocab_per_slot=100_000,
+                                       history_length=20, batch_size=8192,
+                                       seed=0)
+
+
+#: bench.py's configs at full width: name -> () -> (trainer on the card,
+#: data stream); chip_smoke.py drives the same two
+CONFIGS = {"deepfm": _deepfm, "multislot_bf16": _multislot_bf16}
+BACKWARD_NODE = "autograd::engine::evaluate_function: "
+#: name fragments of the kernels in csrc/ (K1, K2, K3)
+PORT_KERNELS = ("gather_rows_kernel", "scatter_rows_kernel",
+                "stochastic_round_bf16_kernel")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--config", choices=sorted(CONFIGS), default="deepfm")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--trace", default="")
     args = p.parse_args(argv)
 
     from torch.profiler import ProfilerActivity, profile
 
-    from monolith_tpu_torch.data.synthetic import SyntheticCTR
-    from monolith_tpu_torch.embedding.engine import EngineConfig
-    from monolith_tpu_torch.models.deepfm import DeepFMTask
-    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
-
-    trainer = Trainer(DeepFMTask(embedding_dim=16, capacity_per_shard=1 << 21,
-                                 hidden=(256, 128, 64)),
-                      TrainerConfig(engine=EngineConfig(
-                          num_shards=1, unique_cap=32768, new_cap=32768),
-                          log_every=0))
-    data = SyntheticCTR(num_users=1_000_000, num_items=200_000,
-                        batch_size=8192, seed=0)
+    trainer, data = CONFIGS[args.config]()
     for _ in range(5):
         trainer.train_step(*data.batch())
     n = args.steps
@@ -100,8 +149,8 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    print(f"ms/step {plain_ms} (no profiler, {n} steps); under "
-          f"torch.profiler {prof_ms}; device busy {busy_ms} ms/step = "
+    print(f"config {args.config}: ms/step {plain_ms} (no profiler, {n} "
+          f"steps); under torch.profiler {prof_ms}; device busy {busy_ms} ms/step = "
           f"{busy_ms / plain_ms} of the unprofiled step (idle "
           f"{1 - busy_ms / plain_ms}); under cProfile {cprof_ms}; "
           f"prepare_wire alone {prep_ms} ms/batch")
@@ -114,10 +163,21 @@ def main(argv=None):
            else "self_cuda_time_total")
     rows = sorted((a for a in avgs if getattr(a, key) > 0),
                   key=lambda a: -getattr(a, key))
-    print("device time per step by kernel (ms):")
-    for a in rows[:20]:
-        print(f"  {getattr(a, key) / 1e3 / n:9.4f}  x{a.count / n:5.1f}"
-              f"  {a.key[:100]}")
+    own = [a for a in rows if any(k in a.key for k in PORT_KERNELS)]
+    for title, sel in (("", rows[:20]), (" (the port's own kernels)", own)):
+        print(f"device time per step by kernel{title} (ms):")
+        for a in sel:
+            print(f"  {getattr(a, key) / 1e3 / n:9.4f}  x{a.count / n:5.1f}"
+                  f"  {a.key[:100]}")
+    node_us, node_kernels = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.name.startswith(BACKWARD_NODE):
+            node = e.name[len(BACKWARD_NODE):]
+            node_us[node] += getattr(e, key.replace("self_", ""))
+            node_kernels[node] += _kernel_count(e)
+    print("device time per step by backward node (ms, kernels per step):")
+    for node, us in node_us.most_common(12):
+        print(f"  {us / 1e3 / n:9.4f}  x{node_kernels[node] / n:5.1f}  {node}")
     if args.trace:
         prof.export_chrome_trace(args.trace)
 

@@ -7,7 +7,8 @@ Per step:
           pinned int32 buffer, sent to the card with one non_blocking copy
   device: decode -> fused_lookup (K1 gather + new-row init select) ->
           pool -> dense fwd/bwd -> dense Adagrad (optax form) ->
-          fused_apply (per-row optimize + K2 scatter)
+          fused_apply (per-row optimize, K3 stochastic rounding for a
+          bf16 pool that asks for it, K2 scatter)
 
 State is updated in place: the table pools by the K2 scatter, the dense
 parameters and accumulators by the optimizer. (The JAX program donates
@@ -200,7 +201,8 @@ class Trainer:
         gu = dict(zip(leaves, grads[len(named):]))
         self.tx.update_(named, gp, self.opt_state)
         with torch.no_grad():
-            engine.fused_apply(self.table_states, inputs, prows, gu, step)
+            engine.fused_apply(self.table_states, inputs, prows, gu, step,
+                               seed=self.config.seed)
             preds = task.predictions(out).detach()
         loss = loss.detach()
         self._metrics_update(loss, preds, batch_t)

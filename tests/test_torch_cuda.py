@@ -1,6 +1,7 @@
-"""Tests of the port that need the card: K1/K2 against their plain versions
-on CUDA tensors, and a few train steps on the card against the CPU from one
-carried state. They skip without CUDA. On a machine with a card (and no
+"""Tests of the port that need the card: K1/K2 (f32 and bf16 pools) and K3
+against their plain versions on CUDA tensors, and a few train steps on the
+card against the CPU from one carried state (DeepFM f32, multislot bf16
+with stochastic rounding). They skip without CUDA. On a machine with a card (and no
 JAX) run them with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -14,9 +15,11 @@ import pytest
 import torch
 
 from monolith_tpu_torch import convert
-from monolith_tpu_torch.data.synthetic import SyntheticCTR
+from monolith_tpu_torch.data.synthetic import SyntheticCTR, SyntheticMultiSlot
 from monolith_tpu_torch.embedding.engine import EngineConfig
 from monolith_tpu_torch.models.deepfm import DeepFMTask
+from monolith_tpu_torch.models.multislot import MultiSlotTask
+from monolith_tpu_torch.ops import rounding
 from monolith_tpu_torch.ops import scatter as ops
 from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
 
@@ -31,15 +34,18 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,width", [(1, 128), (1000, 128), (4097, 128),
-                                     (300, 4), (300, 256)])
-def test_kernels_match_plain_on_card(card, n, width):
+@pytest.mark.parametrize("n,width,dtype", [
+    (1, 128, torch.float32), (1000, 128, torch.float32),
+    (4097, 128, torch.float32), (300, 4, torch.float32),
+    (300, 256, torch.float32), (1000, 128, torch.bfloat16),
+    (4097, 128, torch.bfloat16), (300, 8, torch.bfloat16)])
+def test_kernels_match_plain_on_card(card, n, width, dtype):
     g = torch.Generator(device=card).manual_seed(n)
     cap = 8192
-    pool = torch.randn((cap, width), generator=g, device=card)
+    pool = torch.randn((cap, width), generator=g, device=card).to(dtype)
     rows = torch.randperm(cap, generator=g, device=card)[:n].to(torch.int32)
     rows[::3] = -1
-    values = torch.randn((n, width), generator=g, device=card)
+    values = torch.randn((n, width), generator=g, device=card).to(dtype)
     before = ops.gather_rows.launches, ops.scatter_rows.launches
     out = ops.gather_rows(pool, rows)
     assert torch.equal(out, ops.gather_rows_plain(pool, rows))
@@ -72,3 +78,49 @@ def test_card_steps_match_cpu(card):
         lg = gpu.train_step(*batches[i], ts=i)["loss"].item()
         # the card's index_add backward uses atomics: order varies
         np.testing.assert_allclose(lg, lc, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(1,), (3,), (4,), (4099,), (49152, 128),
+                                   (7, 33)])
+def test_stochastic_round_matches_plain_on_card(card, shape):
+    g = torch.Generator(device=card).manual_seed(len(shape))
+    x = torch.randn(shape, generator=g, device=card) * 10
+    before = rounding.stochastic_round_bf16.launches
+    out = rounding.stochastic_round_bf16(x, 123456789012345)
+    ref = rounding.stochastic_round_bf16_plain(x, 123456789012345)
+    torch.cuda.synchronize()
+    assert rounding.stochastic_round_bf16.launches == before + 1
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    # the card's plain version draws the CPU's noise
+    cpu = rounding.stochastic_round_bf16(x.cpu(), 123456789012345)
+    assert torch.equal(out.cpu().view(torch.int16), cpu.view(torch.int16))
+
+
+def test_multislot_bf16_card_steps_match_cpu(card):
+    """bf16 pools with stochastic rounding and an f32 tower, init_scale=0.0
+    (the card's and the CPU's generators draw different init): the kernels
+    draw the plain versions' bits, but the pooling backward's atomics
+    change gradient bits, which can flip a rounding; losses agree to rtol
+    1e-3. (A bf16 tower adds the card's own bf16 rounding of the matrix
+    products; chip_smoke.py holds that case to rtol 1e-2.)"""
+    def make(device):
+        return Trainer(MultiSlotTask(
+            num_tables=4, num_slots=10, embedding_dim=8,
+            capacity_per_shard=8192, history_length=6, hidden=(32,),
+            merge=True, init_scale=0.0, table_dtype=torch.bfloat16,
+            stochastic_rounding=True),
+            TrainerConfig(engine=EngineConfig(unique_cap=2048, new_cap=2048),
+                          log_every=0), device=device)
+
+    data = SyntheticMultiSlot(num_slots=10, vocab_per_slot=300,
+                              history_length=6, batch_size=256, seed=2)
+    batches = [data.batch() for _ in range(5)]
+    cpu = make("cpu")
+    for i in range(2):
+        cpu.train_step(*batches[i], ts=i)
+    gpu = make(card)
+    convert.load_state(gpu, convert.export_state(cpu))
+    for i in range(2, 5):
+        lc = cpu.train_step(*batches[i], ts=i)["loss"].item()
+        lg = gpu.train_step(*batches[i], ts=i)["loss"].item()
+        np.testing.assert_allclose(lg, lc, rtol=1e-3)

@@ -16,7 +16,7 @@ import torch
 
 from monolith_tpu.embedding import table as jtable
 from monolith_tpu.models.deepfm import DeepFMTask as JaxDeepFMTask
-from monolith_tpu_torch import build
+from monolith_tpu_torch import build, ops
 from monolith_tpu_torch.ops import scatter as pscatter
 
 torch.set_num_threads(1)
@@ -82,7 +82,7 @@ def test_out_of_range_rows_read_zeros_and_drop():
 
 
 def test_cpu_wrappers_count_no_launches():
-    pscatter.reset_launch_counts()
+    ops.reset_launch_counts()
     pool, rows, values = _case(9, 16)
     pscatter.gather_rows(torch.from_numpy(pool), torch.from_numpy(rows))
     pscatter.scatter_rows(torch.from_numpy(pool), torch.from_numpy(rows),
