@@ -14,7 +14,9 @@ failures is caught:
      each path's shapes (DeepFM: pool [2^21, 128] f32, 32768 rows;
      multislot bf16: pool [17 x 2^18, 128] bf16, 49152 rows; ~10% of rows
      -1), and K3 (stochastic_round_bf16) at [49152, 128] f32: bit-exact;
-     each timed (kernel, plain version, one library call) beside its bound;
+     each timed (kernel, plain version, one library call) beside its bound,
+     by CUDA events around each launch after an L2 flush; beside that the
+     event floor (an empty kernel timed the same way);
   4. the DeepFM path: full-width DeepFM (bench.py's deepfm config:
      capacity 2^21, unique_cap 32768, batch 8192, hidden (256, 128, 64))
      through Trainer.train_step for 10 steps and Trainer.evaluate for 2
@@ -32,7 +34,10 @@ failures is caught:
   7. the multislot bf16 bench variant at the JAX package's test size
      trained on the card for 41 steps: train AUC > 0.515;
   8. the port's NORTHSTAR (6000 steps, batch 1024, data seed 7) trained on
-     the card: eval AUC inside NORTHSTAR_BAND.
+     the card: eval AUC inside NORTHSTAR_BAND;
+  9. each kernel's own duration from a torch.profiler window over 20
+     flushed launches at phase 3's shapes, read by kernel name (last, so
+     that no timed phase runs after the profiler has been on).
 
 TF32 is off for matrix products and convolutions (torch.backends), so the
 card's f32 dense towers run in full f32 like the CPU's. The second-to-last
@@ -49,49 +54,26 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet (bench_rows.py's too)
 # peak f32 rate outside the tensor cores (H100 SXM data sheet), the peak
 # used for K3's integer operations: a lower bound, as no 32-bit ALU
 # operation issues faster
 ALU_OPS_PER_S = 67e12
-CAP, WIDTH, U = 1 << 21, 128, 32768            # the DeepFM path
-MS_CAP, MS_U = 17 * (1 << 18), 49152           # the multislot bf16 path
+# the multislot bf16 path: pool rows, row width, rows per step
+MS_CAP, WIDTH, MS_U = 17 * (1 << 18), 128, 49152
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, reps=20):
-    """Mean device time of fn() over `reps` runs, each after a 256 MB write
-    that evicts the 50 MB L2 (the main path finds these rows cold)."""
-    import torch
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    for _ in range(3):
-        fn()
-    events = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / reps
-
-
-def warm_up(seconds=1.0):
-    """Keep the card busy for about `seconds` before the first timing, so
-    that it is not taken while the clocks still ramp up."""
-    import torch
-    a = torch.randn((4096, 4096), device="cuda")
-    t0 = time.time()
-    while time.time() - t0 < seconds:
-        for _ in range(10):
-            a = torch.tanh(a @ a)
-        torch.cuda.synchronize()
+def kernel_times(fn):
+    """A kernel's event times over 20 flushed launches: the mean (`ms`, as
+    every other time of the line) and the median, which one slow launch
+    does not move."""
+    from monolith_tpu_torch.timing import event_times_ms
+    times = event_times_ms(fn)
+    return {"ms": float(np.mean(times)), "ms_median": float(np.median(times))}
 
 
 def phase_build():
@@ -123,15 +105,14 @@ def phase_build():
             if "registers" in ln or "Compiling" in ln))
 
 
-def phase_rows(cap, width, dtype, u, path):
+def phase_rows(path, floor):
     """K1/K2 at one path's shapes against their plain versions."""
     import torch
+    from monolith_tpu_torch.bench_rows import SHAPES, bounds_ms, make_case
     from monolith_tpu_torch.ops import scatter as ops
-    g = torch.Generator(device="cuda").manual_seed(0)
-    pool = torch.randn((cap, width), generator=g, device="cuda").to(dtype)
-    rows = torch.randperm(cap, generator=g, device="cuda")[:u].to(torch.int32)
-    rows[torch.rand(u, generator=g, device="cuda") < 0.1] = -1
-    values = torch.randn((u, width), generator=g, device="cuda").to(dtype)
+    from monolith_tpu_torch.timing import time_ms
+    cap, width, dtype, u = SHAPES[path]
+    pool, rows, values = make_case(cap, width, dtype, u)
     valid = rows >= 0
     n_valid = int(valid.sum())
     row_bytes = width * pool.element_size()
@@ -154,42 +135,53 @@ def phase_rows(cap, width, dtype, u, path):
     scatter_err = float((pool_k.float() - pool_p.float()).abs().max())
     del pool_p, ref, out
 
+    geometry = ops.kernel_geometry(u, row_bytes)
+    tile_rows, smem = ops.tile_geometry(row_bytes)
+    assert (geometry["warps"], geometry["stages"], geometry["tile_rows"],
+            geometry["smem_bytes"]) == (ops.WARPS, ops.STAGES, tile_rows,
+                                        smem), geometry
+    grid = ops.grid_size(u, tile_rows, geometry["blocks_per_sm"],
+                         geometry["sms"])
+    assert geometry["gather_grid"] == geometry["scatter_grid"] == grid, \
+        (geometry, grid)
+
     safe = rows.clamp(min=0).long()
     vrows, vvals = rows[valid].long(), values[valid]
+    # K1: rows read + valid pool rows read + every output row written;
+    # K2: rows read + valid value rows read + valid pool rows written
+    bound1, bound2 = bounds_ms(u, n_valid, row_bytes)
     k1 = {"name": "gather_rows", "path": path, "route": "cuda",
           "source": "monolith_tpu_torch/csrc/rows.cu",
           "replaces": "monolith_tpu/ops/scatter.py:143", "shape": shape,
           "max_abs_err": gather_err,
-          "ms": time_ms(lambda: ops.gather_rows(pool, rows)),
+          **kernel_times(lambda: ops.gather_rows(pool, rows)),
           "plain_ms": time_ms(lambda: ops.gather_rows_plain(pool, rows)),
-          # rows read + valid pool rows read + every output row written
-          "bound_ms": (u * 4 + n_valid * row_bytes + u * row_bytes)
-          / HBM_BYTES_PER_S * 1e3,
-          "bound_by": "bytes",
+          "bound_ms": bound1, "bound_by": "bytes",
           "library_ms": time_ms(lambda: torch.index_select(pool, 0, safe))}
     k2 = {"name": "scatter_rows", "path": path, "route": "cuda",
           "source": "monolith_tpu_torch/csrc/rows.cu",
           "replaces": "monolith_tpu/ops/scatter.py:177", "shape": shape,
           "max_abs_err": scatter_err,
-          "ms": time_ms(lambda: ops.scatter_rows(pool_k, rows, values)),
+          **kernel_times(lambda: ops.scatter_rows(pool_k, rows, values)),
           "plain_ms": time_ms(lambda: ops.scatter_rows_plain(pool_k, rows,
                                                              values)),
-          # rows read + valid value rows read + valid pool rows written
-          "bound_ms": (u * 4 + 2 * n_valid * row_bytes)
-          / HBM_BYTES_PER_S * 1e3,
-          "bound_by": "bytes",
+          "bound_ms": bound2, "bound_by": "bytes",
           "library_ms": time_ms(lambda: pool_k.index_copy_(0, vrows, vvals))}
     for k in (k1, k2):
-        log(f"{k['name']} [{path}]: bit-exact; {k['ms']:.4f} ms (plain "
-            f"{k['plain_ms']:.4f}, library {k['library_ms']:.4f}, bound "
-            f"{k['bound_ms']:.4f}); {shape}")
+        k["event_floor_ms"] = floor
+        log(f"{k['name']} [{path}]: bit-exact; {k['ms']:.4f} ms by events "
+            f"(median {k['ms_median']:.4f}, floor {floor:.4f}; plain {k['plain_ms']:.4f}, library "
+            f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f}); {shape}; "
+            f"grid {grid} x {ops.WARPS} warps, {tile_rows} rows a tile, "
+            f"{smem} B of shared memory")
     return [k1, k2]
 
 
-def phase_rounding(path):
+def phase_rounding(path, floor):
     """K3 at the multislot path's shape against its plain version."""
     import torch
     from monolith_tpu_torch.ops import rounding
+    from monolith_tpu_torch.timing import time_ms
     g = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((MS_U, WIDTH), generator=g, device="cuda")
     seed = 0x0123456789ABCDEF
@@ -213,7 +205,8 @@ def phase_rounding(path):
           "shape": f"x [{MS_U},{WIDTH}] f32 -> bf16",
           "max_abs_err": float((out.float() - ref.float()).abs().max()),
           "mean_gap": mean_gap,
-          "ms": time_ms(lambda: rounding.stochastic_round_bf16(x, seed)),
+          **kernel_times(lambda: rounding.stochastic_round_bf16(x, seed)),
+          "event_floor_ms": floor,
           "plain_ms": time_ms(
               lambda: rounding.stochastic_round_bf16_plain(x, seed)),
           "bound_ms": max(bytes_ms, ops_ms),
@@ -223,10 +216,44 @@ def phase_rounding(path):
           "library_ms": time_ms(lambda: x.to(torch.bfloat16)),
           "library_call": "x.to(torch.bfloat16) (round to nearest)"}
     log(f"stochastic_round_bf16 [{path}]: bit-exact, mean gap {mean_gap:.3e}; "
-        f"{k3['ms']:.4f} ms (plain {k3['plain_ms']:.4f}, x.to(bf16) "
+        f"{k3['ms']:.4f} ms by events (median {k3['ms_median']:.4f}, floor "
+        f"{floor:.4f}; plain "
+        f"{k3['plain_ms']:.4f}, x.to(bf16) "
         f"{k3['library_ms']:.4f}, bound {k3['bound_ms']:.4f} by "
         f"{k3['bound_by']}; ops bound {ops_ms:.4f})")
     return [k3]
+
+
+def phase_kernel_durations(kernels):
+    """Each kernel's own duration, by kernel name, from a torch.profiler
+    window (CPU + CUDA) over 20 flushed launches at the shapes of phase 3,
+    written into its entry as `kernel_ms_profiler` (None where the profiler
+    saw no device time). It runs after every timed phase, so that none of
+    them runs in a process that has had the profiler on."""
+    import torch
+    from monolith_tpu_torch.bench_rows import SHAPES, make_case
+    from monolith_tpu_torch.ops import rounding
+    from monolith_tpu_torch.ops import scatter as ops
+    from monolith_tpu_torch.timing import profiler_ms
+    calls = {}
+    for path in SHAPES:
+        pool, rows, values = make_case(*SHAPES[path])
+        calls["gather_rows", path] = (
+            lambda pool=pool, rows=rows: ops.gather_rows(pool, rows))
+        calls["scatter_rows", path] = (
+            lambda pool=pool, rows=rows, values=values:
+            ops.scatter_rows(pool, rows, values))
+    x = torch.randn((MS_U, WIDTH), device="cuda")
+    calls["stochastic_round_bf16", "multislot_bf16"] = (
+        lambda: rounding.stochastic_round_bf16(x, 1))
+    for k in kernels:
+        ms = profiler_ms(calls[k["name"], k["path"]], k["name"] + "_kernel")
+        k["kernel_ms_profiler"] = ms
+        log(f"{k['name']} [{k['path']}]: "
+            + ("the profiler saw no device time" if ms is None else
+               f"{ms:.4f} ms by the profiler's kernel duration ({k['ms']:.4f} "
+               f"by events, floor {k['event_floor_ms']:.4f}, bound "
+               f"{k['bound_ms']:.4f})"))
 
 
 def drive_path(name, trainer, batches, steps, evals, expect):
@@ -407,11 +434,14 @@ def main():
         f"python {sys.version.split()[0]}")
     t0 = time.time()
     phase_build()
-    warm_up()
-    kernels = phase_rows(CAP, WIDTH, torch.float32, U, "deepfm_f32")
-    kernels += phase_rows(MS_CAP, WIDTH, torch.bfloat16, MS_U,
-                          "multislot_bf16")
-    kernels += phase_rounding("multislot_bf16")
+    from monolith_tpu_torch import timing
+    timing.warm_up()
+    floor = timing.event_floor_ms()
+    log(f"event floor: {floor:.4f} ms (an empty kernel between two events, "
+        f"after the L2 flush, as every kernel below is timed)")
+    kernels = phase_rows("deepfm_f32", floor)
+    kernels += phase_rows("multislot_bf16", floor)
+    kernels += phase_rounding("multislot_bf16", floor)
     torch.cuda.empty_cache()
     launches = {"deepfm_f32": phase_deepfm_path()}
     torch.cuda.empty_cache()
@@ -423,6 +453,8 @@ def main():
     phase_multislot_card_vs_cpu()
     phase_multislot_trains()
     phase_northstar()
+    torch.cuda.empty_cache()
+    phase_kernel_durations(kernels)
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

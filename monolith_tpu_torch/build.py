@@ -109,9 +109,11 @@ def nvcc_path() -> str:
 KERNEL_SOURCES = ("rows", "rounding")
 
 
-def build_kernel_library(name: str = "rows") -> str:
-    """lib<name>.so: the kernels of csrc/<name>.cu for sm_90a."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+def build_kernel_library(name: str = "rows", src: str = "") -> str:
+    """lib<name>.so: the kernels of csrc/<name>.cu for sm_90a (or of `src`,
+    another source with the same C interface, built with the same command:
+    bench_rows.py times an earlier commit's kernels that way)."""
+    src = src or os.path.join(CSRC_DIR, f"{name}.cu")
     nvcc = nvcc_path()
     return build_shared(
         f"lib{name}", [src],

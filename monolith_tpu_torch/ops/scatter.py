@@ -11,11 +11,20 @@ kernels. On the card each launches a CUDA kernel from csrc/rows.cu
   unique (host-deduped), so plain stores suffice.
 
 Both are pure data movement, bounded by HBM bytes: at the DeepFM path's
-shapes (pool [2^21, 128] f32, 32768 rows) about 33.5 MB, ~10 us at
-3.35 TB/s; at the multislot bf16 path's (pool [17 x 2^18, 128] bf16, 256-B
-rows, 49152 rows) about 24 MB, ~7 us. Design: one warp per row, 16 bytes a
-lane, coalesced; a grid-stride loop over rows (see the note in
-csrc/rows.cu). A 256-byte row keeps 16 of the warp's 32 lanes busy.
+shapes (pool [2^21, 128] f32, 32768 rows of 512 B) about 33.5 MB; at the
+multislot bf16 path's (pool [17 x 2^18, 128] bf16, 49152 rows of 256 B)
+about 24 MB. The rows are a random draw over a pool of about 1 GiB, so
+what keeps a kernel from its bound is latency: the index, then the row,
+each a cold read. Design (see the note in csrc/rows.cu): a persistent grid
+of 8-warp blocks; every warp owns a ring of `STAGES` stages in shared
+memory and walks tiles of `tile_rows` indices; the rows are moved by
+Hopper's bulk asynchronous copies (one per row between the pool and a
+stage, one per tile between a stage and the contiguous side), completion
+counted on one mbarrier a stage; the indices of a later tile are loaded
+while an earlier tile drains. `tile_geometry`, `grid_size` and
+`tile_spans` mirror the kernels' arithmetic, so that the CPU tests reach
+it; `kernel_geometry` reads the C side's, for the card tests to hold the
+two equal.
 
 On a CPU tensor a wrapper runs its plain PyTorch version
 (`gather_rows_plain`, `scatter_rows_plain`, same semantics). On a CUDA
@@ -26,13 +35,15 @@ counts its kernel launches in `<wrapper>.launches`.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Iterator, Tuple
 
 import torch
 
 from monolith_tpu_torch import build
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def declare_rows(lib: ctypes.CDLL) -> None:
+    """The C interface of K1 and K2, which every build of them keeps."""
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.mt_gather_rows.restype = ctypes.c_int
     lib.mt_gather_rows.argtypes = [vp, i64, vp, i64, vp, i64, vp]
@@ -40,9 +51,76 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mt_scatter_rows.argtypes = [vp, i64, vp, vp, i64, i64, vp]
 
 
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    declare_rows(lib)
+    lib.mt_rows_geometry.restype = ctypes.c_int
+    lib.mt_rows_geometry.argtypes = [i64, i64, ctypes.POINTER(i64)]
+    lib.mt_noop.restype = ctypes.c_int
+    lib.mt_noop.argtypes = [vp]
+
+
 def kernel_library() -> ctypes.CDLL:
     """The built K1/K2 library (compiled with nvcc at first use)."""
     return build.load_kernel_library("rows", _declare)
+
+
+#: csrc/rows.cu's constants: warps a block (each with its own ring), stages
+#: a ring, the most bytes and rows of a stage, the shared memory one block
+#: may use on an H100 (227 KB)
+WARPS, STAGES, STAGE_BYTES, MAX_TILE_ROWS, MAX_SMEM = 8, 3, 8192, 32, 232448
+
+
+def tile_geometry(row_bytes: int) -> Tuple[int, int]:
+    """(tile_rows, shared-memory bytes a block) for rows of `row_bytes`: a
+    stage holds as many rows as fit STAGE_BYTES, at least 1 and at most one
+    a lane; a block holds WARPS x STAGES stages and an 8-byte mbarrier for
+    each. Raises for a row that is no whole number of 16-byte vectors or
+    too wide for the ring to fit."""
+    if row_bytes <= 0 or row_bytes % 16:
+        raise ValueError(f"rows must be whole 16-byte vectors ({row_bytes} B "
+                         f"per row)")
+    tile_rows = min(max(STAGE_BYTES // row_bytes, 1), MAX_TILE_ROWS)
+    smem = WARPS * STAGES * (tile_rows * row_bytes + 8)
+    if smem > MAX_SMEM:
+        raise ValueError(f"rows of {row_bytes} B are too wide: {WARPS} x "
+                         f"{STAGES} stages need {smem} B of shared memory "
+                         f"(at most {MAX_SMEM})")
+    return tile_rows, smem
+
+
+def grid_size(n: int, tile_rows: int, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of the persistent grid: all the card holds at once, or fewer
+    where n rows do not fill that many blocks' warps with a tile each."""
+    tiles = -(-n // tile_rows)
+    return min(-(-tiles // WARPS), blocks_per_sm * sms)
+
+
+def tile_spans(n: int, tile_rows: int, grid: int
+               ) -> Iterator[Tuple[int, int, int, int, int]]:
+    """The kernels' walk: (block, warp, stage, start, stop) for every tile,
+    in each warp's order. Warp `warp` of block `block` is warp number
+    warp * grid + block of the grid and takes every (grid * WARPS)-th
+    tile from there on, its k-th tile in stage k % STAGES."""
+    tiles = -(-n // tile_rows)
+    for block in range(grid):
+        for warp in range(WARPS):
+            mine = range(warp * grid + block, tiles, grid * WARPS)
+            for k, t in enumerate(mine):
+                yield (block, warp, k % STAGES, t * tile_rows,
+                       min((t + 1) * tile_rows, n))
+
+
+def kernel_geometry(n: int, row_bytes: int) -> Dict[str, int]:
+    """What csrc/rows.cu computes for n rows of `row_bytes` on the current
+    card (needs the card)."""
+    out = (ctypes.c_int64 * 8)()
+    err = kernel_library().mt_rows_geometry(n, row_bytes, out)
+    if err:
+        raise RuntimeError(f"mt_rows_geometry failed (CUDA error {err})")
+    keys = ("warps", "stages", "tile_rows", "smem_bytes", "gather_grid",
+            "scatter_grid", "blocks_per_sm", "sms")
+    return dict(zip(keys, out))
 
 
 def gather_rows_plain(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -78,10 +156,38 @@ def _check_cuda(name: str, pool: torch.Tensor, rows: torch.Tensor,
     if pool.dim() != 2:
         raise ValueError(f"{name}: pool must be [cap, width]")
     row_bytes = pool.shape[1] * pool.element_size()
-    if row_bytes % 16 or any(t.data_ptr() % 16 for t in (pool,) + others):
-        raise ValueError(f"{name}: rows must be whole 16-byte vectors "
-                         f"({row_bytes} B per row)")
+    tile_geometry(row_bytes)  # raises for a width the kernels do not take
+    if any(t.data_ptr() % 16 for t in (pool,) + others):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned")
     return row_bytes
+
+
+def launch_gather(lib: ctypes.CDLL, pool: torch.Tensor, rows: torch.Tensor,
+                  out: torch.Tensor, row_bytes: int) -> None:
+    """Launch `lib`'s K1 on checked tensors (bench_rows.py passes another
+    build's library here); raises if the launch is refused."""
+    with torch.cuda.device(pool.device):
+        err = lib.mt_gather_rows(pool.data_ptr(), pool.shape[0],
+                                 rows.data_ptr(), rows.shape[0],
+                                 out.data_ptr(), row_bytes,
+                                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"gather_rows: kernel launch failed (CUDA error "
+                           f"{err})")
+
+
+def launch_scatter(lib: ctypes.CDLL, pool: torch.Tensor, rows: torch.Tensor,
+                   values: torch.Tensor, row_bytes: int) -> None:
+    """Launch `lib`'s K2 on checked tensors; raises if the launch is
+    refused."""
+    with torch.cuda.device(pool.device):
+        err = lib.mt_scatter_rows(pool.data_ptr(), pool.shape[0],
+                                  rows.data_ptr(), values.data_ptr(),
+                                  rows.shape[0], row_bytes,
+                                  torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"scatter_rows: kernel launch failed (CUDA error "
+                           f"{err})")
 
 
 def gather_rows(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -95,15 +201,7 @@ def gather_rows(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     n = rows.shape[0]
     if n == 0:
         return out
-    lib = kernel_library()
-    with torch.cuda.device(pool.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mt_gather_rows(pool.data_ptr(), pool.shape[0],
-                                 rows.data_ptr(), n, out.data_ptr(),
-                                 row_bytes, stream)
-    if err:
-        raise RuntimeError(f"gather_rows: kernel launch failed (CUDA error "
-                           f"{err})")
+    launch_gather(kernel_library(), pool, rows, out, row_bytes)
     gather_rows.launches += 1
     return out
 
@@ -128,15 +226,7 @@ def scatter_rows(pool: torch.Tensor, rows: torch.Tensor,
     n = rows.shape[0]
     if n == 0:
         return pool
-    lib = kernel_library()
-    with torch.cuda.device(pool.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mt_scatter_rows(pool.data_ptr(), pool.shape[0],
-                                  rows.data_ptr(), values.data_ptr(), n,
-                                  row_bytes, stream)
-    if err:
-        raise RuntimeError(f"scatter_rows: kernel launch failed (CUDA error "
-                           f"{err})")
+    launch_scatter(kernel_library(), pool, rows, values, row_bytes)
     scatter_rows.launches += 1
     return pool
 

@@ -34,17 +34,52 @@ def card():
     return torch.device("cuda")
 
 
+#: row counts around one tile (T rows) and one ring (S stages) of a width
+EDGE_COUNTS = {"T-1": lambda t, s: t - 1, "T": lambda t, s: t,
+               "T+1": lambda t, s: t + 1, "S*T+1": lambda t, s: s * t + 1}
+
+
+def _n_of(n, row_bytes):
+    """A row count given as a number or as a key of EDGE_COUNTS."""
+    if isinstance(n, int):
+        return n
+    tile_rows, _ = ops.tile_geometry(row_bytes)
+    return EDGE_COUNTS[n](tile_rows, ops.STAGES)
+
+
+@pytest.mark.parametrize("rows_kind", ["mixed", "all_minus_one",
+                                       "none_minus_one", "beyond_cap"])
 @pytest.mark.parametrize("n,width,dtype", [
     (1, 128, torch.float32), (1000, 128, torch.float32),
     (4097, 128, torch.float32), (300, 4, torch.float32),
     (300, 256, torch.float32), (1000, 128, torch.bfloat16),
-    (4097, 128, torch.bfloat16), (300, 8, torch.bfloat16)])
-def test_kernels_match_plain_on_card(card, n, width, dtype):
+    (4097, 128, torch.bfloat16), (300, 8, torch.bfloat16),
+    # around one tile and one ring, in both pool types
+    ("T-1", 128, torch.float32), ("T", 128, torch.float32),
+    ("T+1", 128, torch.float32), ("S*T+1", 128, torch.float32),
+    ("T-1", 128, torch.bfloat16), ("T", 128, torch.bfloat16),
+    ("T+1", 128, torch.bfloat16), ("S*T+1", 128, torch.bfloat16),
+    # more tiles than the grid's warps have stages: every stage wraps at
+    # least twice (132 blocks x 8 warps x 3 stages x 32 rows = 101,376)
+    (200_000, 128, torch.float32), (250_000, 128, torch.bfloat16),
+    # 16-, 1024- and 2048-byte rows
+    (5000, 4, torch.float32), (5000, 8, torch.bfloat16),
+    (5000, 256, torch.float32), (5000, 512, torch.bfloat16),
+    (5000, 512, torch.float32), (5000, 1024, torch.bfloat16)])
+def test_kernels_match_plain_on_card(card, n, width, dtype, rows_kind):
+    row_bytes = width * torch.empty((), dtype=dtype).element_size()
+    n = _n_of(n, row_bytes)
     g = torch.Generator(device=card).manual_seed(n)
-    cap = 8192
+    cap = 1 << 18
     pool = torch.randn((cap, width), generator=g, device=card).to(dtype)
     rows = torch.randperm(cap, generator=g, device=card)[:n].to(torch.int32)
-    rows[::3] = -1
+    if rows_kind == "mixed":
+        rows[::3] = -1
+    elif rows_kind == "all_minus_one":
+        rows[:] = -1
+    elif rows_kind == "beyond_cap":
+        rows[::2] += cap
+        rows[1::7] = -1
     values = torch.randn((n, width), generator=g, device=card).to(dtype)
     before = ops.gather_rows.launches, ops.scatter_rows.launches
     out = ops.gather_rows(pool, rows)
@@ -56,6 +91,22 @@ def test_kernels_match_plain_on_card(card, n, width, dtype):
     assert torch.equal(a, b)
     assert (ops.gather_rows.launches, ops.scatter_rows.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("row_bytes", [16, 32, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("n", [1, 1000, 49152, 1_000_000])
+def test_python_geometry_mirrors_the_kernels(card, n, row_bytes):
+    """ops/scatter.py's arithmetic (the CPU tests' subject) is what
+    csrc/rows.cu launches with."""
+    got = ops.kernel_geometry(n, row_bytes)
+    tile_rows, smem = ops.tile_geometry(row_bytes)
+    assert (got["warps"], got["stages"], got["tile_rows"],
+            got["smem_bytes"]) == (ops.WARPS, ops.STAGES, tile_rows, smem)
+    assert got["blocks_per_sm"] >= 1
+    grid = ops.grid_size(n, tile_rows, got["blocks_per_sm"], got["sms"])
+    assert got["gather_grid"] == grid
+    # K2's kernel may fit another number of blocks an SM than K1's
+    assert 1 <= got["scatter_grid"] <= -(-(-(-n // tile_rows)) // ops.WARPS)
 
 
 def test_card_steps_match_cpu(card):
@@ -102,7 +153,7 @@ def test_multislot_bf16_card_steps_match_cpu(card):
     draw the plain versions' bits, but the pooling backward's atomics
     change gradient bits, which can flip a rounding; losses agree to rtol
     1e-3. (A bf16 tower adds the card's own bf16 rounding of the matrix
-    products; chip_smoke.py holds that case to rtol 1e-2.)"""
+    products; chip_smoke.py holds that case to rtol 1e-3 too.)"""
     def make(device):
         return Trainer(MultiSlotTask(
             num_tables=4, num_slots=10, embedding_dim=8,

@@ -6,7 +6,10 @@ is table.gather_packed / table.scatter_packed, whose CPU path is the XLA
 gather/scatter with the Pallas kernels' semantics (tests/test_table.py
 holds the two equal on a TPU). Copies are exact, so every comparison is
 bit for bit. The kernels themselves run on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+(tests/test_torch_cuda.py, chip_smoke.py); what the CPU reaches of them is
+their tile geometry (`tile_geometry`, `grid_size`, `tile_spans`, which
+mirror csrc/rows.cu), held here by its invariants and by a tile-by-tile
+walk that must reproduce the plain versions.
 """
 
 import jax.numpy as jnp
@@ -117,3 +120,95 @@ def test_scatter_rejects_mismatched_values():
     with pytest.raises(ValueError, match="match"):
         pscatter.scatter_rows(torch.from_numpy(pool), torch.from_numpy(rows),
                               torch.from_numpy(values[:, :64].copy()))
+
+
+ROW_BYTES = [16, 32, 256, 512, 1024, 2048]
+
+
+@pytest.mark.parametrize("row_bytes", ROW_BYTES)
+def test_tile_geometry_fits_the_card(row_bytes):
+    """Every width in use fits one block's 227 KB; a stage holds at least
+    one row and at most one a lane, and starts on a 16-byte boundary (bulk
+    copies need it), as does every row in it."""
+    tile_rows, smem = pscatter.tile_geometry(row_bytes)
+    stage = tile_rows * row_bytes
+    assert 1 <= tile_rows <= 32
+    assert stage <= pscatter.STAGE_BYTES and stage % 16 == 0
+    assert smem == pscatter.WARPS * pscatter.STAGES * (stage + 8)
+    assert smem <= 227 * 1024 == pscatter.MAX_SMEM
+    # the barriers follow the stages: 8-byte aligned
+    assert (pscatter.WARPS * pscatter.STAGES * stage) % 8 == 0
+    # no wider stage would do: one more row overflows it or the warp
+    assert tile_rows == 32 or (tile_rows + 1) * row_bytes > \
+        pscatter.STAGE_BYTES
+
+
+@pytest.mark.parametrize("row_bytes", [0, -16, 8, 24, 100, 16384])
+def test_tile_geometry_rejects_what_the_kernels_do_not_take(row_bytes):
+    with pytest.raises(ValueError, match="16-byte vectors|too wide"):
+        pscatter.tile_geometry(row_bytes)
+
+
+def _edge_counts(tile_rows):
+    s = pscatter.STAGES
+    return sorted({1, tile_rows - 1, tile_rows, tile_rows + 1,
+                   s * tile_rows + 1,
+                   2 * pscatter.WARPS * s * tile_rows + 3} - {0})
+
+
+@pytest.mark.parametrize("grid_cap", [1, 3, 132])
+@pytest.mark.parametrize("row_bytes", ROW_BYTES)
+def test_tiles_cover_every_row_once(row_bytes, grid_cap):
+    """The grid's warps walk tiles that cover [0, n) exactly once, each
+    warp's k-th tile in stage k % STAGES, for n around the tile and ring
+    sizes and for grids smaller than the tiles need (stages wrap)."""
+    tile_rows, _ = pscatter.tile_geometry(row_bytes)
+    for n in _edge_counts(tile_rows):
+        grid = pscatter.grid_size(n, tile_rows, 1, grid_cap)
+        tiles = -(-n // tile_rows)
+        assert 1 <= grid <= grid_cap
+        assert grid * pscatter.WARPS >= min(tiles, grid_cap * pscatter.WARPS)
+        seen = np.zeros(n, np.int32)
+        uses = {}
+        for block, warp, stage, start, stop in pscatter.tile_spans(
+                n, tile_rows, grid):
+            assert 0 <= block < grid and 0 <= warp < pscatter.WARPS
+            assert 0 < stop - start <= tile_rows and start % tile_rows == 0
+            k = uses.get((block, warp), 0)
+            assert stage == k % pscatter.STAGES
+            uses[(block, warp)] = k + 1
+            seen[start:stop] += 1
+        assert (seen == 1).all(), (n, grid)
+        # work is spread evenly: no warp walks more than one tile more
+        # than another that has any
+        assert max(uses.values()) - min(uses.values()) <= 1 or \
+            len(uses) < grid * pscatter.WARPS
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 49, 256])
+def test_tile_walk_reproduces_the_plain_versions(n):
+    """K1 and K2 emulated tile by tile over the kernels' walk (a stage
+    buffer filled row by row, zeros for rows outside [0, cap), then moved
+    as one block) equal the plain versions bit for bit."""
+    pool, rows, values = _case(200 + n, n)
+    rows[::5] = CAP + 3   # beyond the pool as well as -1
+    tile_rows, _ = pscatter.tile_geometry(P * 4)
+    grid = pscatter.grid_size(n, tile_rows, 1, 2)
+    out = np.full((n, P), np.nan, np.float32)
+    scattered = pool.copy()
+    for _b, _w, _s, start, stop in pscatter.tile_spans(n, tile_rows, grid):
+        stage = np.zeros((stop - start, P), np.float32)
+        for j, r in enumerate(rows[start:stop]):
+            if 0 <= r < CAP:
+                stage[j] = pool[r]
+                scattered[r] = values[start + j]
+        out[start:stop] = stage
+    ref = pscatter.gather_rows_plain(torch.from_numpy(pool),
+                                     torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(out.view(np.int32), ref.view(np.int32))
+    ref_pool = pscatter.scatter_rows_plain(
+        torch.from_numpy(pool.copy()), torch.from_numpy(rows),
+        torch.from_numpy(values)).numpy()
+    np.testing.assert_array_equal(scattered.view(np.int32),
+                                  ref_pool.view(np.int32))
+
