@@ -19,14 +19,37 @@ failures is caught:
      event floor (an empty kernel timed the same way);
   4. the DeepFM path: full-width DeepFM (bench.py's deepfm config:
      capacity 2^21, unique_cap 32768, batch 8192, hidden (256, 128, 64))
-     through Trainer.train_step for 10 steps and Trainer.evaluate for 2
-     batches, with the kernels' launch counts read right after;
+     through Trainer.train_step for 4 steps and Trainer.evaluate for 1
+     batch, with the kernels' launch counts read right after;
   5. the multislot bf16 path: bench.py's multislot config with
      MT_BENCH_DTYPE=bf16 at full width (16 + 1 tables merged into one bf16
      pool of 17 x 2^18 rows, stochastic rounding, 40 slots + a 20-long
      DIN history, bf16 dense tower (256, 128, 64), unique_cap 49152, batch
-     8192), 10 train steps and 2 eval batches, launch counts read right
+     8192), 4 train steps and 1 eval batch, launch counts read right
      after;
+  5b. the DeepFM block path: the same DeepFM config with
+     steps_per_dispatch=8: one train_step, then 3 blocks of 8 through
+     stage_block + train_step_block(..., staged=...) in bench.py's order
+     (block k+1 staged right after block k is dispatched), then 1 eval
+     batch; launch counts K1 = 1 + 24 + 1, K2 = 1 + 24; finite losses
+     that agree with phase 4's over the steps both ran (the stream hardly
+     repeats an id in 25 steps, so the loss stays at 0.696 and cannot be
+     asked to fall); every train_step_block runs with PyTorch's synchronisation
+     check set to raise; a staged block dispatched out of turn raises;
+  5c. the multislot bf16 asynchronous block path: the same multislot
+     config with async_optimize=True, same shape of run; K1 = 1 + 2*24 + 1
+     (two gathers a step of a block), K2 = K3 = 1 + 24 (the first step of
+     a block has no pending write-back and launches none; the last
+     step's lands at the end of its block); finite, falling losses whose
+     first two agree with phase 5's;
+     both block phases print ms per step of the block path and of the
+     per-step path in the same trainer, the host pack per step and the
+     upload per block;
+  5d. the block on the card against the block on the CPU from one carried
+     state: a small DeepFM with its vector segment under DC, clip_norm
+     0.05 and init_scale 0.0, synchronous and asynchronous (losses rtol
+     1e-4, live pool rows rtol 1e-4 / atol 1e-5), and the small multislot
+     bf16 variant, asynchronous (losses rtol 1e-3);
   6. small trainers on the card and on the CPU from one carried state,
      3 steps each: DeepFM f32 losses agree to rtol 1e-4; the multislot
      bf16 variant (bf16 pools, stochastic rounding, bf16 tower) to rtol
@@ -286,37 +309,240 @@ def drive_path(name, trainer, batches, steps, evals, expect):
         f"ms/step {1e3 * np.mean(times[2:]):.3f} (steps 3-{steps}, host "
         f"clock with synchronize; first step {1e3 * times[0]:.1f} ms); "
         f"uniques/step {int(np.mean(uniques))}; launches {launches}")
-    return launches
+    return launches, losses
+
+
+PATH_STEPS, PATH_EVALS = 4, 1   # the per-step path phases
+BLOCK_K, BLOCKS = 8, 3          # the block path phases
 
 
 def phase_deepfm_path():
-    """Full-width DeepFM: 10 train steps + 2 eval batches."""
+    """Full-width DeepFM: 4 train steps + 1 eval batch."""
     from monolith_tpu_torch.profile_step import CONFIGS
-    steps, evals = 10, 2
+    steps, evals = PATH_STEPS, PATH_EVALS
     trainer, data = CONFIGS["deepfm"]()
     batches = [data.batch() for _ in range(steps + evals)]
     return drive_path("deepfm_f32", trainer, batches, steps, evals,
                       {"gather_rows": steps + evals, "scatter_rows": steps,
-                       "stochastic_round_bf16": 0})
+                       "stochastic_round_bf16": 0})  # (launches, losses)
 
 
 def phase_multislot_path():
     """Full-width multislot bf16 (bench.py:224-242 with
-    MT_BENCH_DTYPE=bf16): 10 train steps + 2 eval batches."""
+    MT_BENCH_DTYPE=bf16): 4 train steps + 1 eval batch."""
     import torch
     from monolith_tpu_torch.profile_step import CONFIGS
-    steps, evals = 10, 2
+    steps, evals = PATH_STEPS, PATH_EVALS
     trainer, data = CONFIGS["multislot_bf16"]()
     pool = trainer.table_states["table_all"]["data"]
     assert pool.dtype == torch.bfloat16 and tuple(pool.shape) == \
         (MS_CAP, WIDTH), (pool.dtype, pool.shape)
     batches = [data.batch() for _ in range(steps + evals)]
-    launches = drive_path("multislot_bf16", trainer, batches, steps, evals,
-                          {"gather_rows": steps + evals,
-                           "scatter_rows": steps,
-                           "stochastic_round_bf16": steps})
+    launches, losses = drive_path(
+        "multislot_bf16", trainer, batches, steps, evals,
+        {"gather_rows": steps + evals, "scatter_rows": steps,
+         "stochastic_round_bf16": steps})
     assert trainer.table_states["table_all"]["data"].dtype == torch.bfloat16
+    return launches, losses
+
+
+def drive_block_path(name, trainer, data, expect, per_step_losses, same,
+                     rtol, falling):
+    """One train_step, then BLOCKS blocks of BLOCK_K through stage_block +
+    train_step_block in bench.py's order, then 1 eval batch, with every
+    kernel's launch count set to 0 just before and read just after. Every
+    train_step_block runs with PyTorch's synchronisation check set to
+    raise, so a host-device synchronisation inside a block fails the
+    phase. The losses must be finite, agree over their first `same` steps
+    with `per_step_losses` (the per-step path's on the same stream, from a
+    trainer of the same seed) to `rtol`, and fall (`falling`: the mean of
+    the last block under the mean of the first 8 steps) or, on a stream
+    whose ids hardly repeat within 25 steps, stay within 0.01 of where
+    they began. Then, outside the counted run: a staged block dispatched out of
+    turn must raise; the per-step path's time in the same trainer; the
+    host pack and upload costs."""
+    import torch
+    from monolith_tpu_torch import ops
+    from monolith_tpu_torch.profile_step import block_costs, run_blocks
+    K, n = BLOCK_K, BLOCK_K * BLOCKS
+    batches = [data.batch() for _ in range(1 + n + 1)]
+    batch = len(batches[0][1]["label"])
+    block = trainer.train_step_block
+
+    def checked_block(pairs, ts=None, staged=None):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return block(pairs, ts=ts, staged=staged)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    trainer.train_step_block = checked_block
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    first = trainer.train_step(*batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = run_blocks(trainer, batches[1:1 + n], K)
+    torch.cuda.synchronize()
+    block_ms = (time.perf_counter() - t0) / n * 1e3
+    ev = trainer.evaluate(iter(batches[1 + n:]), max_steps=1)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert launches == expect, (launches, expect)
+    assert trainer.step == 1 + n
+    for out in outs:
+        assert out["loss"].shape == (K,) and out["preds"].shape == (K, batch)
+        assert len(out["stats"]) == K
+        assert not any(any(st["overflow"].values()) for st in out["stats"])
+    losses = torch.cat([first["loss"][None]] + [o["loss"] for o in outs]
+                       ).cpu().numpy()
+    assert np.isfinite(losses).all(), f"non-finite losses {losses}"
+    np.testing.assert_allclose(losses[:same], per_step_losses[:same],
+                               rtol=rtol)
+    if falling:
+        assert losses[-K:].mean() < losses[:K].mean(), \
+            f"loss not falling {losses}"
+    else:
+        assert np.abs(losses - losses[0]).max() < 0.01, \
+            f"loss drifting {losses}"
+    assert np.isfinite(ev["loss"]) and 0.0 <= ev["auc"] <= 1.0, ev
+
+    # a staged block is only good for the very next dispatch
+    more = [data.batch() for _ in range(2 * K + 1)]
+    staged = trainer.stage_block(more[:K])
+    trainer.train_step(*more[2 * K])
+    try:
+        trainer.train_step_block(more[:K], staged=staged)
+    except ValueError as e:
+        assert "not the next dispatch" in str(e), e
+    else:
+        raise AssertionError("a staged block dispatched out of turn ran")
+
+    # the per-step path in the same trainer, no synchronisation between
+    # steps either
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fb, b in more[K:2 * K]:
+        trainer.train_step(fb, b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / K * 1e3
+    pack_ms, upload_ms, nbytes = block_costs(trainer, more[:K], K)
+    log(f"{name} block path: losses {np.round(losses, 5).tolist()}; eval "
+        f"{ev}; ms/step {block_ms:.3f} over {BLOCKS} blocks of {K} (host "
+        f"clock, one synchronize at the end); per-step path in the same "
+        f"trainer {step_ms:.3f} ms/step ({K} steps, one synchronize at the "
+        f"end); host pack {pack_ms:.3f} ms/step; upload {upload_ms:.3f} "
+        f"ms/block ({nbytes} bytes); launches {launches}")
     return launches
+
+
+def phase_deepfm_block_path(per_step_losses):
+    """Full-width DeepFM (bench.py:178-185), steps_per_dispatch=8. Its
+    stream (10^6 users, 2 x 10^5 items) hardly repeats an id within 25
+    steps of 8192, so the loss stays at its start (0.696) and is held
+    against the per-step path's instead of being asked to fall."""
+    from monolith_tpu_torch.profile_step import CONFIGS
+    trainer, data = CONFIGS["deepfm"](steps_per_dispatch=BLOCK_K)
+    n = BLOCK_K * BLOCKS
+    return drive_block_path("deepfm_f32", trainer, data,
+                            {"gather_rows": 1 + n + 1, "scatter_rows": 1 + n,
+                             "stochastic_round_bf16": 0},
+                            per_step_losses, same=PATH_STEPS, rtol=1e-4,
+                            falling=False)
+
+
+def phase_multislot_async_block_path(per_step_losses):
+    """Full-width multislot bf16 (bench.py:224-242 with MT_BENCH_DTYPE=bf16
+    and MT_BENCH_ASYNC=1): the 1-step-stale block. Two K1 launches a step
+    of a block (stale, then fresh); one K2 and one K3 a step: the first
+    step of a block has no pending write-back and launches none, and the
+    last step's lands at the end of its block. The first two steps (the
+    single step and the first of a block, which has nothing pending) see
+    no staleness and must give the per-step path's losses (rtol 1e-3: bf16
+    pools and tower)."""
+    from monolith_tpu_torch.profile_step import CONFIGS
+    trainer, data = CONFIGS["multislot_bf16"](steps_per_dispatch=BLOCK_K,
+                                              async_optimize=True)
+    assert trainer.config.engine.async_optimize
+    n = BLOCK_K * BLOCKS
+    return drive_block_path("multislot_bf16 asynchronous", trainer, data,
+                            {"gather_rows": 1 + 2 * n + 1,
+                             "scatter_rows": 1 + n,
+                             "stochastic_round_bf16": 1 + n},
+                            per_step_losses, same=2, rtol=1e-3, falling=True)
+
+
+def phase_block_card_vs_cpu():
+    """One carried state, one block of 4 on the card and on the CPU,
+    init_scale=0.0 (the two devices' generators draw different inits),
+    clip_norm 0.05, the DeepFM's vector segment under DC(lambda_=50):
+    synchronous and asynchronous, on batches that repeat their ids (so
+    that the asynchronous forward is stale). The pooling backward's
+    atomics forbid bit-exactness on the card: losses rtol 1e-4, live pool
+    rows rtol 1e-4 / atol 1e-5. Then the small multislot bf16 variant
+    (stochastic rounding, bf16 tower), asynchronous: losses rtol 1e-3."""
+    import dataclasses
+
+    from monolith_tpu_torch import convert
+    from monolith_tpu_torch.data.synthetic import SyntheticMultiSlot
+    from monolith_tpu_torch.embedding import optimizers
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    class DCDeepFM(DeepFMTask):
+        def tables(self):
+            t = super().tables()[0]
+            vec = t.segments[1]
+            vec = dataclasses.replace(vec, optimizer=optimizers.DC(
+                learning_rate=vec.optimizer.learning_rate, lambda_=50.0,
+                base=vec.optimizer))
+            return [dataclasses.replace(t, segments=(t.segments[0], vec))]
+
+    def deepfm(device, stale):
+        return Trainer(DCDeepFM(capacity_per_shard=4096, hidden=(32, 16),
+                                init_scale=0.0),
+                       TrainerConfig(engine=EngineConfig(
+                           unique_cap=512, new_cap=512, async_optimize=stale),
+                           clip_norm=0.05, log_every=0), device=device)
+
+    def multislot(device, stale):
+        return small_multislot(device, async_optimize=stale, clip_norm=0.05,
+                               init_scale=0.0)
+
+    rng = np.random.default_rng(11)
+    ids = np.arange(200)
+    pairs = [({"user_id": rng.choice(ids, (64, 1)).astype(np.int64),
+               "item_id": rng.choice(ids, (64, 1)).astype(np.int64),
+               "hist_items": rng.choice(ids, (64, 10)).astype(np.int64)},
+              {"label": rng.integers(0, 2, 64).astype(np.float32)})
+             for _ in range(5)]
+    ms_data = SyntheticMultiSlot(num_slots=10, vocab_per_slot=300,
+                                 history_length=6, batch_size=256, seed=11)
+    ms_pairs = [ms_data.batch() for _ in range(5)]
+    for name, make, batches, stale, rtol, pools in (
+            ("deepfm f32 + DC, synchronous", deepfm, pairs, False, 1e-4, True),
+            ("deepfm f32 + DC, asynchronous", deepfm, pairs, True, 1e-4, True),
+            ("multislot bf16, asynchronous", multislot, ms_pairs, True, 1e-3,
+             False)):
+        cpu = make("cpu", stale)
+        cpu.train_step(*batches[0], ts=500)
+        card = make("cuda", stale)
+        convert.load_state(card, convert.export_state(cpu))
+        lc = cpu.train_step_block(batches[1:], ts=501)["loss"].numpy()
+        lg = card.train_step_block(batches[1:], ts=501)["loss"].cpu().numpy()
+        gap = float(np.max(np.abs(lg / lc - 1)))
+        log(f"block card vs cpu, {name}: losses {lg.tolist()} vs "
+            f"{lc.tolist()}; worst relative gap {gap:.3e}")
+        np.testing.assert_allclose(lg, lc, rtol=rtol)
+        if pools:
+            sc, sg = convert.export_state(cpu), convert.export_state(card)
+            for t in sc["tables"]:
+                live = np.sort(sc["stores"][t][1])
+                np.testing.assert_allclose(sg["tables"][t][0][live],
+                                           sc["tables"][t][0][live],
+                                           rtol=1e-4, atol=1e-5)
+        assert card.step == cpu.step == 5
 
 
 def phase_card_vs_cpu():
@@ -352,9 +578,9 @@ def phase_card_vs_cpu():
     log(f"card vs cpu losses: {lg} vs {lc}")
 
 
-def small_multislot(device, **kw):
+def small_multislot(device, async_optimize=False, clip_norm=0.0, **kw):
     """The bench's bf16 variant at the JAX package's test size
-    (tests/test_models.py)."""
+    (tests/test_models.py); `kw` goes to the task."""
     import torch
     from monolith_tpu_torch.embedding.engine import EngineConfig
     from monolith_tpu_torch.models.multislot import MultiSlotTask
@@ -365,7 +591,8 @@ def small_multislot(device, **kw):
         table_dtype=torch.bfloat16, stochastic_rounding=True,
         dense_dtype=torch.bfloat16), **kw})
     return Trainer(task, TrainerConfig(engine=EngineConfig(
-        unique_cap=2048, new_cap=2048), log_every=0), device=device)
+        unique_cap=2048, new_cap=2048, async_optimize=async_optimize),
+        clip_norm=clip_norm, log_every=0), device=device)
 
 
 def phase_multislot_card_vs_cpu():
@@ -443,12 +670,25 @@ def main():
     kernels += phase_rows("multislot_bf16", floor)
     kernels += phase_rounding("multislot_bf16", floor)
     torch.cuda.empty_cache()
-    launches = {"deepfm_f32": phase_deepfm_path()}
+    launches, losses = {}, {}
+    launches["deepfm_f32"], losses["deepfm_f32"] = phase_deepfm_path()
     torch.cuda.empty_cache()
-    launches["multislot_bf16"] = phase_multislot_path()
+    launches["multislot_bf16"], losses["multislot_bf16"] = \
+        phase_multislot_path()
+    torch.cuda.empty_cache()
+    block_launches = {
+        "deepfm_f32": phase_deepfm_block_path(losses["deepfm_f32"])}
+    torch.cuda.empty_cache()
+    block_launches["multislot_bf16"] = phase_multislot_async_block_path(
+        losses["multislot_bf16"])
     for k in kernels:
-        k["launches"] = launches[k["path"]][k["name"]]
+        # each path was driven with the counts set to 0 just before it
+        k["launches_by_path"] = {
+            "per_step": launches[k["path"]][k["name"]],
+            "block": block_launches[k["path"]][k["name"]]}
+        k["launches"] = sum(k["launches_by_path"].values())
     torch.cuda.empty_cache()
+    phase_block_card_vs_cpu()
     phase_card_vs_cpu()
     phase_multislot_card_vs_cpu()
     phase_multislot_trains()

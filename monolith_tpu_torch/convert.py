@@ -14,7 +14,14 @@ The state format is the JAX trainer's, in numpy:
 transposed into `nn.Linear`'s [out, in]); `export_state` reads a port
 trainer back out in the same form, so a state also moves between two port
 trainers (the card and the CPU). `jax_trainer_state` reads the JAX
-package's trainer into the format with numpy alone.
+package's trainer into the format with numpy alone, and
+`port_trainer_config` reads its `TrainerConfig` into the port's with the
+same settings (clip_norm, steps_per_dispatch, per-table caps,
+async_optimize, ...).
+
+Optimizer slots travel inside the packed pool, at the offsets that
+`table._layout` gives them in both packages, so no optimizer needs code
+here.
 
 A bf16 pool travels as f32: widening it is exact, and `load_state` narrows
 it back exactly (it raises on a value that bf16 cannot hold, rather than
@@ -27,6 +34,31 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+
+def port_trainer_config(jax_config):
+    """The port's TrainerConfig with the settings of a JAX-package
+    TrainerConfig (read by attribute; nothing of JAX is imported). Raises
+    for a setting the port does not run."""
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.training.trainer import TrainerConfig
+    je = jax_config.engine
+    unported = {"num_shards": je.num_shards != 1, "tiered": je.tiered,
+                "record_touch": je.record_touch,
+                "packed='off'": je.packed == "off",
+                "compact_wire=False": not je.compact_wire}
+    bad = sorted(k for k, v in unported.items() if v)
+    if bad:
+        raise ValueError(f"the port does not run an engine with {bad}")
+    return TrainerConfig(
+        engine=EngineConfig(
+            num_shards=1, unique_cap=je.unique_cap, new_cap=je.new_cap,
+            unique_caps=je.unique_caps, new_caps=je.new_caps,
+            async_optimize=je.async_optimize),
+        clip_norm=jax_config.clip_norm, seed=jax_config.seed,
+        log_every=jax_config.log_every,
+        metrics_enabled=jax_config.metrics_enabled,
+        steps_per_dispatch=jax_config.steps_per_dispatch)
 
 
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:

@@ -15,9 +15,15 @@ gradients (an index-add into the unique buffer). Per-step shapes are fixed:
 `unique_cap` unique ids per table, -1 padded; overflow ids read zeros and
 receive no update.
 
+The 1-step-stale asynchronous block (EngineConfig.async_optimize, driven by
+training/trainer.py) splits fused_apply in two: `optimize_rows` (row math
+only, on freshly gathered rows, with the rows the forward used handed to DC
+segments) and `scatter_rows` (the deferred write-back, one K2 per table, a
+step later).
+
 Single-shard only: decoded inputs and table states carry no shard axis
 (the JAX package's carry a leading axis of 1). Table pools are updated in
-place by fused_apply.
+place by fused_apply and scatter_rows.
 """
 
 from __future__ import annotations
@@ -48,19 +54,69 @@ class EngineConfig:
     num_shards: int = 1      # the port runs single-shard tables only
     unique_cap: int = 4096   # unique ids per table per step (<= 65535)
     new_cap: int = 1024      # admissions per table per step
+    # per-table overrides of unique_cap/new_cap as ((table, cap), ...): a
+    # history table needs a far larger per-step budget than scalar slots
+    # (over-capping pads every gather and scatter, under-capping drops ids
+    # as dedup overflow)
+    unique_caps: Optional[Tuple[Tuple[str, int], ...]] = None
+    new_caps: Optional[Tuple[Tuple[str, int], ...]] = None
+    # 1-step-stale pipelined embeddings in block dispatch: step i's forward
+    # gathers its rows BEFORE step i-1's write-back lands; the optimize
+    # still runs on the latest rows (a second gather), so no update is
+    # lost; ids read in consecutive steps see values one step stale in the
+    # forward: pair hot segments with the DC optimizer to compensate. An
+    # id admitted at step i and read again at step i+1 reads its row's
+    # content from before the init in that forward only (zeros on a fresh
+    # pool); the optimize and the write-back use initialised state.
+    async_optimize: bool = False
+
+    def ucap(self, table: str) -> int:
+        if self.unique_caps:
+            return dict(self.unique_caps).get(table, self.unique_cap)
+        return self.unique_cap
+
+    def ncap(self, table: str) -> int:
+        if self.new_caps:
+            return dict(self.new_caps).get(table, self.new_cap)
+        return self.new_cap
+
+    @property
+    def max_ucap(self) -> int:
+        caps = [self.unique_cap]
+        if self.unique_caps:
+            caps += [c for _, c in self.unique_caps]
+        return max(caps)
+
+
+# Three seed domains, one for each stream of random numbers of a step, told
+# apart by the top two bits of the 64-bit seed so that no two can collide:
+#
+#   bit 63 = 0          new-row init         (JAX: the trainer's base key)
+#   bits 63, 62 = 1, 0  fused_apply's K3     (JAX: PRNGKey(1))
+#   bits 63, 62 = 1, 1  scatter_rows' K3     (JAX: PRNGKey(2))
+#
+# Below the domain bits each is the same mix of (seed, step, table index),
+# as the JAX package folds step and table index into each of its keys.
+
+def _seed_mix(seed: int, step: int, table_index: int) -> int:
+    return (seed * 1_000_003 + step) * 1_009 + table_index
 
 
 def _init_seed(seed: int, step: int, table_index: int) -> int:
     """Philox seed of one table's new-row init at one step."""
-    return ((seed * 1_000_003 + step) * 1_009 + table_index) % (1 << 63)
+    return _seed_mix(seed, step, table_index) % (1 << 63)
 
 
 def _round_seed(seed: int, step: int, table_index: int) -> int:
-    """Philox key of one table's stochastic bf16 write-back (K3) at one
-    step: bit 63 set keeps it apart from every _init_seed, as the JAX
-    package keeps its rounding keys (PRNGKey(1)) apart from its init
-    keys."""
-    return _init_seed(seed, step, table_index) | (1 << 63)
+    """Philox key of one table's stochastic bf16 write-back (K3) in
+    fused_apply at one step."""
+    return _seed_mix(seed, step, table_index) % (1 << 62) | (1 << 63)
+
+
+def _defer_seed(seed: int, step: int, table_index: int) -> int:
+    """Philox key of one table's stochastic bf16 write-back (K3) in
+    scatter_rows, the asynchronous block's deferred write-back."""
+    return _seed_mix(seed, step, table_index) % (1 << 62) | (3 << 62)
 
 
 class EmbeddingEngine:
@@ -73,11 +129,11 @@ class EmbeddingEngine:
         if config.num_shards != 1:
             raise ValueError("the port's engine runs single-shard tables "
                              f"(num_shards=1, got {config.num_shards})")
-        if config.unique_cap > 65535:
+        if config.max_ucap > 65535:
             # 16-bit feature indices (decoded unsigned, 0xFFFF sentinel) can
             # only address 65535 unique rows; a larger cap would alias rows
-            raise ValueError(f"unique_cap must be <= 65535 (got "
-                             f"{config.unique_cap})")
+            raise ValueError(f"unique caps must be <= 65535 (got "
+                             f"{config.max_ucap})")
         self.config = config
         self.device = resolve_device(device)
         self.tables: Dict[str, TableSpec] = {t.name: t for t in tables}
@@ -100,7 +156,7 @@ class EmbeddingEngine:
                 filter_capacity=t.admission.filter_capacity,
                 filter_splits=t.admission.filter_splits,
                 seed=seed * 1000003)
-            self.batchers[name] = Batcher(expected_unique=config.unique_cap)
+            self.batchers[name] = Batcher(expected_unique=config.ucap(name))
         self._generator = torch.Generator(device=self.device)
 
     # ------------------------------------------------------------------
@@ -113,7 +169,7 @@ class EmbeddingEngine:
         for tname, feats in self.table_features.items():
             if not feats:
                 continue
-            total += (self.config.unique_cap
+            total += (self.config.ucap(tname)
                       + sum((batch_size * f.max_length + 1) // 2
                             for f in feats))
         return total
@@ -124,7 +180,7 @@ class EmbeddingEngine:
         """Fused host prepare: ONE native call runs dedup + store map + wire
         pack for ALL tables. Layout per table (sorted name order):
 
-          [U words]  row | (new << 30); -1 for invalid rows
+          [ucap(table) words]  row | (new << 30); -1 for invalid rows
           per feature (declared order): ceil(B*L/2) words of 16-bit indices
 
         Bit-identical to the JAX package's wire for the same store state and
@@ -141,7 +197,7 @@ class EmbeddingEngine:
                        for f in feats]
             names.append(tname)
             streams_per_table.append(streams)
-            offsets.append(offsets[-1] + cfg.unique_cap
+            offsets.append(offsets[-1] + cfg.ucap(tname)
                            + sum((s.size + 1) // 2 for s in streams))
         offsets = np.asarray(offsets, dtype=np.int64)
         total = int(offsets[-1])
@@ -156,7 +212,8 @@ class EmbeddingEngine:
             [self.batchers[t] for t in names],
             [self.stores[t] for t in names],
             streams_per_table, ts,
-            cfg.unique_cap, cfg.new_cap, False, wire, offsets)
+            [cfg.ucap(t) for t in names], [cfg.ncap(t) for t in names],
+            False, wire, offsets)
         stats = {"overflow": {}, "new": {}, "unique": {}, "filtered": {},
                  "new_rejected": {}}
         for i, tname in enumerate(names):
@@ -186,7 +243,7 @@ class EmbeddingEngine:
             feats = self.table_features[tname]
             if not feats:
                 continue
-            U = self.config.unique_cap
+            U = self.config.ucap(tname)
             rows_enc = wire[off:off + U]
             off += U
             invalid = rows_enc < 0
@@ -243,6 +300,33 @@ class EmbeddingEngine:
                                               unique_grads[tname], step)
             table_lib.scatter_packed(spec, states[tname], tin["rows"], new_p,
                                      seed=_round_seed(seed, step, i))
+        return states
+
+    def optimize_rows(self, inputs: Dict, prows_latest: Dict,
+                      unique_grads: Dict[str, torch.Tensor], step: int,
+                      prows_stale: Optional[Dict] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """Optimize gathered packed rows WITHOUT scattering them (the
+        asynchronous block defers the write-back by one step).
+        `prows_stale`: the rows the forward used, handed to DC segments."""
+        return {tname: table_lib.optimize_packed(
+                    self.tables[tname], prows_latest[tname],
+                    unique_grads[tname], step,
+                    stale=None if prows_stale is None else prows_stale[tname])
+                for tname in sorted(inputs)}
+
+    def scatter_rows(self, states: Dict, rows: Dict[str, torch.Tensor],
+                     values: Dict[str, torch.Tensor], step: int,
+                     seed: int = 0) -> Dict:
+        """ONE scatter (K2) per table of full packed rows, in place; -1 rows
+        drop: the deferred write-back of the asynchronous block. A bf16
+        pool with stochastic rounding narrows the rows first with K3, keyed
+        by (seed, step, table index) in a domain of its own
+        (_defer_seed)."""
+        for i, tname in enumerate(sorted(rows)):
+            table_lib.scatter_packed(self.tables[tname], states[tname],
+                                     rows[tname], values[tname],
+                                     seed=_defer_seed(seed, step, i))
         return states
 
     def lookup_unique(self, states: Dict, inputs: Dict) -> Dict[str, torch.Tensor]:

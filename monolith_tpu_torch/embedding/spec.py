@@ -3,9 +3,14 @@
 A `TableSpec` is a merged table: one row pool whose row vector is the
 concatenation of `segments`, each with its own dim, optimizer and
 initializer. The port carries the subset its slices run: f32 or bf16 pools
-(bf16 optionally with stochastic rounding on write-back), the `Constant`
-learning-rate schedule, no compressors, no expiry (the engine rejects a
+(bf16 optionally with stochastic rounding on write-back), the three
+learning-rate schedules, no compressors, no expiry (the engine rejects a
 table with a ttl).
+
+A schedule is called with the trainer's step number, a Python int that the
+host knows, and returns a Python float. The JAX package's schedules take a
+traced int32 and compute in f32; the port's compute in numpy f32 in the same
+operation order, so the two agree to an f32 ulp.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from monolith_tpu_torch.embedding.initializers import Initializer, RandomUniform
@@ -20,12 +26,60 @@ from monolith_tpu_torch.embedding.optimizers import RowOptimizer, SGD
 
 
 @dataclasses.dataclass(frozen=True)
-class Constant:
+class LearningRateSchedule:
+    def __call__(self, step: int) -> float:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class Constant(LearningRateSchedule):
     """Constant learning rate (ref learning_rate_functions.py)."""
     value: float = 0.01
 
     def __call__(self, step: int) -> float:
         return self.value
+
+
+@dataclasses.dataclass(frozen=True)
+class PolynomialDecay(LearningRateSchedule):
+    """lr decays from initial to end over decay_steps with the given power;
+    with `cycle` the decay restarts over the next multiple of decay_steps
+    instead of holding the end value (tf PolynomialDecay's rule)."""
+    initial_learning_rate: float = 0.01
+    decay_steps: int = 10000
+    end_learning_rate: float = 0.0001
+    power: float = 1.0
+    cycle: bool = False
+
+    def __call__(self, step: int) -> float:
+        f32 = np.float32
+        step = f32(step)
+        if self.cycle:
+            mult = max(f32(1.0), np.ceil(step / f32(self.decay_steps)))
+            decay_steps = f32(self.decay_steps) * mult
+        else:
+            decay_steps = f32(self.decay_steps)
+            step = min(step, decay_steps)
+        frac = f32(1.0) - step / decay_steps
+        span = f32(self.initial_learning_rate - self.end_learning_rate)
+        return float(span * np.power(frac, f32(self.power))
+                     + f32(self.end_learning_rate))
+
+
+@dataclasses.dataclass(frozen=True)
+class WarmupSchedule(LearningRateSchedule):
+    """Linear warmup over the first warmup_steps steps, wrapped around
+    another schedule: lr * min(1, (step + 1) / warmup_steps)."""
+    base: LearningRateSchedule = dataclasses.field(default_factory=Constant)
+    warmup_steps: int = 0
+
+    def __call__(self, step: int) -> float:
+        lr = self.base(step)
+        if self.warmup_steps <= 0:
+            return lr
+        f32 = np.float32
+        scale = min(f32(1.0), (f32(step) + f32(1.0)) / f32(self.warmup_steps))
+        return float(f32(lr) * scale)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +90,7 @@ class TableSegment:
     dim: int
     optimizer: RowOptimizer = dataclasses.field(default_factory=SGD)
     initializer: Initializer = dataclasses.field(default_factory=RandomUniform)
-    lr_schedule: Optional[Constant] = None
+    lr_schedule: Optional[LearningRateSchedule] = None
     retriever: Optional[object] = None
 
     def learning_rate(self, step: int) -> float:

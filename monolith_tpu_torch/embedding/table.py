@@ -123,9 +123,15 @@ def params_of(spec: TableSpec, packed: torch.Tensor) -> torch.Tensor:
 
 
 def optimize_packed(spec: TableSpec, packed: torch.Tensor,
-                    grads: torch.Tensor, step: int) -> torch.Tensor:
+                    grads: torch.Tensor, step: int,
+                    stale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Pure row math: apply each segment's optimizer to gathered packed
-    rows. Returns new packed rows; the caller scatters them once."""
+    rows. Returns new packed rows; the caller scatters them once.
+
+    `stale`: in the 1-step-stale asynchronous block, the packed rows the
+    forward used. A segment whose optimizer has `stale_apply` (DC) receives
+    its columns of them to compensate the gradient; every other segment
+    ignores them."""
     _, _, slot_offs = _layout(spec)
     new_p, new_slots = [], {}
     off = 0
@@ -137,8 +143,13 @@ def optimize_packed(spec: TableSpec, packed: torch.Tensor,
             o, k, _ = slot_offs[(i, name)]
             gathered[name] = packed[..., o:o + k]
         lr = seg.learning_rate(step)
-        p_new, slots_new = seg.optimizer.apply(p_seg, gathered, g_seg, lr,
-                                               step)
+        if stale is not None and hasattr(seg.optimizer, "stale_apply"):
+            p_new, slots_new = seg.optimizer.stale_apply(
+                p_seg, gathered, g_seg, lr, step,
+                stale[..., off:off + seg.dim])
+        else:
+            p_new, slots_new = seg.optimizer.apply(p_seg, gathered, g_seg,
+                                                   lr, step)
         new_p.append(p_new)
         for name, val in slots_new.items():
             new_slots[(i, name)] = val

@@ -26,12 +26,14 @@ class DeepFMModule(nn.Module):
                  hidden: Sequence[int] = (256, 128, 64),
                  feature_names: Sequence[str] = ("user_id", "item_id",
                                                  "hist_items"),
+                 dense_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.embedding_dim = embedding_dim
         self.feature_names = tuple(feature_names)
         self.deep = MLP(len(self.feature_names) * embedding_dim,
-                        (*hidden, 1), generator=generator)
+                        (*hidden, 1), generator=generator,
+                        compute_dtype=dense_dtype)
 
     def forward(self, pooled: Dict[str, torch.Tensor], batch=None
                 ) -> Dict[str, torch.Tensor]:
@@ -51,7 +53,10 @@ class DeepFMModule(nn.Module):
 @dataclasses.dataclass
 class DeepFMTask(RecTask):
     """DeepFM over the synthetic CTR stream. Each table row = [bias segment
-    (1, SGD) | vector segment (dim, Adagrad)]; f32 tables only."""
+    (1, SGD) | vector segment (dim, Adagrad)]. A bf16 pool (`table_dtype`)
+    halves the bytes a row; pair it with `stochastic_rounding` so that
+    updates below a bf16 ulp accumulate. `dense_dtype=torch.bfloat16` runs
+    the tower's matrix products in bf16."""
     name: str = "deepfm"
     embedding_dim: int = 16
     capacity_per_shard: int = 1 << 17
@@ -61,6 +66,9 @@ class DeepFMTask(RecTask):
     accumulator_init: float = 0.01
     admission_threshold: int = 1
     hidden: Sequence[int] = (256, 128, 64)
+    table_dtype: torch.dtype = torch.float32
+    stochastic_rounding: bool = False
+    dense_dtype: Optional[torch.dtype] = None
 
     def tables(self):
         segs = (
@@ -77,7 +85,9 @@ class DeepFMTask(RecTask):
         admission = (AdmissionConfig(kind="sliding", threshold=self.admission_threshold)
                      if self.admission_threshold > 1 else AdmissionConfig())
         return [TableSpec(name="sparse", capacity_per_shard=self.capacity_per_shard,
-                          segments=segs, admission=admission)]
+                          segments=segs, admission=admission,
+                          dtype=self.table_dtype,
+                          stochastic_rounding=self.stochastic_rounding)]
 
     def features(self):
         return [
@@ -88,4 +98,6 @@ class DeepFMTask(RecTask):
 
     def build_module(self, generator=None):
         return DeepFMModule(embedding_dim=self.embedding_dim,
-                            hidden=tuple(self.hidden), generator=generator)
+                            hidden=tuple(self.hidden),
+                            dense_dtype=self.dense_dtype,
+                            generator=generator)

@@ -2,6 +2,7 @@
 
     python -m monolith_tpu_torch.profile_step [--config deepfm|multislot_bf16]
                                               [--steps 20] [--trace PATH]
+                                              [--block K] [--async]
 
 Builds the trainer of one of bench.py's configs at full width:
 
@@ -24,6 +25,18 @@ fresh batches:
    1 - busy);
 3. cProfile: host time by Python function (tottime), largest first;
 4. prepare_wire alone (the C++ dedup + map + pack), ms per batch.
+
+With `--block K` the windows run the block path instead, in the order the
+JAX package's bench.py runs it: block k+1 is packed and its upload started
+(`stage_block`) right after block k is dispatched (`train_step_block`);
+`--steps` is rounded down to whole blocks; after window 1 the per-step path
+(`train_step`, always synchronous) and the block path run in turns in the
+same trainer (per-step, block, block, per-step). `--async` turns on
+`EngineConfig.async_optimize` (the 1-step-stale block; it needs `--block`).
+The block path also reports the host pack per step (C++ prepare + batch
+words into the [K, W] buffer, no device work), the upload per block (one
+blocking copy of a pinned [K, W] buffer) and the device operations
+(kernels and copies) per step.
 
 `--trace` also writes the Chrome trace. Needs the card.
 """
@@ -69,40 +82,45 @@ def _kernel_count(event):
                                     for c in event.cpu_children)
 
 
-def _deepfm():
-    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+def _trainer_config(cap, steps_per_dispatch=1, async_optimize=False):
     from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.training.trainer import TrainerConfig
+    return TrainerConfig(
+        engine=EngineConfig(num_shards=1, unique_cap=cap, new_cap=cap,
+                            async_optimize=async_optimize),
+        log_every=0, steps_per_dispatch=steps_per_dispatch)
+
+
+def _deepfm(**cfg):
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
     from monolith_tpu_torch.models.deepfm import DeepFMTask
-    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from monolith_tpu_torch.training.trainer import Trainer
     trainer = Trainer(DeepFMTask(embedding_dim=16, capacity_per_shard=1 << 21,
                                  hidden=(256, 128, 64)),
-                      TrainerConfig(engine=EngineConfig(
-                          num_shards=1, unique_cap=32768, new_cap=32768),
-                          log_every=0))
+                      _trainer_config(32768, **cfg))
     return trainer, SyntheticCTR(num_users=1_000_000, num_items=200_000,
                                  batch_size=8192, seed=0)
 
 
-def _multislot_bf16():
+def _multislot_bf16(**cfg):
     from monolith_tpu_torch.data.synthetic import SyntheticMultiSlot
-    from monolith_tpu_torch.embedding.engine import EngineConfig
     from monolith_tpu_torch.models.multislot import MultiSlotTask
-    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from monolith_tpu_torch.training.trainer import Trainer
     trainer = Trainer(
         MultiSlotTask(num_tables=16, num_slots=40, embedding_dim=16,
                       capacity_per_shard=1 << 18, history_length=20,
                       hidden=(256, 128, 64), merge=True,
                       table_dtype=torch.bfloat16, stochastic_rounding=True,
                       dense_dtype=torch.bfloat16),
-        TrainerConfig(engine=EngineConfig(num_shards=1, unique_cap=49152,
-                                          new_cap=49152), log_every=0))
+        _trainer_config(49152, **cfg))
     return trainer, SyntheticMultiSlot(num_slots=40, vocab_per_slot=100_000,
                                        history_length=20, batch_size=8192,
                                        seed=0)
 
 
-#: bench.py's configs at full width: name -> () -> (trainer on the card,
-#: data stream); chip_smoke.py drives the same two
+#: bench.py's configs at full width: name -> (steps_per_dispatch=1,
+#: async_optimize=False) -> (trainer on the card, data stream);
+#: chip_smoke.py drives the same two
 CONFIGS = {"deepfm": _deepfm, "multislot_bf16": _multislot_bf16}
 BACKWARD_NODE = "autograd::engine::evaluate_function: "
 #: name fragments of the kernels in csrc/ (K1, K2, K3)
@@ -110,34 +128,98 @@ PORT_KERNELS = ("gather_rows_kernel", "scatter_rows_kernel",
                 "stochastic_round_bf16_kernel")
 
 
+def run_blocks(trainer, batches, K):
+    """len(batches) // K blocks in the order bench.py's end-to-end window
+    runs them: block k+1 is staged (packed, its upload started) right
+    after block k is dispatched, while block k's work drains on the card.
+    Returns the blocks' outputs."""
+    n = len(batches) // K
+    staged = trainer.stage_block(batches[:K])
+    outs = []
+    for blk in range(n):
+        outs.append(trainer.train_step_block(batches[blk * K:(blk + 1) * K],
+                                             staged=staged))
+        staged = None
+        if blk + 1 < n:
+            staged = trainer.stage_block(batches[(blk + 1) * K:(blk + 2) * K])
+    return outs
+
+
+def block_costs(trainer, batches, K, passes=3):
+    """(host pack ms per step, upload ms per block, bytes per block) of a
+    block of K: the
+    pack is the C++ prepare plus the batch arrays' words into a [K, W] host
+    buffer with no device work; the upload is one copy of a pinned [K, W]
+    buffer, waited for. Packs batches the trainer has already seen, as
+    bench.py's host-only pass does."""
+    layout = trainer._batch_layout(batches[0][1])
+    words = trainer._full_wire_words(layout)
+    pinned = torch.empty((K, words), dtype=torch.int32, pin_memory=True)
+    host = pinned.numpy()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        for i in range(K):
+            fb, b = batches[i]
+            trainer._pack_full_wire(fb, b, layout, int(time.time()),
+                                    trainer.step + i, host[i])
+    pack_ms = (time.perf_counter() - t0) / (passes * K) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        pinned.to(trainer.device, non_blocking=True)
+        torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) / passes * 1e3
+    return pack_ms, upload_ms, pinned.numel() * 4
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", choices=sorted(CONFIGS), default="deepfm")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--trace", default="")
+    p.add_argument("--block", type=int, default=1, metavar="K",
+                   help="run blocks of K steps (stage_block + "
+                        "train_step_block)")
+    p.add_argument("--async", dest="async_optimize", action="store_true",
+                   help="the 1-step-stale block (needs --block)")
     args = p.parse_args(argv)
+    K = args.block
+    if args.async_optimize and K < 2:
+        p.error("--async needs --block K with K > 1")
 
     from torch.profiler import ProfilerActivity, profile
 
-    trainer, data = CONFIGS[args.config]()
+    trainer, data = CONFIGS[args.config](
+        steps_per_dispatch=K, async_optimize=args.async_optimize)
     for _ in range(5):
         trainer.train_step(*data.batch())
-    n = args.steps
+    n = args.steps // K * K
     windows = [[data.batch() for _ in range(n)] for _ in range(4)]
+    if K > 1:  # sizes the block's pinned buffers outside the windows
+        run_blocks(trainer, [data.batch() for _ in range(K)], K)
 
-    def run(batches):
+    def run(batches, blocks=K > 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for fb, b in batches:
-            trainer.train_step(fb, b)
+        if blocks:
+            run_blocks(trainer, batches, K)
+        else:
+            for fb, b in batches:
+                trainer.train_step(fb, b)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / n * 1e3
 
     plain_ms = run(windows[0])
+    if K > 1:
+        # the per-step path beside the block path in one process, in turns
+        # (per-step, block, block, per-step), each on fresh batches
+        turns = [run([data.batch() for _ in range(n)], blocks=b)
+                 for b in (False, True, True, False)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_ms = run(windows[1])
-    busy_ms = _union_us(_device_intervals(prof)) / 1e3 / n
+    intervals = _device_intervals(prof)
+    busy_ms = _union_us(intervals) / 1e3 / n
     host_prof = cProfile.Profile()
     host_prof.enable()
     cprof_ms = run(windows[2])
@@ -149,11 +231,22 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    print(f"config {args.config}: ms/step {plain_ms} (no profiler, {n} "
-          f"steps); under torch.profiler {prof_ms}; device busy {busy_ms} ms/step = "
+    path = "per-step path" if K == 1 else (
+        f"{'asynchronous' if args.async_optimize else 'synchronous'} block "
+        f"path, K = {K}")
+    print(f"config {args.config}, {path}: ms/step {plain_ms} (no profiler, "
+          f"{n} steps); under torch.profiler {prof_ms}; device busy {busy_ms} ms/step = "
           f"{busy_ms / plain_ms} of the unprofiled step (idle "
           f"{1 - busy_ms / plain_ms}); under cProfile {cprof_ms}; "
-          f"prepare_wire alone {prep_ms} ms/batch")
+          f"prepare_wire alone {prep_ms} ms/batch; device operations "
+          f"(kernels and copies) {len(intervals) / n} per step")
+    if K > 1:
+        print(f"in turns, ms/step over {n} steps each (no profiler): per-step "
+              f"path {turns[0]}, block {turns[1]}, block {turns[2]}, per-step "
+              f"path {turns[3]}")
+        pack_ms, upload_ms, nbytes = block_costs(trainer, windows[3], K)
+        print(f"block of {K}: host pack {pack_ms} ms/step, upload {upload_ms} "
+              f"ms/block ({nbytes} bytes, one blocking copy)")
     out = io.StringIO()
     pstats.Stats(host_prof, stream=out).sort_stats("tottime").print_stats(25)
     print("host time by function (cProfile, whole window):")

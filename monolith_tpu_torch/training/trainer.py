@@ -6,9 +6,25 @@ Per step:
           the batch arrays' raw 4-byte words and the step number into ONE
           pinned int32 buffer, sent to the card with one non_blocking copy
   device: decode -> fused_lookup (K1 gather + new-row init select) ->
-          pool -> dense fwd/bwd -> dense Adagrad (optax form) ->
-          fused_apply (per-row optimize, K3 stochastic rounding for a
-          bf16 pool that asks for it, K2 scatter)
+          pool -> dense fwd/bwd -> [global-norm clip] -> dense Adagrad
+          (optax form) -> fused_apply (per-row optimize, K3 stochastic
+          rounding for a bf16 pool that asks for it, K2 scatter)
+
+Block dispatch (`TrainerConfig.steps_per_dispatch = K > 1`): `stage_block`
+packs K consecutive batches into one pinned [K, W] buffer and starts ONE
+copy for all of them; `train_step_block` then launches the K steps' device
+work from that buffer with no host-device synchronisation between them.
+`_train_blocked` stages block k+1 right after dispatching block k, so the
+host's pack and the upload run while the card drains block k's launches.
+The host still makes every launch: a block saves K - 1 uploads and their
+bookkeeping, not the launches. On the CPU a block equals K sequential
+steps bit for bit (the host's id -> row mapping never depends on device
+values).
+
+With `EngineConfig.async_optimize` the block runs the 1-step-stale
+schedule (`_step_async`): step i's forward gathers its rows before step
+i-1's write-back has landed, the optimize runs on freshly gathered rows so
+that no update is lost, and DC segments get the stale rows to compensate.
 
 State is updated in place: the table pools by the K2 scatter, the dense
 parameters and accumulators by the optimizer. (The JAX program donates
@@ -25,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +51,7 @@ from monolith_tpu_torch.embedding.engine import EmbeddingEngine, EngineConfig
 from monolith_tpu_torch.metrics import (StreamingAUC, StreamingMean,
                                         device_metrics_init,
                                         device_metrics_update)
+from monolith_tpu_torch.ops.clip import clip_by_global_norm
 from monolith_tpu_torch.training.task import RecTask
 
 _WIRE_DTYPES = {np.dtype(np.float32).str: torch.float32,
@@ -44,41 +61,49 @@ _WIRE_DTYPES = {np.dtype(np.float32).str: torch.float32,
 @dataclasses.dataclass
 class TrainerConfig:
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
+    clip_norm: float = 0.0          # 0 = no dense grad clipping
     seed: int = 0
     log_every: int = 100
+    # loss/AUC accumulate on the device every step and are read back only
+    # at log prints and the end of train; False skips the accumulator
+    metrics_enabled: bool = True
+    # >1: train() packs and uploads this many steps at once and runs them
+    # as one block (train_step_block); bit-identical to sequential steps
+    steps_per_dispatch: int = 1
 
 
 class _PinnedWires:
-    """Two pinned host buffers for the per-step wire, used in turn. A
-    buffer is refilled only after the copy that last read it has finished
-    (its CUDA event), so the host packs step N+1 while step N's copy may
-    still be in flight."""
+    """Two pinned host buffers [K, W] for the wires of K steps (K = 1: the
+    per-step path), used in turn. A buffer is refilled only after the copy
+    that last read it has finished (its CUDA event), so the host packs the
+    next block while this block's copy may still be in flight."""
 
-    def __init__(self, words: int, device: torch.device):
+    def __init__(self, steps: int, words: int, device: torch.device):
         self.device = device
         pin = device.type == "cuda"
-        self.bufs = [torch.empty(words, dtype=torch.int32, pin_memory=pin)
-                     for _ in range(2)]
+        self.bufs = [torch.empty((steps, words), dtype=torch.int32,
+                                 pin_memory=pin) for _ in range(2)]
         self.events = [None, None]
         self.i = 0
 
     def host(self) -> np.ndarray:
-        """The next buffer to fill, as a numpy view."""
+        """The next buffer to fill, as a numpy view [K, W]."""
         if self.events[self.i] is not None:
             self.events[self.i].synchronize()
         return self.bufs[self.i].numpy()
 
     def upload(self) -> torch.Tensor:
-        """Send the filled buffer to the device; returns the device copy."""
+        """Send the filled buffer to the device with one copy; returns the
+        device copy [K, W]."""
         buf = self.bufs[self.i]
         if self.device.type == "cuda":
-            wire = buf.to(self.device, non_blocking=True)
+            wires = buf.to(self.device, non_blocking=True)
             self.events[self.i] = torch.cuda.Event()
             self.events[self.i].record()
         else:
-            wire = buf.clone()
+            wires = buf.clone()
         self.i ^= 1
-        return wire
+        return wires
 
 
 class Trainer:
@@ -124,7 +149,7 @@ class Trainer:
                 + sum(int(np.prod(s)) for _, _, s in layout) + 1)
 
     def _pack_full_wire(self, fid_batch, batch, layout, ts, stepno, out):
-        """Host side of _decode_full_wire, into the int32 buffer `out`."""
+        """Host side of _decode, into the int32 buffer `out` [W]."""
         ew = self.engine.wire_words(layout[0][2][0])
         _, stats = self.engine.prepare_wire(fid_batch, ts=ts, out=out[:ew])
         off = ew
@@ -135,59 +160,69 @@ class Trainer:
         out[off] = stepno
         return stats
 
-    def _upload(self, fid_batch, batch, ts, stepno):
-        """Pack one step's wire into a pinned buffer and send it to the
-        device; returns (decoded engine inputs, batch tensors, stats)."""
-        layout = self._batch_layout(batch)
-        if layout not in self._wires:
-            self._wires[layout] = _PinnedWires(self._full_wire_words(layout),
-                                               self.device)
-        staging = self._wires[layout]
-        stats = self._pack_full_wire(fid_batch, batch, layout, ts, stepno,
-                                     staging.host())
-        wire = staging.upload()
-        inputs, batch_t, _ = self._decode_full_wire(
-            self.engine, wire, layout,
-            self.engine.wire_words(layout[0][2][0]))
-        return inputs, batch_t, stats
+    def _pack_block(self, pairs, ts: int) -> Tuple[torch.Tensor, List[Dict],
+                                                    tuple]:
+        """Pack K consecutive batches into one pinned [K, W] buffer and
+        start its upload (one non_blocking copy). Mutates the host stores
+        (admission, row assignment) exactly like K sequential packs, and
+        bakes in the step numbers self.step .. self.step + K - 1, so the
+        result must be dispatched before any other step runs. Returns
+        (wires [K, W] on the device, K stats, batch layout)."""
+        layout = self._batch_layout(pairs[0][1])
+        key = (layout, len(pairs))
+        if key not in self._wires:
+            self._wires[key] = _PinnedWires(
+                len(pairs), self._full_wire_words(layout), self.device)
+        staging = self._wires[key]
+        host = staging.host()
+        stats = []
+        for i, (fid_batch, batch) in enumerate(pairs):
+            if i and self._batch_layout(batch) != layout:
+                raise ValueError("the batches of a block must share one "
+                                 "layout (keys, dtypes, shapes)")
+            stats.append(self._pack_full_wire(fid_batch, batch, layout, ts,
+                                              self.step + i, host[i]))
+        return staging.upload(), stats, layout
 
-    @staticmethod
-    def _decode_full_wire(engine, wire, layout, engine_words):
-        """Device-side split of the single-transfer step input: engine wire
-        region, then each batch array's raw 4-byte words (reinterpreted),
-        then the step number as the final word."""
+    def _decode(self, wire: torch.Tensor, layout):
+        """Device-side split of one step's wire [W]: the engine's region,
+        then each batch array's raw 4-byte words (reinterpreted). The final
+        word, the step number, stays unread: the host knows it. Returns
+        (decoded engine inputs, batch tensors)."""
         bsz = layout[0][2][0]
-        inputs = engine.decode_wire(wire[:engine_words], bsz)
-        off = engine_words
-        batch = {}
+        off = self.engine.wire_words(bsz)
+        inputs = self.engine.decode_wire(wire[:off], bsz)
+        batch_t = {}
         for k, dstr, shape in layout:
             n = int(np.prod(shape))
-            chunk = wire[off:off + n]
+            batch_t[k] = wire[off:off + n].view(_WIRE_DTYPES[dstr]
+                                                ).reshape(shape)
             off += n
-            batch[k] = chunk.view(_WIRE_DTYPES[dstr]).reshape(shape)
-        stepno = wire[off]
-        return inputs, batch, stepno
+        return inputs, batch_t
+
+    def _upload(self, fid_batch, batch, ts):
+        """Pack one step's wire and send it to the device; returns (decoded
+        engine inputs, batch tensors, stats)."""
+        wires, stats, layout = self._pack_block([(fid_batch, batch)], ts)
+        inputs, batch_t = self._decode(wires[0], layout)
+        return inputs, batch_t, stats[0]
 
     # ------------------------------------------------------------------
 
     def _metrics_update(self, loss, preds, batch_t):
+        if not self.config.metrics_enabled:
+            return
         if self._dev_metrics is None:
             self._dev_metrics = device_metrics_init(self.auc.num_thresholds,
                                                     self.device)
         device_metrics_update(self._dev_metrics, loss, preds,
                               batch_t["label"])
 
-    def train_step(self, fid_batch: Dict[str, np.ndarray],
-                   batch: Dict[str, np.ndarray],
-                   ts: Optional[int] = None) -> Dict:
-        """Run one training step. fid_batch: {feature: int64 [B, L] pad -1};
-        batch: dense-side float32/int32 arrays incl. "label". Returns
-        {"loss", "preds", "stats", "aux"} with loss/preds on the device."""
-        ts = int(time.time()) if ts is None else ts
-        engine, task, step = self.engine, self.task, self.step
-        inputs, batch_t, stats = self._upload(fid_batch, batch, ts, step)
-        prows, unique = engine.fused_lookup(self.table_states, inputs,
-                                            self.config.seed, step)
+    def _dense_step(self, inputs, batch_t, unique, step: int):
+        """Forward and backward on the gathered unique rows, the global-norm
+        clip and the dense update. Returns (loss, preds, aux, gradients wrt
+        the unique rows {table: [U, dim]})."""
+        engine, task = self.engine, self.task
         # differentiate wrt the gathered unique rows, not the pool
         leaves = {t: u.detach().requires_grad_() for t, u in unique.items()}
         pooled = engine.pool_features(engine.retrieve_unique(leaves, step),
@@ -199,15 +234,130 @@ class Trainer:
             loss, [p for _, p in named] + list(leaves.values()))
         gp = {name: g for (name, _), g in zip(named, grads)}
         gu = dict(zip(leaves, grads[len(named):]))
+        if self.config.clip_norm > 0:
+            gp, _ = clip_by_global_norm(gp, self.config.clip_norm)
         self.tx.update_(named, gp, self.opt_state)
+        loss, preds = loss.detach(), task.predictions(out).detach()
+        self._metrics_update(loss, preds, batch_t)
+        return loss, preds, aux, gu
+
+    def _step_core(self, inputs, batch_t, step: int):
+        """One synchronous training step on decoded inputs, shared by
+        train_step and the synchronous block: gather (K1), forward and
+        backward, dense update, row optimize and write-back (K2).
+        Nothing here waits for the device. Returns (loss, preds, aux)."""
+        engine, seed = self.engine, self.config.seed
+        prows, unique = engine.fused_lookup(self.table_states, inputs, seed,
+                                            step)
+        loss, preds, aux, gu = self._dense_step(inputs, batch_t, unique, step)
         with torch.no_grad():
             engine.fused_apply(self.table_states, inputs, prows, gu, step,
-                               seed=self.config.seed)
-            preds = task.predictions(out).detach()
-        loss = loss.detach()
-        self._metrics_update(loss, preds, batch_t)
+                               seed=seed)
+        return loss, preds, aux
+
+    def _step_async(self, inputs, batch_t, step: int, pending):
+        """One step of the 1-step-stale schedule:
+
+          1. gather this step's rows (K1): STALE, the previous step's
+             write-back has not landed
+          2. land the previous step's pending write-back (K2; skipped at
+             the first step of a block, which has none)
+          3. forward/backward on the stale rows; clip; dense update
+          4. gather the rows again (K1): fresh, with the previous update
+          5. optimize the FRESH rows, so that no update is lost; DC
+             segments receive the stale rows; defer the write-back
+
+        K1's output is a copy, so nothing aliases the pool that K2 writes
+        in place between 1 and 2. On one stream the write-back overlaps
+        nothing; the order is kept for the numerics. Returns (loss, preds,
+        aux, pending = (rows, new packed rows) by table)."""
+        engine, seed = self.engine, self.config.seed
+        prows_stale, unique_stale = engine.fused_lookup(
+            self.table_states, inputs, seed, step)
+        if pending is not None:
+            with torch.no_grad():
+                engine.scatter_rows(self.table_states, *pending, step,
+                                    seed=seed)
+        loss, preds, aux, gu = self._dense_step(inputs, batch_t,
+                                                unique_stale, step)
+        with torch.no_grad():
+            prows_latest, _ = engine.fused_lookup(self.table_states, inputs,
+                                                  seed, step)
+            new_p = engine.optimize_rows(inputs, prows_latest, gu, step,
+                                         prows_stale=prows_stale)
+        rows = {t: inputs[t]["rows"] for t in new_p}
+        return loss, preds, aux, (rows, new_p)
+
+    def train_step(self, fid_batch: Dict[str, np.ndarray],
+                   batch: Dict[str, np.ndarray],
+                   ts: Optional[int] = None) -> Dict:
+        """Run one training step. fid_batch: {feature: int64 [B, L] pad -1};
+        batch: dense-side float32/int32 arrays incl. "label". Returns
+        {"loss", "preds", "stats", "aux"} with loss/preds on the device."""
+        ts = int(time.time()) if ts is None else ts
+        inputs, batch_t, stats = self._upload(fid_batch, batch, ts)
+        loss, preds, aux = self._step_core(inputs, batch_t, self.step)
         self.step += 1
         return {"loss": loss, "preds": preds, "stats": stats, "aux": aux}
+
+    def stage_block(self, pairs, ts: Optional[int] = None) -> Dict:
+        """Pack the NEXT block and start its host-to-device upload now, so
+        that both overlap the device work of the block dispatched just
+        before. The staged block bakes in step numbers and admissions: it
+        MUST be the next thing dispatched (train_step_block checks)."""
+        ts = int(time.time()) if ts is None else ts
+        wires, stats, layout = self._pack_block(pairs, ts)
+        return {"wires": wires, "stats": stats, "base_step": self.step,
+                "K": len(pairs), "layout": layout}
+
+    def train_step_block(self, pairs, ts: Optional[int] = None,
+                         staged: Optional[Dict] = None) -> Dict:
+        """Run len(pairs) training steps from ONE uploaded buffer, with no
+        host-device synchronisation between them. pairs: list of
+        (fid_batch, batch); staged: the result of stage_block(pairs), which
+        skips the pack and uses the wires already on their way. With
+        EngineConfig.async_optimize the steps follow the 1-step-stale
+        schedule (_step_async) and the last step's write-back lands at the
+        end of the block, keyed with step number 0 as in the JAX package.
+
+        Returns {"loss": [K], "preds": [K, B], "stats": list of K,
+        "aux": {name: [K, ...]}} with the tensors on the device."""
+        K = len(pairs)
+        if staged is not None:
+            if staged["base_step"] != self.step or staged["K"] != K:
+                raise ValueError(
+                    f"the staged block (steps {staged['base_step']}.."
+                    f"{staged['base_step'] + staged['K'] - 1}) is not the "
+                    f"next dispatch ({K} steps from {self.step}): "
+                    f"stage_block must be followed by its own dispatch")
+            wires, stats, layout = (staged["wires"], staged["stats"],
+                                    staged["layout"])
+        else:
+            ts = int(time.time()) if ts is None else ts
+            wires, stats, layout = self._pack_block(pairs, ts)
+        stale = self.config.engine.async_optimize
+        pending = None
+        losses, preds, auxes = [], [], []
+        for i in range(K):
+            # the step number comes from the host, which knows it
+            inputs, batch_t = self._decode(wires[i], layout)
+            if stale:
+                loss, p, aux, pending = self._step_async(
+                    inputs, batch_t, self.step + i, pending)
+            else:
+                loss, p, aux = self._step_core(inputs, batch_t, self.step + i)
+            losses.append(loss)
+            preds.append(p)
+            auxes.append(aux)
+        if pending is not None:
+            with torch.no_grad():
+                self.engine.scatter_rows(self.table_states, *pending, 0,
+                                         seed=self.config.seed)
+        self.step += K
+        return {"loss": torch.stack(losses), "preds": torch.stack(preds),
+                "stats": stats,
+                "aux": {k: torch.stack([a[k] for a in auxes])
+                        for k in auxes[0]}}
 
     def _drain_metrics(self):
         """Read back and reset the on-device metric accumulator (the only
@@ -230,7 +380,7 @@ class Trainer:
         for i, (fid_batch, batch) in enumerate(data):
             if max_steps is not None and i >= max_steps:
                 break
-            inputs, batch_t, _ = self._upload(fid_batch, batch, 0, self.step)
+            inputs, batch_t, _ = self._upload(fid_batch, batch, 0)
             pooled, _ = engine.embed(self.table_states, inputs, step=self.step)
             out = self.module(pooled, batch_t)
             loss, _ = task.loss(out, batch_t)
@@ -238,23 +388,120 @@ class Trainer:
             loss_mean.update(float(loss))
         return {"auc": auc.result(), "loss": loss_mean.result()}
 
-    def train(self, data: Iterator, steps: Optional[int] = None
-              ) -> Dict[str, float]:
-        """Run the training loop over `data` (yields (fid_batch, batch)),
-        one step per dispatch (block dispatch is not ported yet)."""
+    def _block_capable(self) -> bool:
+        """Whether train() may run blocks at all. The wire is this
+        trainer's only path, so it may; a trainer whose steps cannot be
+        packed ahead (a later multi-device one) overrides this."""
+        return True
+
+    def _stage_capable(self) -> bool:
+        """Whether this trainer implements stage_block(). A subclass that
+        overrides train_step_block either brings its own stage_block or
+        returns False here, so that _train_blocked never hands it a block
+        staged by another trainer's rules."""
+        return True
+
+    def _block_eligible(self, batch) -> bool:
+        """Whether this batch's arrays can ride the wire (all 4-byte)."""
+        return all(np.asarray(v).dtype.str in _WIRE_DTYPES
+                   for v in batch.values())
+
+    def _log(self, t0: float, examples: int) -> None:
+        self._drain_metrics()
+        dt = time.time() - t0
+        print(f"step {self.step}: loss={self.loss_mean.result():.4f} "
+              f"auc={self.auc.result():.4f} "
+              f"ex/s={examples / max(dt, 1e-9):.0f}")
+
+    def _result(self, t0: float, examples: int) -> Dict[str, float]:
+        self._drain_metrics()
+        return {"auc": self.auc.result(), "loss": self.loss_mean.result(),
+                "examples_per_sec": examples / max(time.time() - t0, 1e-9)}
+
+    def train(self, data: Iterator, steps: Optional[int] = None,
+              hooks=()) -> Dict[str, float]:
+        """Run the training loop over `data` (yields (fid_batch, batch)).
+        Each hook is called as h(trainer, out) after every step; a hook
+        that raises StopIteration asks for a clean stop.
+
+        With config.steps_per_dispatch > 1 steps run in blocks of K
+        (_train_blocked) and hooks fire once per block."""
+        K = max(1, self.config.steps_per_dispatch)
+        if K > 1 and self._block_capable():
+            return self._train_blocked(data, steps, hooks, K)
         t0 = time.time()
         examples = 0
         for i, (fid_batch, batch) in enumerate(data):
             if steps is not None and i >= steps:
                 break
-            self.train_step(fid_batch, batch)
+            out = self.train_step(fid_batch, batch)
             examples += len(next(iter(batch.values())))
+            if _call_hooks(hooks, self, out):
+                break
             if self.config.log_every and (self.step % self.config.log_every == 0):
-                self._drain_metrics()
-                dt = time.time() - t0
-                print(f"step {self.step}: loss={self.loss_mean.result():.4f} "
-                      f"auc={self.auc.result():.4f} "
-                      f"ex/s={examples / max(dt, 1e-9):.0f}")
-        self._drain_metrics()
-        return {"auc": self.auc.result(), "loss": self.loss_mean.result(),
-                "examples_per_sec": examples / max(time.time() - t0, 1e-9)}
+                self._log(t0, examples)
+        return self._result(t0, examples)
+
+    def _train_blocked(self, data: Iterator, steps: Optional[int],
+                       hooks, K: int) -> Dict[str, float]:
+        """The block-dispatch loop: the first step alone (it builds the
+        kernels and sizes the buffers), then full blocks of K, each staged
+        (packed and uploading) while the block before it runs, then a
+        short tail stepped one by one. Hooks fire once per group, with the
+        group's last output; metrics drain at the same steps as the
+        per-step loop's log."""
+        t0 = time.time()
+        examples = 0
+        done = 0
+        it = iter(data)
+
+        def fetch(want):
+            pairs = []
+            for _ in range(want):
+                try:
+                    pairs.append(next(it))
+                except StopIteration:
+                    break
+            return pairs
+
+        def blockable(pairs):
+            return len(pairs) == K and self._block_eligible(pairs[0][1])
+
+        pairs = fetch(1 if steps is None else min(1, steps))
+        staged = None
+        while pairs:
+            if blockable(pairs):
+                out = self.train_step_block(pairs, staged=staged)
+            else:
+                for fb, b in pairs:
+                    out = self.train_step(fb, b)
+            staged = None
+            done += len(pairs)
+            examples += sum(len(next(iter(b.values()))) for _, b in pairs)
+            stop = _call_hooks(hooks, self, out)
+            log_now = self.config.log_every and (
+                self.step % self.config.log_every < len(pairs))
+            if stop or (steps is not None and done >= steps):
+                pairs = []
+            else:
+                pairs = fetch(K if steps is None else min(K, steps - done))
+                # lookahead: pack and upload the next block while this one
+                # still runs on the device. Only a block that will be
+                # dispatched as a block may be staged: the pack bakes in
+                # step numbers and host-store admissions.
+                if blockable(pairs) and self._stage_capable():
+                    staged = self.stage_block(pairs)
+            if log_now:
+                self._log(t0, examples)
+        return self._result(t0, examples)
+
+
+def _call_hooks(hooks, trainer, out) -> bool:
+    """Call every hook; True if one asked for a clean stop."""
+    stop = False
+    for h in hooks:
+        try:
+            h(trainer, out)
+        except StopIteration:
+            stop = True
+    return stop

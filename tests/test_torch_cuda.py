@@ -1,7 +1,9 @@
 """Tests of the port that need the card: K1/K2 (f32 and bf16 pools) and K3
 against their plain versions on CUDA tensors, and a few train steps on the
 card against the CPU from one carried state (DeepFM f32, multislot bf16
-with stochastic rounding). They skip without CUDA. On a machine with a card (and no
+with stochastic rounding); the block path (a block against sequential
+steps, the asynchronous block's launch counts, the staged buffers'
+events). They skip without CUDA. On a machine with a card (and no
 JAX) run them with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -175,3 +177,105 @@ def test_multislot_bf16_card_steps_match_cpu(card):
         lc = cpu.train_step(*batches[i], ts=i)["loss"].item()
         lg = gpu.train_step(*batches[i], ts=i)["loss"].item()
         np.testing.assert_allclose(lg, lc, rtol=1e-3)
+
+
+# ----------------------------------------------------------------------
+# block dispatch on the card
+# ----------------------------------------------------------------------
+
+def _small_deepfm(device, **engine):
+    return Trainer(DeepFMTask(capacity_per_shard=4096, hidden=(32, 16),
+                              init_scale=0.0),
+                   TrainerConfig(engine=EngineConfig(
+                       unique_cap=512, new_cap=512, **engine),
+                       clip_norm=0.05, log_every=0), device=device)
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["sync", "async"])
+def test_card_block_matches_sequential_steps(card, stale):
+    """A block of 4 on the card against 4 train_steps on the card from one
+    carried state. The pooling backward's atomics sum in a varying order,
+    so not bit for bit: losses rtol 1e-4, pool atol 1e-5. (The
+    asynchronous block is compared on ids that no two consecutive steps
+    share: only then does it compute what the sequential steps do.)"""
+    if stale:
+        rng = np.random.default_rng(3)
+        batches = []
+        for k in range(5):
+            ids = np.arange(100 * k, 100 * k + 60)
+            batches.append((
+                {"user_id": rng.choice(ids, (64, 1)).astype(np.int64),
+                 "item_id": rng.choice(ids, (64, 1)).astype(np.int64),
+                 "hist_items": rng.choice(ids, (64, 10)).astype(np.int64)},
+                {"label": rng.integers(0, 2, 64).astype(np.float32)}))
+    else:
+        data = SyntheticCTR(num_users=400, num_items=300, batch_size=64,
+                            seed=2)
+        batches = [data.batch() for _ in range(5)]
+    seq, blk = _small_deepfm(card), _small_deepfm(card, async_optimize=stale)
+    seq.train_step(*batches[0], ts=0)
+    convert.load_state(blk, convert.export_state(seq))
+    ls = [seq.train_step(*b, ts=1)["loss"].item() for b in batches[1:]]
+    torch.cuda.set_sync_debug_mode("error")
+    try:  # a synchronisation inside the block raises
+        out = blk.train_step_block(batches[1:], staged=blk.stage_block(
+            batches[1:], ts=1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    np.testing.assert_allclose(out["loss"].cpu().numpy(), ls, rtol=1e-4)
+    np.testing.assert_allclose(
+        blk.table_states["sparse"]["data"].cpu().numpy(),
+        seq.table_states["sparse"]["data"].cpu().numpy(), atol=1e-5, rtol=0)
+
+
+def test_async_block_launch_counts(card):
+    """K steps of the 1-step-stale block: 2K gathers (stale and fresh), K
+    scatters (none at the first step, which has no pending write-back; the
+    last step's at the end of the block), and K roundings for a bf16 pool
+    with stochastic rounding."""
+    from monolith_tpu_torch import ops as port_ops
+    tr = Trainer(MultiSlotTask(
+        num_tables=4, num_slots=10, embedding_dim=8, capacity_per_shard=8192,
+        history_length=6, hidden=(32,), merge=True,
+        table_dtype=torch.bfloat16, stochastic_rounding=True),
+        TrainerConfig(engine=EngineConfig(unique_cap=2048, new_cap=2048,
+                                          async_optimize=True),
+                      log_every=0), device=card)
+    data = SyntheticMultiSlot(num_slots=10, vocab_per_slot=300,
+                              history_length=6, batch_size=256, seed=2)
+    batches = [data.batch() for _ in range(6)]
+    port_ops.reset_launch_counts()
+    tr.train_step(*batches[0])
+    assert port_ops.launch_counts() == {
+        "gather_rows": 1, "scatter_rows": 1, "stochastic_round_bf16": 1}
+    port_ops.reset_launch_counts()
+    out = tr.train_step_block(batches[1:])
+    assert port_ops.launch_counts() == {
+        "gather_rows": 10, "scatter_rows": 5, "stochastic_round_bf16": 5}
+    assert torch.isfinite(out["loss"]).all() and tr.step == 6
+
+
+def test_staged_buffer_is_refilled_only_after_its_copys_event(card):
+    """Two pinned buffers per (layout, K), used in turn: staging block n+2
+    refills the buffer block n was sent from, and `host()` waits for that
+    copy's event first. The device copy of block n keeps its content."""
+    data = SyntheticCTR(num_users=400, num_items=300, batch_size=64, seed=2)
+    batches = [data.batch() for _ in range(9)]
+    tr = _small_deepfm(card)
+    tr.train_step(*batches[0])
+    a = tr.stage_block(batches[1:5])
+    key = (a["layout"], 4)
+    staging = tr._wires[key]
+    assert all(b.is_pinned() for b in staging.bufs)
+    assert staging.events[0] is not None and staging.events[1] is None
+    sent = staging.bufs[0].clone()
+    tr.train_step_block(batches[1:5], staged=a)
+    b = tr.stage_block(batches[5:9])
+    assert staging.events[1] is not None and staging.i == 0
+    tr.train_step_block(batches[5:9], staged=b)
+    first_event = staging.events[0]
+    host = staging.host()               # waits for block a's copy
+    assert first_event.query()
+    assert host.ctypes.data == staging.bufs[0].data_ptr()
+    # block a's device copy still holds what was sent
+    assert torch.equal(a["wires"].cpu(), sent)
