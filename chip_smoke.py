@@ -17,6 +17,11 @@ failures is caught:
      each timed (kernel, plain version, one library call) beside its bound,
      by CUDA events around each launch after an L2 flush; beside that the
      event floor (an empty kernel timed the same way);
+  3b. K1 and K2 against their plain versions, bit for bit, at the lengths
+     phase 10 gives them on the same pools: a sync round's power-of-two
+     lengths with a -1 tail (2^15, 2^18, 2^20 rows), a delta's and an
+     export's ragged lengths with -1 inside (294,838, 504,203 and, on the
+     bf16 pool, 540,468 rows);
   4. the DeepFM path: full-width DeepFM (bench.py's deepfm config:
      capacity 2^21, unique_cap 32768, batch 8192, hidden (256, 128, 64))
      through Trainer.train_step for 4 steps and Trainer.evaluate for 1
@@ -60,7 +65,36 @@ failures is caught:
      the card: eval AUC inside NORTHSTAR_BAND;
   9. each kernel's own duration from a torch.profiler window over 20
      flushed launches at phase 3's shapes, read by kernel name (last, so
-     that no timed phase runs after the profiler has been on).
+     that no timed phase runs after the profiler has been on);
+ 10. the model's way out of the trainer, at full width, run before phases
+     5d-9 on the trainers that phases 5b and 5c leave (the DeepFM one
+     records touched ids from its first step):
+     10a. checkpoint: save the DeepFM trainer (1 GiB pool), restore into a
+       fresh one: pools, host store, dense parameters, accumulators and
+       step equal bit for bit, and the next train_step on a batch of known
+       ids gives the same loss (rtol 1e-6); seconds, bytes on disk, rows;
+     10b. export and serve: export_model -> ServingModel on the card
+       (unique_cap 32768): every exported row equals the trainer's, read
+       by K1's plain version; 8 predicts at batch 8192 from the same stream:
+       finite, [8192], equal to the trainer's eval predictions (rtol 1e-4,
+       atol 1e-5); K1 = one export gather a table + one a trainer eval; load
+       seconds, pool bytes, ms per predict (median) split into host prepare
+       / device / readback. The same for the multislot
+       bf16 trainer (17 merged tables, bf16 pool exported as f32,
+       unique_cap 49152), 4 predicts (rtol 1e-3: bf16 tower);
+     10c. streaming push: StreamingTrainer with a stand-in sync target
+       that calls ServingModel.apply_delta, 16 steps, a round every 8: K1's
+       count rises by one a step and one a non-empty gather, every pushed
+       fid's serving row equals the trainer's as K1's plain version reads
+       it, a predict after the push differs from one before;
+     10d. delta and hot swap: save_delta (K1; the saved values equal the
+       plain version's) -> restore_delta into 10a's restored trainer (K1 +
+       K2): its pool equals, bit for bit, a copy of the pool from before
+       that the plain versions updated with the same rows and values; 8
+       more steps, a second export, reload_export: step and predictions
+       follow it;
+     10e. a small ServingModel on the card and on the CPU from one export:
+       predictions rtol 1e-5.
 
 TF32 is off for matrix products and convolutions (torch.backends), so the
 card's f32 dense towers run in full f32 like the CPU's. The second-to-last
@@ -198,6 +232,52 @@ def phase_rows(path, floor):
             f"grid {grid} x {ops.WARPS} warps, {tile_rows} rows a tile, "
             f"{smem} B of shared memory")
     return [k1, k2]
+
+
+# the lengths K1/K2 meet outside a train step (phase 10), by path: (rows a
+# call, valid rows of a -1 tailed call or None for ~1% of -1 inside)
+OUT_OF_STEP_SHAPES = {
+    "deepfm_f32": [(1 << 15, 21_300), (1 << 18, 140_685), (1 << 20, 608_846),
+                   (294_838, None), (504_203, None)],
+    "multislot_bf16": [(540_468, None)]}
+
+
+def phase_rows_out_of_step(path):
+    """3b: K1/K2 against their plain versions, bit for bit, at the lengths
+    the sync rounds, the delta and the exports give them on this path's
+    pool."""
+    import torch
+    from monolith_tpu_torch.bench_rows import SHAPES
+    from monolith_tpu_torch.ops import scatter as ops
+    cap, width, dtype, _ = SHAPES[path]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    pool = torch.randn((cap, width), generator=g, device="cuda").to(dtype)
+    done = []
+    for n, live in OUT_OF_STEP_SHAPES[path]:
+        rows = torch.randperm(cap, generator=g, device="cuda")[:n].int()
+        if live is None:
+            rows[torch.rand(n, generator=g, device="cuda") < 0.01] = -1
+        else:
+            rows[live:] = -1
+        values = torch.randn((n, width), generator=g,
+                             device="cuda").to(dtype)
+        shape = f"{path}, rows [{n}] ({int((rows >= 0).sum())} valid)"
+        out = ops.gather_rows(pool, rows)
+        assert torch.equal(out.view(torch.int16),
+                           ops.gather_rows_plain(pool, rows).view(
+                               torch.int16)), \
+            f"gather_rows differs from its plain version ({shape})"
+        del out
+        pool_k, pool_p = pool.clone(), pool.clone()
+        ops.scatter_rows(pool_k, rows, values)
+        ops.scatter_rows_plain(pool_p, rows, values)
+        assert torch.equal(pool_k.view(torch.int16),
+                           pool_p.view(torch.int16)), \
+            f"scatter_rows differs from its plain version ({shape})"
+        del pool_k, pool_p
+        done.append(shape.split(", ", 1)[1])
+    log(f"gather_rows, scatter_rows [{path}] at the lengths outside a train "
+        f"step: bit-exact at {'; '.join(done)}")
 
 
 def phase_rounding(path, floor):
@@ -433,7 +513,9 @@ def drive_block_path(name, trainer, data, expect, per_step_losses, same,
         f"trainer {step_ms:.3f} ms/step ({K} steps, one synchronize at the "
         f"end); host pack {pack_ms:.3f} ms/step; upload {upload_ms:.3f} "
         f"ms/block ({nbytes} bytes); launches {launches}")
-    return launches
+    trainer.train_step_block = block
+    return {"launches": launches, "trainer": trainer, "data": data,
+            "seen": more[2 * K - 1]}
 
 
 def phase_deepfm_block_path(per_step_losses):
@@ -442,7 +524,8 @@ def phase_deepfm_block_path(per_step_losses):
     steps of 8192, so the loss stays at its start (0.696) and is held
     against the per-step path's instead of being asked to fall."""
     from monolith_tpu_torch.profile_step import CONFIGS
-    trainer, data = CONFIGS["deepfm"](steps_per_dispatch=BLOCK_K)
+    trainer, data = CONFIGS["deepfm"](steps_per_dispatch=BLOCK_K,
+                                      record_touch=True)
     n = BLOCK_K * BLOCKS
     return drive_block_path("deepfm_f32", trainer, data,
                             {"gather_rows": 1 + n + 1, "scatter_rows": 1 + n,
@@ -646,6 +729,329 @@ def phase_northstar():
     assert lo <= r["eval_auc"] <= hi, (r["eval_auc"], NORTHSTAR_BAND)
 
 
+# ----------------------------------------------------------------------
+# phase 10: checkpoint, export, serving, streaming push, delta, hot swap
+# ----------------------------------------------------------------------
+
+def _tree_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _stores_equal(a, b):
+    for t in a.engine.stores:
+        sa, sb = a.engine.stores[t].save(), b.engine.stores[t].save()
+        oa, ob = np.argsort(sa[0]), np.argsort(sb[0])
+        for x, y in zip(sa, sb):
+            np.testing.assert_array_equal(x[oa], y[ob])
+
+
+def phase_checkpoint(trainer, seen, work):
+    """10a: save -> a fresh trainer -> restore, bit for bit; then one
+    train_step of each on a batch whose ids both know."""
+    import torch
+    from monolith_tpu_torch.profile_step import CONFIGS
+    from monolith_tpu_torch.training import checkpoint
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = checkpoint.save(trainer, work)
+    save_s = time.perf_counter() - t0
+    fresh, _ = CONFIGS["deepfm"](steps_per_dispatch=BLOCK_K,
+                                 record_touch=True)
+    t0 = time.perf_counter()
+    step = checkpoint.restore(fresh, work)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert step == fresh.step == trainer.step
+    for t, st in trainer.table_states.items():
+        assert torch.equal(st["data"], fresh.table_states[t]["data"]), t
+    _stores_equal(trainer, fresh)
+    theirs = dict(fresh.module.named_parameters())
+    for name, p in trainer.module.named_parameters():
+        assert torch.equal(p, theirs[name]), name
+        assert torch.equal(trainer.opt_state[name], fresh.opt_state[name])
+    ts = int(time.time())
+    la = trainer.train_step(*seen, ts=ts)
+    lb = fresh.train_step(*seen, ts=ts)
+    assert not any(la["stats"]["new"].values()), la["stats"]
+    np.testing.assert_allclose(lb["loss"].item(), la["loss"].item(),
+                               rtol=1e-6)
+    rows = {t: s.size() for t, s in trainer.engine.stores.items()}
+    log(f"checkpoint: save {save_s:.3f} s, restore {restore_s:.3f} s (into a "
+        f"fresh trainer; live prefix uploaded, rows above it made on the "
+        f"card), {_tree_bytes(path)} bytes on disk, live rows {rows}, step "
+        f"{step}; restored state equal bit for bit; next loss "
+        f"{lb['loss'].item():.6f} vs {la['loss'].item():.6f}")
+    return fresh
+
+
+def phase_export_serve(name, trainer, data, work, unique_cap, predicts,
+                       rtol, **model_kw):
+    """10b: export_model -> ServingModel on the card -> `predicts`
+    predicts at the stream's batch, each held against the trainer's eval
+    predictions on the same batch."""
+    import torch
+    from monolith_tpu_torch import ops
+    from monolith_tpu_torch.serving import ServingModel, export_model
+    tables = len(trainer.engine.tables)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    path = export_model(trainer, work)
+    export_s = time.perf_counter() - t0
+    # the export gathers each table's live rows once
+    assert ops.launch_counts()["gather_rows"] == tables, ops.launch_counts()
+    t0 = time.perf_counter()
+    model = ServingModel(trainer.task, path, unique_cap=unique_cap,
+                         **model_kw)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert all(p.is_cuda and p.dtype == torch.float32
+               for p in model.pools.values())
+    assert model.step == trainer.step
+    for t, store in trainer.engine.stores.items():
+        _serving_rows_equal_trainer(model, trainer, t, store.save()[0])
+    model.predict(*data.batch())            # warm-up
+    total, parts = [], []
+    for _ in range(predicts):
+        fb, b = data.batch()
+        batch = len(b["label"])
+        split = {}
+        t0 = time.perf_counter()
+        preds = model.predict(fb, b, timing=split)
+        total.append((time.perf_counter() - t0) * 1e3)
+        parts.append([split[k] for k in ("prepare_ms", "device_ms",
+                                         "readback_ms")])
+        assert preds.shape == (batch,) and np.isfinite(preds).all()
+        np.testing.assert_allclose(
+            preds, trainer.predict(fb, b).cpu().numpy(), rtol=rtol,
+            atol=1e-5)
+    launches = ops.launch_counts()
+    # serving launches no kernel: the export's gathers and one K1 for each
+    # of the trainer's eval predictions
+    assert launches == {"gather_rows": tables + predicts, "scatter_rows": 0,
+                        "stochastic_round_bf16": 0}, launches
+    prep, dev, read = np.median(np.array(parts), axis=0)
+    pool_bytes = sum(p.numel() * p.element_size()
+                     for p in model.pools.values())
+    log(f"{name} serving: export {export_s:.3f} s ({_tree_bytes(path)} "
+        f"bytes), load {load_s:.3f} s, rows {model.table_sizes()}, pools "
+        f"{pool_bytes} bytes on the card; every exported row equals the "
+        f"trainer's; {predicts} predicts at batch "
+        f"{batch} equal the trainer's eval predictions (rtol {rtol}); "
+        f"ms/predict {np.median(total):.3f} (median; host clock, predict "
+        f"returns numpy); split: host prepare {prep:.3f}, device {dev:.3f} "
+        f"(upload + forward, waited for), readback {read:.3f}; launches "
+        f"{launches}")
+    return model, launches
+
+
+class PushTo:
+    """The stand-in for a parameter-sync client: a push lands in one
+    ServingModel's apply_delta, which is all a serving agent does with it."""
+
+    def __init__(self, model):
+        self.model, self.pushes = model, []
+
+    def push(self, table, fids, values):
+        self.pushes.append((table, fids))
+        return self.model.apply_delta(table, fids, values)
+
+
+def _trainer_rows_plain(trainer, table, fids):
+    """The trainer's embedding rows of `fids` [n, dim] f32 on the card, read
+    by K1's plain version, so that no kernel computes what a kernel's result
+    is held against."""
+    import torch
+    from monolith_tpu_torch.ops import scatter as ops
+    rows = trainer.engine.stores[table].lookup(fids)
+    assert (rows >= 0).all()
+    packed = ops.gather_rows_plain(
+        trainer.table_states[table]["data"],
+        torch.from_numpy(np.ascontiguousarray(rows, np.int32)).cuda())
+    return packed[:, :trainer.engine.tables[table].dim].float()
+
+
+def _serving_rows_equal_trainer(model, trainer, table, fids):
+    np.testing.assert_array_equal(
+        model.lookup_rows(table, fids),
+        _trainer_rows_plain(trainer, table, fids).cpu().numpy())
+
+
+def phase_streaming(trainer, data, model):
+    """10c: 16 streaming steps, a sync round every 8, pushes landing in
+    the serving model."""
+    import torch
+    from monolith_tpu_torch import ops
+    from monolith_tpu_torch.training.streaming import (StreamingConfig,
+                                                       StreamingTrainer)
+    steps, every = 16, 8
+    probe = data.batch()
+    before = model.predict(*probe)
+    sync = PushTo(model)
+    # the first round drains every id touched since the trainer's first
+    # step (~10^6): give the round room for all of them
+    st = StreamingTrainer(trainer, sync, StreamingConfig(
+        sync_interval_steps=every, max_push_rows=1 << 22))
+    batches = [data.batch() for _ in range(steps)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = st.run(iter(batches), max_steps=steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    # one K1 and one K2 a train step; one K1 more for every non-empty
+    # (table, round) gather, each of which ended in one push
+    assert res["steps"] == steps and len(sync.pushes) >= steps // every
+    assert launches == {"gather_rows": steps + len(sync.pushes),
+                        "scatter_rows": steps,
+                        "stochastic_round_bf16": 0}, (launches,
+                                                      len(sync.pushes))
+    assert res["pushed_rows"] == sum(len(f) for _, f in sync.pushes) > 0
+    pushed = np.unique(np.concatenate([f for _, f in sync.pushes]))
+    _serving_rows_equal_trainer(model, trainer, "sparse", pushed)
+    after = model.predict(*probe)
+    assert not np.allclose(before, after), "the push changed no prediction"
+    # sync rounds alone, timed: touch ids, then one round
+    round_ms = []
+    for fb, b in [data.batch() for _ in range(3)]:
+        trainer.train_step(fb, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(st.sync_now().values())
+        round_ms.append(((time.perf_counter() - t0) * 1e3, n))
+    log(f"streaming push: {steps} steps in {run_s:.3f} s, {res['sync_rounds']} "
+        f"rounds, rows pushed by push {[len(f) for _, f in sync.pushes]}, "
+        f"{len(pushed)} distinct; every pushed row equals the trainer's; a "
+        f"round after one more step (ms, rows): "
+        f"{[(round(ms, 3), n) for ms, n in round_ms]}; launches {launches}")
+    return launches
+
+
+def phase_delta_and_swap(trainer, restored, data, model, work, since_ts):
+    """10d: the rows touched since `since_ts` travel as a delta into the
+    trainer that 10a restored; then a second export and a hot swap."""
+    import torch
+    from monolith_tpu_torch import ops
+    from monolith_tpu_torch.ops import scatter as rows_ops
+    from monolith_tpu_torch.serving import export_model
+    from monolith_tpu_torch.training import checkpoint
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    path = checkpoint.save_delta(trainer, work, since_ts=since_ts,
+                                 base_step=restored.step)
+    save_s = time.perf_counter() - t0
+    assert ops.launch_counts()["gather_rows"] == 1, ops.launch_counts()
+    z = np.load(os.path.join(path, "sparse-s0.npz"))
+    fids, values = z["fids"], torch.from_numpy(z["values"]).cuda()
+    # K1 gathered the saved values: they equal the plain version's
+    assert torch.equal(values, _trainer_rows_plain(trainer, "sparse", fids))
+    expect = restored.table_states["sparse"]["data"].clone()
+    t0 = time.perf_counter()
+    applied = checkpoint.restore_delta(restored, path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    assert launches == {"gather_rows": 2, "scatter_rows": 1,
+                        "stochastic_round_bf16": 0}, launches
+    assert applied == len(fids) > 0 and restored.step == trainer.step
+    # what restore_delta's K1 and K2 did to the pool, by the plain versions
+    # on a copy of the pool from before: the params columns of the delta's
+    # rows overwritten, every other element as it was
+    rows = torch.from_numpy(np.ascontiguousarray(
+        restored.engine.stores["sparse"].lookup(fids), np.int32)).cuda()
+    assert (rows >= 0).all()
+    packed = rows_ops.gather_rows_plain(expect, rows)
+    packed[:, :values.shape[1]] = values
+    rows_ops.scatter_rows_plain(expect, rows, packed)
+    assert torch.equal(restored.table_states["sparse"]["data"], expect), \
+        "restore_delta's pool differs from the plain versions'"
+    assert torch.equal(_trainer_rows_plain(restored, "sparse", fids), values)
+    del expect, packed
+    log(f"delta: {len(fids)} rows since ts {since_ts}, save {save_s:.3f} s, "
+        f"restore {restore_s:.3f} s, {_tree_bytes(path)} bytes; the saved "
+        f"values and the restored pool equal the plain versions' bit for "
+        f"bit; launches {launches}")
+    for _ in range(8):
+        trainer.train_step(*data.batch())
+    probe = data.batch()
+    old = model.predict(*probe)
+    path2 = export_model(trainer, work)
+    t0 = time.perf_counter()
+    assert model.reload_export(path2) == trainer.step == model.step
+    swap_s = time.perf_counter() - t0
+    new = model.predict(*probe)
+    np.testing.assert_allclose(new, trainer.predict(*probe).cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert not np.allclose(old, new)
+    log(f"hot swap: reload_export in {swap_s:.3f} s, the model serves step "
+        f"{model.step} and its predictions follow the new export")
+    return launches
+
+
+def phase_serving_card_vs_cpu(work):
+    """10e: one export of a small trainer, served from the card and from
+    the CPU: predictions rtol 1e-5."""
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    from monolith_tpu_torch.serving import ServingModel, export_model
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+    task = DeepFMTask(embedding_dim=8, capacity_per_shard=4096,
+                      hidden=(16, 8))
+    trainer = Trainer(task, TrainerConfig(engine=EngineConfig(
+        unique_cap=512, new_cap=512), log_every=0, seed=51), device="cpu")
+    data = SyntheticCTR(num_users=80, num_items=40, batch_size=128, seed=51)
+    for _ in range(20):
+        trainer.train_step(*data.batch())
+    path = export_model(trainer, os.path.join(work, "small"))
+    card = ServingModel(task, path, unique_cap=512)
+    cpu = ServingModel(task, path, unique_cap=512, device="cpu")
+    gaps = []
+    for _ in range(3):
+        fb, b = data.batch()
+        pc, pg = cpu.predict(fb, b), card.predict(fb, b)
+        np.testing.assert_allclose(pg, pc, rtol=1e-5)
+        gaps.append(float(np.max(np.abs(pg / pc - 1))))
+    log(f"serving card vs cpu: worst relative gap {max(gaps):.3e}")
+
+
+def phase_out_of_the_trainer(deepfm, multislot):
+    """Phases 10a-10d on the trainers that phases 5b and 5c left; returns
+    the kernels' launches of the serving side by path."""
+    import shutil
+    import tempfile
+
+    import torch
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.time()
+        trainer, data = deepfm["trainer"], deepfm["data"]
+        restored = phase_checkpoint(trainer, deepfm["seen"], work)
+        # headroom 1.5: this stream brings ~21,000 new ids a step, and
+        # 10b-10c push ~36 batches' worth of them into the serving pool
+        model, serve = phase_export_serve("deepfm_f32", trainer, data, work,
+                                          32768, 8, 1e-4, headroom=1.5)
+        since_ts = int(time.time())
+        streaming = phase_streaming(trainer, data, model)
+        delta = phase_delta_and_swap(trainer, restored, data, model, work,
+                                     since_ts)
+        del restored, model
+        torch.cuda.empty_cache()
+        _, ms_serve = phase_export_serve(
+            "multislot_bf16", multislot["trainer"], multislot["data"],
+            os.path.join(work, "ms"), 49152, 4, 1e-3)
+        phase_serving_card_vs_cpu(work)
+        log(f"phases 10a-10e: {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"deepfm_f32": {k: serve[k] + streaming[k] + delta[k]
+                           for k in streaming},
+            "multislot_bf16": ms_serve}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -670,23 +1076,31 @@ def main():
     kernels += phase_rows("multislot_bf16", floor)
     kernels += phase_rounding("multislot_bf16", floor)
     torch.cuda.empty_cache()
+    for path in OUT_OF_STEP_SHAPES:
+        phase_rows_out_of_step(path)
+        torch.cuda.empty_cache()
     launches, losses = {}, {}
     launches["deepfm_f32"], losses["deepfm_f32"] = phase_deepfm_path()
     torch.cuda.empty_cache()
     launches["multislot_bf16"], losses["multislot_bf16"] = \
         phase_multislot_path()
     torch.cuda.empty_cache()
-    block_launches = {
-        "deepfm_f32": phase_deepfm_block_path(losses["deepfm_f32"])}
+    blocks = {"deepfm_f32": phase_deepfm_block_path(losses["deepfm_f32"])}
     torch.cuda.empty_cache()
-    block_launches["multislot_bf16"] = phase_multislot_async_block_path(
+    blocks["multislot_bf16"] = phase_multislot_async_block_path(
         losses["multislot_bf16"])
+    serving_launches = phase_out_of_the_trainer(blocks["deepfm_f32"],
+                                                blocks["multislot_bf16"])
     for k in kernels:
-        # each path was driven with the counts set to 0 just before it
+        # each path was driven with the counts set to 0 just before it;
+        # "serving" is the export and the trainer's eval predictions (both
+        # paths) and the streaming push and the delta (deepfm_f32)
         k["launches_by_path"] = {
             "per_step": launches[k["path"]][k["name"]],
-            "block": block_launches[k["path"]][k["name"]]}
+            "block": blocks[k["path"]]["launches"][k["name"]],
+            "serving": serving_launches[k["path"]][k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
+    del blocks
     torch.cuda.empty_cache()
     phase_block_card_vs_cpu()
     phase_card_vs_cpu()

@@ -17,7 +17,7 @@ trainers (the card and the CPU). `jax_trainer_state` reads the JAX
 package's trainer into the format with numpy alone, and
 `port_trainer_config` reads its `TrainerConfig` into the port's with the
 same settings (clip_norm, steps_per_dispatch, per-table caps,
-async_optimize, ...).
+async_optimize, record_touch, ...).
 
 Optimizer slots travel inside the packed pool, at the offsets that
 `table._layout` gives them in both packages, so no optimizer needs code
@@ -44,7 +44,6 @@ def port_trainer_config(jax_config):
     from monolith_tpu_torch.training.trainer import TrainerConfig
     je = jax_config.engine
     unported = {"num_shards": je.num_shards != 1, "tiered": je.tiered,
-                "record_touch": je.record_touch,
                 "packed='off'": je.packed == "off",
                 "compact_wire=False": not je.compact_wire}
     bad = sorted(k for k, v in unported.items() if v)
@@ -54,7 +53,8 @@ def port_trainer_config(jax_config):
         engine=EngineConfig(
             num_shards=1, unique_cap=je.unique_cap, new_cap=je.new_cap,
             unique_caps=je.unique_caps, new_caps=je.new_caps,
-            async_optimize=je.async_optimize),
+            async_optimize=je.async_optimize,
+            record_touch=je.record_touch),
         clip_norm=jax_config.clip_norm, seed=jax_config.seed,
         log_every=jax_config.log_every,
         metrics_enabled=jax_config.metrics_enabled,
@@ -103,21 +103,37 @@ def _to_flax_tree(named: Dict[str, np.ndarray]) -> Dict:
     return tree
 
 
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """Never a view of the live (possibly CPU) tensor."""
+    return t.detach().cpu().numpy().copy()
+
+
+def dense_tree(named) -> Dict:
+    """The flax-form tree (numpy, kernels [in, out]) of named tensors: a
+    module's `named_parameters()` or the optimizer's accumulators."""
+    return _to_flax_tree({n: _host_copy(t) for n, t in dict(named).items()})
+
+
+@torch.no_grad()
+def load_dense_tree(dst: Dict[str, torch.Tensor], tree: Dict) -> None:
+    """Write a flax-form tree into named tensors in place; the names and
+    shapes must match exactly."""
+    named = _to_module_tensors(tree)
+    if set(named) != set(dst):
+        raise ValueError(f"parameter names differ: {sorted(named)} vs "
+                         f"{sorted(dst)}")
+    for name, arr in named.items():
+        if tuple(arr.shape) != tuple(dst[name].shape):
+            raise ValueError(f"{name}: shape {arr.shape} != "
+                             f"{tuple(dst[name].shape)}")
+        dst[name].copy_(torch.from_numpy(np.array(arr)))
+
+
 @torch.no_grad()
 def load_state(trainer, state: Dict) -> None:
     """Write a numpy state (format above) into a port Trainer, in place."""
-    params = dict(trainer.module.named_parameters())
-    for src, dst in ((state["params"], params),
-                     (state["sum_of_squares"], trainer.opt_state)):
-        named = _to_module_tensors(src)
-        if set(named) != set(dst):
-            raise ValueError(f"parameter names differ: {sorted(named)} vs "
-                             f"{sorted(dst)}")
-        for name, arr in named.items():
-            if tuple(arr.shape) != tuple(dst[name].shape):
-                raise ValueError(f"{name}: shape {arr.shape} != "
-                                 f"{tuple(dst[name].shape)}")
-            dst[name].copy_(torch.from_numpy(np.array(arr)))
+    load_dense_tree(dict(trainer.module.named_parameters()), state["params"])
+    load_dense_tree(trainer.opt_state, state["sum_of_squares"])
     for tname, pool in state["tables"].items():
         data = trainer.table_states[tname]["data"]
         src = torch.from_numpy(
@@ -136,14 +152,9 @@ def load_state(trainer, state: Dict) -> None:
 
 def export_state(trainer) -> Dict:
     """Read a port Trainer's state out in the numpy format above."""
-    def copy(t):  # never a view of the live (possibly CPU) tensor
-        return t.detach().cpu().numpy().copy()
-
-    params = {n: copy(p) for n, p in trainer.module.named_parameters()}
-    sos = {n: copy(a) for n, a in trainer.opt_state.items()}
-    return {"params": _to_flax_tree(params),
-            "sum_of_squares": _to_flax_tree(sos),
-            "tables": {t: copy(st["data"].float())[None]
+    return {"params": dense_tree(trainer.module.named_parameters()),
+            "sum_of_squares": dense_tree(trainer.opt_state),
+            "tables": {t: _host_copy(st["data"].float())[None]
                        for t, st in trainer.table_states.items()},
             "stores": {t: s.save() for t, s in trainer.engine.stores.items()},
             "step": trainer.step}

@@ -69,6 +69,9 @@ class EngineConfig:
     # content from before the init in that forward only (zeros on a fresh
     # pool); the optimize and the write-back use initialised state.
     async_optimize: bool = False
+    # record the fids each step touches in the host stores, for the
+    # streaming push of touched rows (HostStore.drain_touched)
+    record_touch: bool = False
 
     def ucap(self, table: str) -> int:
         if self.unique_caps:
@@ -213,7 +216,7 @@ class EmbeddingEngine:
             [self.stores[t] for t in names],
             streams_per_table, ts,
             [cfg.ucap(t) for t in names], [cfg.ncap(t) for t in names],
-            False, wire, offsets)
+            cfg.record_touch, wire, offsets)
         stats = {"overflow": {}, "new": {}, "unique": {}, "filtered": {},
                  "new_rejected": {}}
         for i, tname in enumerate(names):
@@ -337,15 +340,27 @@ class EmbeddingEngine:
                 for tname, tin in inputs.items()}
 
     def retrieve_unique(self, unique_embs: Dict[str, torch.Tensor],
-                        step) -> Dict[str, torch.Tensor]:
-        """Per-segment retrievers: identity in the port's slice, which
-        rejects a table that configures one."""
-        for tname in unique_embs:
-            if any(seg.retriever is not None
-                   for seg in self.tables[tname].segments):
-                raise NotImplementedError(
-                    f"table {tname}: retrievers are not ported yet")
-        return unique_embs
+                        step: int) -> Dict[str, torch.Tensor]:
+        """Apply the per-segment quantization-aware retrievers
+        (embedding/retrievers.py) to the unique-row buffers; identity for a
+        table that configures none. It must be called inside the
+        differentiated loss, so that autograd produces the retriever's
+        backward (straight-through for FakeQuant). `step` is the trainer's
+        step number, a host int."""
+        out = {}
+        for tname, buf in unique_embs.items():
+            spec = self.tables[tname]
+            if all(seg.retriever is None for seg in spec.segments):
+                out[tname] = buf
+                continue
+            pieces, off = [], 0
+            for seg in spec.segments:
+                x = buf[:, off:off + seg.dim]
+                pieces.append(seg.retriever.retrieve(x, step)
+                              if seg.retriever is not None else x)
+                off += seg.dim
+            out[tname] = torch.cat(pieces, dim=-1)
+        return out
 
     def pool_features(self, unique_embs: Dict[str, torch.Tensor],
                       inputs: Dict) -> Dict[str, torch.Tensor]:

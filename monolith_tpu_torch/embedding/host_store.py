@@ -2,9 +2,13 @@
 
 `HostStore` is the collisionless fid -> row map of one table with admission
 filtering; it holds no float data, only row indices into the device pool.
+It also records the fids touched since the last drain (the streaming push
+reads them) and saves and restores its admission filter (checkpoints).
 `Batcher` owns the dedup scratch of one table. `prepare_wire_multi` is the
 fused per-step host prepare (dedup + map + wire pack for every table in one
-native call). Same C++ and the same semantics as the JAX package's host store.
+native call). `shard_of` / `shard_of_batch` are the hash that routes a fid
+to a shard (checkpoint resharding, row-sharded serving). Same C++ and the
+same semantics as the JAX package's host store.
 """
 
 from __future__ import annotations
@@ -139,9 +143,42 @@ class HostStore:
             raise ValueError("HostStore.restore failed: duplicate fids/rows "
                              "or rows out of range")
 
+    # --- touched keys (online parameter sync) ---
+
+    def touched_size(self) -> int:
+        return int(self._lib.mt_store_touched_size(self._h))
+
+    def drain_touched(self, cap: Optional[int] = None) -> np.ndarray:
+        """Drain the (deduplicated) fids touched since the last drain."""
+        if cap is None:
+            cap = self.touched_size()
+        out = np.empty(max(cap, 1), dtype=np.int64)
+        n = self._lib.mt_store_drain_touched(self._h, _ptr(out, ctypes.c_int64), cap)
+        return out[:n]
+
+    # --- filter state ---
+
+    def filter_save(self) -> bytes:
+        """The admission filter's state (b"" for a store without one)."""
+        n = self._lib.mt_store_filter_byte_size(self._h)
+        if n == 0:
+            return b""
+        buf = np.empty(n, dtype=np.uint8)
+        m = self._lib.mt_store_filter_save(self._h, _ptr(buf, ctypes.c_uint8))
+        return buf[:m].tobytes()
+
+    def filter_restore(self, data: bytes) -> None:
+        if not data:
+            return
+        buf = np.frombuffer(data, dtype=np.uint8).copy()
+        ok = self._lib.mt_store_filter_restore(self._h, _ptr(buf, ctypes.c_uint8), buf.size)
+        if not ok:
+            raise ValueError("filter_restore failed (shape mismatch)")
+
 
 class Batcher:
-    """The dedup scratch of one table, used by prepare_wire_multi."""
+    """The dedup scratch of one table: used by prepare_wire_multi in
+    training, and directly (`dedup`) by the serving model's prepare."""
 
     def __init__(self, expected_unique: int = 4096):
         self._lib = native.get_lib()
@@ -152,6 +189,25 @@ class Batcher:
         if h:
             self._lib.mt_batcher_free(h)
             self._h = None
+
+    def dedup(self, values: np.ndarray, num_shards: int, shard_cap: int
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+        """Dedup/shard a flat fid stream (padding fid == -1).
+
+        Returns (unique [num_shards, shard_cap] int64 padded with -1,
+                 index [n] int32 into unique.flatten() with -1 for padding,
+                 shard_counts [num_shards] int32,
+                 overflow count of unique ids dropped for capacity).
+        """
+        values = np.ascontiguousarray(values, dtype=np.int64).ravel()
+        unique = np.empty((num_shards, shard_cap), dtype=np.int64)
+        index = np.empty(values.size, dtype=np.int32)
+        counts = np.empty(num_shards, dtype=np.int32)
+        overflow = self._lib.mt_batcher_dedup(
+            self._h, _ptr(values, ctypes.c_int64), values.size,
+            num_shards, shard_cap, _ptr(unique, ctypes.c_int64),
+            _ptr(index, ctypes.c_int32), _ptr(counts, ctypes.c_int32))
+        return unique, index, counts, int(overflow)
 
 
 def prepare_wire_multi(batchers, stores, table_streams, ts: int,
@@ -195,3 +251,19 @@ def prepare_wire_multi(batchers, stores, table_streams, ts: int,
 def host_threads() -> int:
     """Worker threads in the native host pool (0 = inline execution)."""
     return int(native.get_lib().mt_host_threads())
+
+
+def shard_of(fid: int, num_shards: int) -> int:
+    return int(native.get_lib().mt_shard_of(int(fid), int(num_shards)))
+
+
+def shard_of_batch(fids: np.ndarray, num_shards: int) -> np.ndarray:
+    """Vectorized shard_of: splitmix64(fid) % num_shards over a whole array
+    (numpy uint64 wrap-around matches the C++ arithmetic exactly)."""
+    x = np.asarray(fids).astype(np.uint64)
+    with np.errstate(over="ignore"):
+        x = x + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        x = x ^ (x >> np.uint64(31))
+    return (x % np.uint64(num_shards)).astype(np.int64)

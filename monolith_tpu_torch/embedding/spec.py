@@ -2,10 +2,11 @@
 
 A `TableSpec` is a merged table: one row pool whose row vector is the
 concatenation of `segments`, each with its own dim, optimizer and
-initializer. The port carries the subset its slices run: f32 or bf16 pools
-(bf16 optionally with stochastic rounding on write-back), the three
-learning-rate schedules, no compressors, no expiry (the engine rejects a
-table with a ttl).
+initializer, serving compressor and (optionally) retriever. The port
+carries what it runs: f32 or bf16 pools (bf16 optionally with
+stochastic rounding on write-back), the three learning-rate schedules, the
+per-segment compressors of a serving export and the quantization-aware
+retrievers; no expiry yet (the engine rejects a table with a ttl).
 
 A schedule is called with the trainer's step number, a Python int that the
 host knows, and returns a Python float. The JAX package's schedules take a
@@ -21,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from monolith_tpu_torch.embedding.compressors import Compressor, Fp32
 from monolith_tpu_torch.embedding.initializers import Initializer, RandomUniform
 from monolith_tpu_torch.embedding.optimizers import RowOptimizer, SGD
 
@@ -84,14 +86,16 @@ class WarmupSchedule(LearningRateSchedule):
 
 @dataclasses.dataclass(frozen=True)
 class TableSegment:
-    """One slice of a table row: its own dim/optimizer/initializer.
-    `retriever` is declared for parity with the JAX spec; the port's slice
-    runs none and the engine rejects a segment that sets one."""
+    """One slice of a table row: its own dim/optimizer/initializer and
+    serving compressor (applied at export). `retriever`
+    (embedding/retrievers.py) turns on quantization-aware retrieval of this
+    slice in training; export and the streaming push bake it in."""
     dim: int
     optimizer: RowOptimizer = dataclasses.field(default_factory=SGD)
     initializer: Initializer = dataclasses.field(default_factory=RandomUniform)
+    compressor: Compressor = dataclasses.field(default_factory=Fp32)
     lr_schedule: Optional[LearningRateSchedule] = None
-    retriever: Optional[object] = None
+    retriever: Optional["Retriever"] = None  # embedding.retrievers
 
     def learning_rate(self, step: int) -> float:
         if self.lr_schedule is not None:

@@ -26,12 +26,23 @@ State is `{"data": [cap, P]}` for one shard (the port runs single-shard
 tables; the JAX package's states carry a leading shard axis). Unlike the
 JAX program, which donates the pool to each step, the port updates it in
 place: `scatter_packed` writes into the pool tensor.
+
+A second kind of state, `{"params": [cap, dim], "slots": []}`, is what a
+serving replica holds: params only, rows `spec.dim` wide. `lookup`,
+`assign_rows` and `params_np` take either kind; on such a state they are
+plain PyTorch (`index_select`, `index_copy_`), as the JAX package's are
+plain XLA: its rows (68 bytes for DeepFM) are no whole number of 16-byte
+vectors, which K1 and K2 move. Training never builds one.
+
+The host accessors (`params_np`, `slot_items_np`, `state_from_np`) are what
+checkpoint reads and writes; they work on a state whose tensors live on the
+card or on the host (a live prefix copied back).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -162,12 +173,77 @@ def optimize_packed(spec: TableSpec, packed: torch.Tensor,
     return out
 
 
+def _valid_rows(rows: torch.Tensor, cap: int) -> torch.Tensor:
+    return (rows >= 0) & (rows < cap)
+
+
 def lookup(spec: TableSpec, state: TableState,
            rows: torch.Tensor) -> torch.Tensor:
-    """Gather rows ([n] int32, -1 -> zeros) as [n, dim] f32."""
-    return params_of(spec, gather_packed(spec, state, rows))
+    """Gather rows ([n] int32; -1 and rows beyond the pool -> zeros) as
+    [n, dim] f32. K1 on a packed state; `index_select` on clamped rows and
+    a mask on a structure-of-arrays state."""
+    if "data" in state:
+        return params_of(spec, gather_packed(spec, state, rows))
+    pool = state["params"]
+    valid = _valid_rows(rows, pool.shape[0])
+    out = pool.index_select(0, torch.where(valid, rows, 0).long())
+    return torch.where(valid[:, None], out, 0).float()
+
+
+def assign_rows(spec: TableSpec, state: TableState, rows: torch.Tensor,
+                values: torch.Tensor) -> TableState:
+    """Directly write embedding values [n, dim] into `rows` (unique; -1 and
+    rows beyond the pool drop), in place: a delta restore or a parameter
+    push. On a packed state: K1, overwrite the first `dim` columns, K2 (the
+    optimizer slots keep what they held)."""
+    if "data" in state:
+        packed = gather_packed(spec, state, rows)
+        packed[:, :spec.dim] = values.float()
+        return scatter_packed(spec, state, rows, packed)
+    pool = state["params"]
+    valid = _valid_rows(rows, pool.shape[0])
+    pool.index_copy_(0, rows[valid].long(), values[valid].to(pool.dtype))
+    return state
 
 
 def params_np(spec: TableSpec, state: TableState) -> np.ndarray:
-    """[cap, dim] params of a table state, f32 on the host."""
-    return state["data"][:, :spec.dim].float().cpu().numpy()
+    """[n, dim] params of a table state (either kind), f32 on the host."""
+    pool = state["data"][:, :spec.dim] if "data" in state else state["params"]
+    return pool.cpu().float().numpy()
+
+
+def slot_items_np(spec: TableSpec, state: TableState
+                  ) -> List[Tuple[str, np.ndarray]]:
+    """[('seg{i}/{name}', [n, k]), ...] of a packed state, f32 on the host,
+    in (segment, sorted name) order."""
+    data = state["data"].cpu().float().numpy()
+    slot_offs = _layout(spec)[2]
+    out = []
+    for i, seg in enumerate(spec.segments):
+        for name in sorted(seg.optimizer.slot_spec(seg.dim)):
+            off, k, _ = slot_offs[(i, name)]
+            out.append((f"seg{i}/{name}", data[:, off:off + k]))
+    return out
+
+
+def state_from_np(spec: TableSpec, pool: np.ndarray,
+                  slots: Dict[str, np.ndarray], device) -> TableState:
+    """Build a packed device state from host arrays: pool [h, dim], slots
+    {'seg{i}/{name}': [h, k]} with h <= capacity (a checkpoint's live
+    prefix). Rows from h up are what `create_state` gives a fresh pool
+    (params zero, slots at their init value) and are made on the device, so
+    only the h rows cross; a slot missing from `slots` starts at its init
+    value. Values narrow to a bf16 pool with a plain cast, exact for values
+    that came from one."""
+    h = pool.shape[0]
+    if h > spec.capacity_per_shard:
+        raise ValueError(f"table {spec.name}: {h} rows do not fit "
+                         f"capacity_per_shard {spec.capacity_per_shard}")
+    _, padded, slot_offs = _layout(spec)
+    state = create_state(spec, device)
+    prefix = np.zeros((h, padded), np.float32)
+    prefix[:, :spec.dim] = pool
+    for (i, name), (off, k, init_value) in slot_offs.items():
+        prefix[:, off:off + k] = slots.get(f"seg{i}/{name}", init_value)
+    state["data"][:h] = torch.from_numpy(prefix).to(device).to(spec.dtype)
+    return state

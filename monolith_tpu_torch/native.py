@@ -19,6 +19,7 @@ _lib = None
 c_i64_p = ctypes.POINTER(ctypes.c_int64)
 c_i32_p = ctypes.POINTER(ctypes.c_int32)
 c_u32_p = ctypes.POINTER(ctypes.c_uint32)
+c_u8_p = ctypes.POINTER(ctypes.c_uint8)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -40,10 +41,26 @@ def _declare(lib: ctypes.CDLL) -> None:
     d.mt_store_save.argtypes = [ctypes.c_void_p, c_i64_p, c_i32_p, c_u32_p, c_u32_p]
     d.mt_store_restore.restype = ctypes.c_int32
     d.mt_store_restore.argtypes = [ctypes.c_void_p, c_i64_p, c_i32_p, c_u32_p, c_u32_p, ctypes.c_int64]
+    d.mt_store_drain_touched.restype = ctypes.c_int64
+    d.mt_store_drain_touched.argtypes = [ctypes.c_void_p, c_i64_p, ctypes.c_int64]
+    d.mt_store_touched_size.restype = ctypes.c_int64
+    d.mt_store_touched_size.argtypes = [ctypes.c_void_p]
+    d.mt_store_filter_byte_size.restype = ctypes.c_int64
+    d.mt_store_filter_byte_size.argtypes = [ctypes.c_void_p]
+    d.mt_store_filter_save.restype = ctypes.c_int64
+    d.mt_store_filter_save.argtypes = [ctypes.c_void_p, c_u8_p]
+    d.mt_store_filter_restore.restype = ctypes.c_int32
+    d.mt_store_filter_restore.argtypes = [ctypes.c_void_p, c_u8_p, ctypes.c_int64]
 
     d.mt_batcher_new.restype = ctypes.c_void_p
     d.mt_batcher_new.argtypes = [ctypes.c_int64]
     d.mt_batcher_free.argtypes = [ctypes.c_void_p]
+    d.mt_batcher_dedup.restype = ctypes.c_int64
+    d.mt_batcher_dedup.argtypes = [
+        ctypes.c_void_p, c_i64_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int64, c_i64_p, c_i32_p, c_i32_p]
+    d.mt_shard_of.restype = ctypes.c_int32
+    d.mt_shard_of.argtypes = [ctypes.c_int64, ctypes.c_int32]
     d.mt_prepare_wire_multi.restype = ctypes.c_int64
     d.mt_prepare_wire_multi.argtypes = [
         ctypes.c_int32, ctypes.POINTER(ctypes.c_void_p),

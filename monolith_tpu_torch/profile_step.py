@@ -3,6 +3,8 @@
     python -m monolith_tpu_torch.profile_step [--config deepfm|multislot_bf16]
                                               [--steps 20] [--trace PATH]
                                               [--block K] [--async]
+    python -m monolith_tpu_torch.profile_step --serve [--config ...]
+                                              [--steps 20] [--trace PATH]
 
 Builds the trainer of one of bench.py's configs at full width:
 
@@ -38,6 +40,18 @@ words into the [K, W] buffer, no device work), the upload per block (one
 blocking copy of a pinned [K, W] buffer) and the device operations
 (kernels and copies) per step.
 
+With `--serve` it measures a serving replica instead: the trainer takes 25
+full-width steps, is exported, and a `ServingModel` loads the export on the
+card (unique_cap 32768 for deepfm, 49152 for multislot_bf16, batch 8192).
+After 3 warm-up predicts: window 1, `--steps` predicts through
+`ServingModel.predict` (ms per predict, it returns numpy and so waits for
+the card); window 2, the same number split into host prepare (dedup + id ->
+row lookup), device (upload, lookup, pooling, tower; waited for) and
+readback; window 3 under torch.profiler: device busy per predict, its
+share of window 1's predict, and device operations per predict, with the
+largest kernels. It also prints the export and load seconds and the pools'
+bytes on the device.
+
 `--trace` also writes the Chrome trace. Needs the card.
 """
 
@@ -48,7 +62,9 @@ import collections
 import cProfile
 import io
 import pstats
+import shutil
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -82,12 +98,14 @@ def _kernel_count(event):
                                     for c in event.cpu_children)
 
 
-def _trainer_config(cap, steps_per_dispatch=1, async_optimize=False):
+def _trainer_config(cap, steps_per_dispatch=1, async_optimize=False,
+                    record_touch=False):
     from monolith_tpu_torch.embedding.engine import EngineConfig
     from monolith_tpu_torch.training.trainer import TrainerConfig
     return TrainerConfig(
         engine=EngineConfig(num_shards=1, unique_cap=cap, new_cap=cap,
-                            async_optimize=async_optimize),
+                            async_optimize=async_optimize,
+                            record_touch=record_touch),
         log_every=0, steps_per_dispatch=steps_per_dispatch)
 
 
@@ -119,9 +137,11 @@ def _multislot_bf16(**cfg):
 
 
 #: bench.py's configs at full width: name -> (steps_per_dispatch=1,
-#: async_optimize=False) -> (trainer on the card, data stream);
-#: chip_smoke.py drives the same two
+#: async_optimize=False, record_touch=False) -> (trainer on the card, data
+#: stream); chip_smoke.py drives the same two
 CONFIGS = {"deepfm": _deepfm, "multislot_bf16": _multislot_bf16}
+#: a serving replica's unique ids per predict at batch 8192, by config
+SERVE_UNIQUE_CAP = {"deepfm": 32768, "multislot_bf16": 49152}
 BACKWARD_NODE = "autograd::engine::evaluate_function: "
 #: name fragments of the kernels in csrc/ (K1, K2, K3)
 PORT_KERNELS = ("gather_rows_kernel", "scatter_rows_kernel",
@@ -172,6 +192,76 @@ def block_costs(trainer, batches, K, passes=3):
     return pack_ms, upload_ms, pinned.numel() * 4
 
 
+def serve_main(args):
+    """The --serve windows (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from monolith_tpu_torch.serving import ServingModel, export_model
+
+    trainer, data = CONFIGS[args.config]()
+    for _ in range(25):
+        trainer.train_step(*data.batch())
+    torch.cuda.synchronize()
+    work = tempfile.mkdtemp(prefix="profile_serve_")
+    try:
+        t0 = time.perf_counter()
+        path = export_model(trainer, work)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = ServingModel(trainer.task, path,
+                             unique_cap=SERVE_UNIQUE_CAP[args.config])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n = args.steps
+    for _ in range(3):
+        model.predict(*data.batch())
+    windows = [[data.batch() for _ in range(n)] for _ in range(3)]
+    t0 = time.perf_counter()
+    for fb, b in windows[0]:
+        model.predict(fb, b)
+    total_ms = (time.perf_counter() - t0) / n * 1e3
+    parts = []
+    for fb, b in windows[1]:
+        parts.append({})
+        model.predict(fb, b, timing=parts[-1])
+    prep_ms, device_ms, read_ms = (
+        sum(p[k] for p in parts) / n
+        for k in ("prepare_ms", "device_ms", "readback_ms"))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fb, b in windows[2]:
+            model.predict(fb, b)
+    intervals = _device_intervals(prof)
+    busy_ms = _union_us(intervals) / 1e3 / n
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    pool_bytes = sum(p.numel() * p.element_size()
+                     for p in model.pools.values())
+    print(f"config {args.config}, serving after 25 train steps: export "
+          f"{export_s} s, load {load_s} s, rows {model.table_sizes()}, pools "
+          f"{pool_bytes} bytes on the device")
+    print(f"ms/predict {total_ms} (batch 8192, {n} predicts, no profiler); "
+          f"split over {n} more: host prepare {prep_ms}, device (upload + "
+          f"forward, waited for) {device_ms}, readback {read_ms}; device busy "
+          f"{busy_ms} ms/predict = {busy_ms / total_ms} of the unprofiled "
+          f"predict (idle {1 - busy_ms / total_ms}); device operations "
+          f"(kernels and copies) {len(intervals) / n} per predict")
+    avgs = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    rows = sorted((a for a in avgs if getattr(a, key) > 0),
+                  key=lambda a: -getattr(a, key))
+    print("device time per predict by kernel (ms):")
+    for a in rows[:12]:
+        print(f"  {getattr(a, key) / 1e3 / n:9.4f}  x{a.count / n:5.1f}"
+              f"  {a.key[:100]}")
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", choices=sorted(CONFIGS), default="deepfm")
@@ -182,10 +272,16 @@ def main(argv=None):
                         "train_step_block)")
     p.add_argument("--async", dest="async_optimize", action="store_true",
                    help="the 1-step-stale block (needs --block)")
+    p.add_argument("--serve", action="store_true",
+                   help="measure a serving replica's predict instead")
     args = p.parse_args(argv)
     K = args.block
     if args.async_optimize and K < 2:
         p.error("--async needs --block K with K > 1")
+    if args.serve:
+        if K > 1:
+            p.error("--serve takes no --block")
+        return serve_main(args)
 
     from torch.profiler import ProfilerActivity, profile
 

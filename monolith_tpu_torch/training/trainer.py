@@ -372,17 +372,31 @@ class Trainer:
         self._dev_metrics = None
 
     @torch.no_grad()
+    def _eval_forward(self, fid_batch, batch):
+        """Forward only, through the wire path (K1 gather, no init, no
+        write-back). Returns (module outputs, batch tensors)."""
+        inputs, batch_t, _ = self._upload(fid_batch, batch, 0)
+        pooled, _ = self.engine.embed(self.table_states, inputs,
+                                      step=self.step)
+        return self.module(pooled, batch_t), batch_t
+
+    def predict(self, fid_batch: Dict[str, np.ndarray],
+                batch: Dict[str, np.ndarray]) -> torch.Tensor:
+        """The eval predictions [B] of one batch, on the device: what a
+        serving replica loaded from an export of this state must answer."""
+        out, _ = self._eval_forward(fid_batch, batch)
+        return self.task.predictions(out)
+
+    @torch.no_grad()
     def evaluate(self, data: Iterator, max_steps: Optional[int] = None) -> Dict[str, float]:
         """Forward only. data yields (fid_batch, batch). Returns
         {"auc":…, "loss":…}."""
-        engine, task = self.engine, self.task
+        task = self.task
         auc, loss_mean = StreamingAUC(), StreamingMean()
         for i, (fid_batch, batch) in enumerate(data):
             if max_steps is not None and i >= max_steps:
                 break
-            inputs, batch_t, _ = self._upload(fid_batch, batch, 0)
-            pooled, _ = engine.embed(self.table_states, inputs, step=self.step)
-            out = self.module(pooled, batch_t)
+            out, batch_t = self._eval_forward(fid_batch, batch)
             loss, _ = task.loss(out, batch_t)
             auc.update(task.predictions(out).cpu().numpy(), batch["label"])
             loss_mean.update(float(loss))

@@ -3,7 +3,9 @@ against their plain versions on CUDA tensors, and a few train steps on the
 card against the CPU from one carried state (DeepFM f32, multislot bf16
 with stochastic rounding); the block path (a block against sequential
 steps, the asynchronous block's launch counts, the staged buffers'
-events). They skip without CUDA. On a machine with a card (and no
+events); K1/K2 at the streaming push's and the delta restore's shapes, a
+ServingModel on the card against the CPU, a checkpoint round trip and a
+streaming push on the card. They skip without CUDA. On a machine with a card (and no
 JAX) run them with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -279,3 +281,152 @@ def test_staged_buffer_is_refilled_only_after_its_copys_event(card):
     assert host.ctypes.data == staging.bufs[0].data_ptr()
     # block a's device copy still holds what was sent
     assert torch.equal(a["wires"].cpu(), sent)
+
+
+# ----------------------------------------------------------------------
+# the shapes K1/K2 meet outside a train step: the streaming push, deltas
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,live", [(512, 1), (512, 300), (1024, 513),
+                                    (4096, 2049), (4096, 4096),
+                                    (1 << 15, 21_300), (1 << 18, 140_685),
+                                    (1 << 20, 608_846)])
+def test_gather_at_the_streaming_shapes(card, n, live, dtype):
+    """sync_now gathers at a power-of-two length with a -1 tail: from a
+    round after one full-width step (2^15) up to a first round that drains
+    every id since the trainer's first step (2^20)."""
+    g = torch.Generator(device=card).manual_seed(n + live)
+    cap = max(1 << 16, 2 * n)
+    pool = torch.randn((cap, 128), generator=g, device=card).to(dtype)
+    rows = torch.full((n,), -1, dtype=torch.int32, device=card)
+    rows[:live] = torch.randperm(cap, generator=g, device=card)[:live].int()
+    out = ops.gather_rows(pool, rows)
+    assert torch.equal(out, ops.gather_rows_plain(pool, rows))
+    assert not out[live:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 33, 1000, 40_001, 294_838, 400_003,
+                               504_203])
+def test_assign_rows_at_the_delta_shapes(card, n, dtype):
+    """restore_delta's rows: any length (not a multiple of the tile), -1
+    where the store refused an id. K1, the overwrite of the params columns
+    and K2 on the card equal the plain versions on the CPU."""
+    from monolith_tpu_torch.embedding import table as table_lib
+    spec = DeepFMTask(capacity_per_shard=1 << 19,
+                      table_dtype=dtype).tables()[0]
+    g = torch.Generator().manual_seed(n)
+    base = torch.randn((spec.capacity_per_shard, 128), generator=g).to(dtype)
+    rows = torch.randperm(spec.capacity_per_shard, generator=g)[:n].int()
+    rows[::5] = -1
+    values = torch.randn((n, spec.dim), generator=g)
+    cpu, gpu = {"data": base.clone()}, {"data": base.to(card)}
+    before = ops.gather_rows.launches, ops.scatter_rows.launches
+    table_lib.assign_rows(spec, gpu, rows.to(card), values.to(card))
+    table_lib.assign_rows(spec, cpu, rows, values)
+    assert (ops.gather_rows.launches, ops.scatter_rows.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(gpu["data"].cpu(), cpu["data"])
+
+
+def _serving_fixture(tmp_path, device, **task_kw):
+    from monolith_tpu_torch.serving import export_model
+    task = DeepFMTask(embedding_dim=8, capacity_per_shard=4096,
+                      hidden=(16, 8), **task_kw)
+    tr = Trainer(task, TrainerConfig(engine=EngineConfig(
+        unique_cap=512, new_cap=512, record_touch=True), log_every=0,
+        seed=51), device=device)
+    data = SyntheticCTR(num_users=80, num_items=40, batch_size=128, seed=51)
+    for _ in range(10):
+        tr.train_step(*data.batch())
+    return task, tr, data, export_model(tr, str(tmp_path))
+
+
+def test_serving_model_card_matches_cpu(card, tmp_path):
+    """One export served from the card and from the CPU: predictions rtol
+    1e-5, row lookups exact; the default device is the card."""
+    from monolith_tpu_torch.serving import ServingModel
+    task, tr, data, path = _serving_fixture(tmp_path, "cpu")
+    gpu = ServingModel(task, path, unique_cap=512)
+    cpu = ServingModel(task, path, unique_cap=512, device="cpu")
+    assert gpu.device.type == "cuda" and gpu.pools["sparse"].is_cuda
+    before = ops.gather_rows.launches
+    for _ in range(3):
+        fb, b = data.batch()
+        np.testing.assert_allclose(gpu.predict(fb, b), cpu.predict(fb, b),
+                                   rtol=1e-5)
+    assert ops.gather_rows.launches == before   # serving runs no kernel
+    fids = tr.engine.stores["sparse"].save()[0]
+    np.testing.assert_array_equal(gpu.lookup_rows("sparse", fids),
+                                  cpu.lookup_rows("sparse", fids))
+    push = np.arange(5000, 5040, dtype=np.int64)
+    vals = np.random.default_rng(0).normal(size=(40, 9)).astype(np.float32)
+    assert gpu.apply_delta("sparse", push, vals) == 40
+    np.testing.assert_array_equal(gpu.lookup_rows("sparse", push), vals)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_checkpoint_round_trip_on_the_card(card, tmp_path, dtype):
+    """save -> restore on the card is bit-exact; a delta then carries the
+    rows touched since (K1 to save; K1 and K2 to restore)."""
+    from monolith_tpu_torch.training import checkpoint
+    kw = dict(table_dtype=dtype, stochastic_rounding=dtype == torch.bfloat16)
+    task, a, data, _ = _serving_fixture(tmp_path / "x", card, **kw)
+    checkpoint.save(a, str(tmp_path))
+    _, b, _, _ = _serving_fixture(tmp_path / "y", card, **kw)
+    b.train_step(*data.batch())                # diverge, then restore
+    assert checkpoint.restore(b, str(tmp_path)) == 10
+    assert b.table_states["sparse"]["data"].is_cuda
+    assert torch.equal(a.table_states["sparse"]["data"],
+                       b.table_states["sparse"]["data"])
+    for (n, p), (_, q) in zip(a.module.named_parameters(),
+                              b.module.named_parameters()):
+        assert torch.equal(p, q), n
+        assert torch.equal(a.opt_state[n], b.opt_state[n]), n
+    for _ in range(2):
+        a.train_step(*data.batch(), ts=10 ** 9)
+    before = ops.gather_rows.launches, ops.scatter_rows.launches
+    path = checkpoint.save_delta(a, str(tmp_path), since_ts=10 ** 9)
+    applied = checkpoint.restore_delta(b, path)
+    assert (ops.gather_rows.launches, ops.scatter_rows.launches) == \
+        (before[0] + 2, before[1] + 1)
+    fids = np.load(path + "/sparse-s0.npz")["fids"]
+    assert applied == len(fids) > 0
+    spec = task.tables()[0]
+    from monolith_tpu_torch.embedding import table as table_lib
+    rows = [torch.from_numpy(t.engine.stores["sparse"].lookup(fids)).to(card)
+            for t in (a, b)]
+    assert torch.equal(
+        table_lib.lookup(spec, a.table_states["sparse"], rows[0]),
+        table_lib.lookup(spec, b.table_states["sparse"], rows[1]))
+
+
+def test_streaming_push_on_the_card(card, tmp_path):
+    """sync_now gathers the touched rows with K1 at a padded length and
+    the serving pool on the card then holds the trainer's rows."""
+    from monolith_tpu_torch.serving import ServingModel
+    from monolith_tpu_torch.training.streaming import (StreamingConfig,
+                                                       StreamingTrainer)
+    task, tr, data, path = _serving_fixture(tmp_path, card)
+    model = ServingModel(task, path, unique_cap=512)
+
+    class Sync:
+        pushes = []
+
+        def push(self, table, fids, values):
+            self.pushes.append(fids)
+            return model.apply_delta(table, fids, values)
+
+    st = StreamingTrainer(tr, Sync(), StreamingConfig(sync_interval_steps=4))
+    before = ops.gather_rows.launches
+    res = st.run(iter(data), max_steps=8)
+    assert res["sync_rounds"] == 3 and len(Sync.pushes) == 2
+    assert ops.gather_rows.launches == before + 8 + 2
+    fids = np.unique(np.concatenate(Sync.pushes))
+    from monolith_tpu_torch.embedding import table as table_lib
+    rows = torch.from_numpy(tr.engine.stores["sparse"].lookup(fids)).to(card)
+    want = table_lib.lookup(task.tables()[0], tr.table_states["sparse"], rows)
+    np.testing.assert_array_equal(model.lookup_rows("sparse", fids),
+                                  want.cpu().numpy())

@@ -1,5 +1,5 @@
-"""The port imports nothing of JAX (nor ml_dtypes, which the card machine
-may lack) and nothing of the JAX package: every module of
+"""The port imports nothing of JAX (nor ml_dtypes, msgpack or grpc, which
+the card machine may lack) and nothing of the JAX package: every module of
 monolith_tpu_torch, and chip_smoke.py, is checked with ast."""
 
 import ast
@@ -8,7 +8,8 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_dtypes", "monolith_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_dtypes", "msgpack",
+             "grpc", "monolith_tpu"}
 
 
 def _port_files():
@@ -50,5 +51,15 @@ def test_walk_covers_the_slice():
                  "monolith_tpu_torch/models/multislot.py",
                  "monolith_tpu_torch/ops/clip.py",
                  "monolith_tpu_torch/embedding/optimizers.py",
-                 "monolith_tpu_torch/profile_step.py"):
+                 "monolith_tpu_torch/profile_step.py",
+                 "monolith_tpu_torch/serialization.py",
+                 "monolith_tpu_torch/training/checkpoint.py",
+                 "monolith_tpu_torch/training/streaming.py",
+                 "monolith_tpu_torch/serving/__init__.py",
+                 "monolith_tpu_torch/serving/engine.py",
+                 "monolith_tpu_torch/serving/export.py",
+                 "monolith_tpu_torch/serving/codec.py",
+                 "monolith_tpu_torch/data/framing.py",
+                 "monolith_tpu_torch/embedding/compressors.py",
+                 "monolith_tpu_torch/embedding/retrievers.py"):
         assert must in files

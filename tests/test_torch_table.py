@@ -1,6 +1,7 @@
-"""The port's packed table (monolith_tpu_torch/embedding/table.py) against
-the JAX package's. f32 throughout; row math to rtol 1e-6. New-row init
-draws from another PRNG than JAX's and is held by distribution."""
+"""The port's table (monolith_tpu_torch/embedding/table.py) against the JAX
+package's: the packed pool's row math to rtol 1e-6 (f32), new-row init by
+distribution (another PRNG than JAX's), and the structure-of-arrays state,
+`assign_rows` and the host accessors exactly, f32 and bf16 pools."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -109,3 +110,130 @@ def test_params_np_and_scatter_roundtrip():
     params = ptable.params_np(pspec, state)
     assert params.shape == (CAP, pspec.dim)
     np.testing.assert_array_equal(params[3], packed[0, :pspec.dim])
+
+
+# ----------------------------------------------------------------------
+# the structure-of-arrays state, assign_rows and the host accessors
+# ----------------------------------------------------------------------
+
+def _jnp_dtype(name):
+    return {"f32": jnp.float32, "bf16": jnp.bfloat16}[name]
+
+
+def _torch_dtype(name):
+    return {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lookup_on_a_params_state_matches_jax(seed):
+    """The serving replica's pool: -1 and rows beyond the pool read zeros,
+    the result is f32, exactly the JAX package's."""
+    jspec, pspec = _specs()
+    rng = np.random.default_rng(seed)
+    pool = rng.normal(size=(CAP, pspec.dim)).astype(np.float32)
+    rows = rng.integers(-1, CAP + 40, size=203).astype(np.int32)
+    rows[:3] = [-1, CAP, CAP - 1]
+    ref = np.asarray(jtable.lookup(
+        jspec, {"params": jnp.asarray(pool), "slots": []}, jnp.asarray(rows)))
+    out = ptable.lookup(pspec, {"params": torch.from_numpy(pool), "slots": []},
+                        torch.from_numpy(rows))
+    assert out.dtype == torch.float32 and out.shape == (203, pspec.dim)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(out.numpy()[:2], 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["packed", "params"])
+def test_assign_rows_matches_jax(kind, dtype):
+    """Values land in the params columns of the valid rows only; a packed
+    state keeps its slot columns; the port writes in place."""
+    jspec = JaxDeepFMTask(capacity_per_shard=CAP,
+                          table_dtype=_jnp_dtype(dtype)).tables()[0]
+    pspec = DeepFMTask(capacity_per_shard=CAP,
+                       table_dtype=_torch_dtype(dtype)).tables()[0]
+    rng = np.random.default_rng(7)
+    rows = rng.permutation(CAP)[:50].astype(np.int32)
+    rows[::7] = -1
+    rows[1] = CAP + 3
+    values = rng.normal(size=(50, pspec.dim)).astype(np.float32)
+    if kind == "packed":
+        base = rng.normal(size=(CAP, 128)).astype(np.float32)
+        jstate = {"data": jnp.asarray(base).astype(_jnp_dtype(dtype))}
+        pstate = {"data": torch.from_numpy(base).to(_torch_dtype(dtype))}
+        key = "data"
+    else:
+        base = rng.normal(size=(CAP, pspec.dim)).astype(np.float32)
+        jstate = {"params": jnp.asarray(base).astype(_jnp_dtype(dtype)),
+                  "slots": []}
+        pstate = {"params": torch.from_numpy(base).to(_torch_dtype(dtype)),
+                  "slots": []}
+        key = "params"
+    ref = jtable.assign_rows(jspec, jstate, jnp.asarray(rows),
+                             jnp.asarray(values))
+    before = pstate[key]
+    out = ptable.assign_rows(pspec, pstate, torch.from_numpy(rows),
+                             torch.from_numpy(values))
+    assert out[key] is before                  # in place
+    np.testing.assert_array_equal(
+        out[key].float().numpy(),
+        np.asarray(ref[key].astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_host_accessors_match_jax(dtype):
+    jspec = JaxDeepFMTask(capacity_per_shard=CAP,
+                          table_dtype=_jnp_dtype(dtype)).tables()[0]
+    pspec = DeepFMTask(capacity_per_shard=CAP,
+                       table_dtype=_torch_dtype(dtype)).tables()[0]
+    base = np.random.default_rng(8).normal(size=(40, 128)).astype(np.float32)
+    jstate = {"data": np.asarray(jnp.asarray(base).astype(_jnp_dtype(dtype)))}
+    pstate = {"data": torch.from_numpy(base).to(_torch_dtype(dtype))}
+    ref_p, out_p = jtable.params_np(jspec, jstate), ptable.params_np(pspec, pstate)
+    assert out_p.dtype == np.float32
+    np.testing.assert_array_equal(out_p, ref_p)
+    ref_s, out_s = (jtable.slot_items_np(jspec, jstate),
+                    ptable.slot_items_np(pspec, pstate))
+    assert [k for k, _ in out_s] == [k for k, _ in ref_s] == ["seg1/norm"]
+    for (_, a), (_, b) in zip(out_s, ref_s):
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+    # a serving pool (params only) reads the same way
+    soa = {"params": pstate["data"][:, :pspec.dim].contiguous(), "slots": []}
+    np.testing.assert_array_equal(ptable.params_np(pspec, soa), ref_p)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("with_slots", [True, False],
+                         ids=["slots", "no_slots"])
+@pytest.mark.parametrize("h", [0, 37, CAP])
+def test_state_from_np_matches_jax(h, with_slots, dtype):
+    """A live prefix of h rows: the port pads to capacity on the device
+    (params zero, slots at their init value) where the JAX package's caller
+    pads on the host; the states are equal. A missing slot starts at its
+    init value."""
+    jspec = JaxDeepFMTask(capacity_per_shard=CAP, accumulator_init=0.3,
+                          table_dtype=_jnp_dtype(dtype)).tables()[0]
+    pspec = DeepFMTask(capacity_per_shard=CAP, accumulator_init=0.3,
+                       table_dtype=_torch_dtype(dtype)).tables()[0]
+    rng = np.random.default_rng(h)
+    pool = rng.normal(size=(h, pspec.dim)).astype(np.float32)
+    norm = rng.uniform(0.1, 2.0, size=(h, 16)).astype(np.float32)
+    full_pool = np.zeros((CAP, pspec.dim), np.float32)
+    full_pool[:h] = pool
+    full_norm = np.full((CAP, 16), 0.3, np.float32)
+    full_norm[:h] = norm
+    slots, jslots = (({"seg1/norm": norm}, {"seg1/norm": full_norm[None]})
+                     if with_slots else ({}, {}))
+    ref = jtable.state_from_np(jspec, full_pool[None], jslots, packed=True)
+    out = ptable.state_from_np(pspec, pool, slots, "cpu")
+    assert out["data"].dtype == _torch_dtype(dtype)
+    np.testing.assert_array_equal(
+        out["data"].float().numpy(),
+        np.asarray(ref["data"].astype(jnp.float32))[0])
+
+
+def test_state_from_np_refuses_more_rows_than_capacity():
+    _, pspec = _specs()
+    with pytest.raises(ValueError, match="capacity_per_shard"):
+        ptable.state_from_np(pspec, np.zeros((CAP + 1, pspec.dim), np.float32),
+                             {}, "cpu")
