@@ -94,7 +94,25 @@ failures is caught:
        more steps, a second export, reload_export: step and predictions
        follow it;
      10e. a small ServingModel on the card and on the CPU from one export:
-       predictions rtol 1e-5.
+       predictions rtol 1e-5;
+ 11. expiry and tiered storage on the deepfm_f32 cell with a ttl of 8,
+     ts = step, run after phase 10:
+     11a. 16 steps, evict_expired(8): every freed row reads zero by K1 and
+       by its plain version, the surviving rows are bit for bit as they
+       were, the store shrank by the freed count, and in the next step the
+       new ids on recycled rows get init values (read from what
+       fused_lookup hands the model); 4 steps with finite losses; rows
+       freed, host ms of the eviction, the zeroing K2's length and ms;
+     11b. the same tiered: spill_expired(8) archives what the plain gather
+       reads, bit for bit, and zeroes the rows; 2 steps whose user ids are
+       spilled ids revive them, and every revived row handed to the model
+       is its archived state bit for bit; a checkpoint round trip keeps the
+       archive; rows spilled, spill seconds, archive bytes, revived rows a
+       step, upload bytes a step, tiered against untiered ms/step and host
+       prepare (prepare_batch + pack_wire against prepare_wire);
+     11c. a small tiered DeepFM on the card and on the CPU from one state
+       (train, spill, other ids, revive, train): pools rtol 1e-5, archives,
+       stores and counters equal.
 
 TF32 is off for matrix products and convolutions (torch.backends), so the
 card's f32 dense towers run in full f32 like the CPU's. The second-to-last
@@ -237,15 +255,17 @@ def phase_rows(path, floor):
 # the lengths K1/K2 meet outside a train step (phase 10), by path: (rows a
 # call, valid rows of a -1 tailed call or None for ~1% of -1 inside)
 OUT_OF_STEP_SHAPES = {
-    "deepfm_f32": [(1 << 15, 21_300), (1 << 18, 140_685), (1 << 20, 608_846),
+    "deepfm_f32": [(1 << 15, 21_300), (1 << 17, 98_304), (1 << 18, 140_685),
+                   (1 << 19, 393_216), (1 << 20, 608_846),
                    (294_838, None), (504_203, None)],
     "multislot_bf16": [(540_468, None)]}
 
 
 def phase_rows_out_of_step(path):
     """3b: K1/K2 against their plain versions, bit for bit, at the lengths
-    the sync rounds, the delta and the exports give them on this path's
-    pool."""
+    the sync rounds, the delta, the exports, expiry's zeroing and the
+    tiered spill give them on this path's pool. At a power-of-two length
+    with a -1 tail K2 also writes zero rows, as zero_rows does."""
     import torch
     from monolith_tpu_torch.bench_rows import SHAPES
     from monolith_tpu_torch.ops import scatter as ops
@@ -274,6 +294,13 @@ def phase_rows_out_of_step(path):
         assert torch.equal(pool_k.view(torch.int16),
                            pool_p.view(torch.int16)), \
             f"scatter_rows differs from its plain version ({shape})"
+        if live is not None:
+            zeros = torch.zeros_like(values)
+            ops.scatter_rows(pool_k, rows, zeros)
+            ops.scatter_rows_plain(pool_p, rows, zeros)
+            assert torch.equal(pool_k.view(torch.int16),
+                               pool_p.view(torch.int16)), \
+                f"scatter_rows of zero rows differs ({shape})"
         del pool_k, pool_p
         done.append(shape.split(", ", 1)[1])
     log(f"gather_rows, scatter_rows [{path}] at the lengths outside a train "
@@ -1052,6 +1079,374 @@ def phase_out_of_the_trainer(deepfm, multislot):
             "multislot_bf16": ms_serve}
 
 
+# ----------------------------------------------------------------------
+# phase 11: expiry and tiered storage at full width
+# ----------------------------------------------------------------------
+
+EXPIRY_TTL, EXPIRY_STEPS, EXPIRE_BEFORE = 8, 16, 8
+
+
+class Launches:
+    """Kernel launches of the driven runs only: each run is counted from 0
+    and the counts are added up; the checks against the plain versions run
+    between the runs, uncounted."""
+
+    def __init__(self):
+        self.total = {}
+
+    def run(self, fn):
+        import torch
+        from monolith_tpu_torch import ops
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in ops.launch_counts().items():
+            self.total[k] = self.total.get(k, 0) + v
+        return out
+
+
+def _steps(trainer, batches, ts0, launches):
+    """Train steps at ts = ts0, ts0 + 1, ...; returns (losses, median ms a
+    step with a synchronize after each)."""
+    import torch
+    losses, times = [], []
+    for i, (fb, b) in enumerate(batches):
+        def one():
+            t0 = time.perf_counter()
+            out = trainer.train_step(fb, b, ts=ts0 + i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        out = launches.run(one)
+        losses.append(out["loss"].item())
+        assert not any(out["stats"]["overflow"].values()), out["stats"]
+    assert np.isfinite(losses).all(), losses
+    return losses, float(np.median(times))
+
+
+def _spy_lookup(trainer):
+    """Record what fused_lookup hands the model at each call: the packed
+    rows and the decoded inputs. Returns (records, the real method)."""
+    seen = []
+    real = trainer.engine.fused_lookup
+
+    def spy(states, inputs, seed, step):
+        prows, unique = real(states, inputs, seed, step)
+        seen.append((prows, inputs))
+        return prows, unique
+
+    trainer.engine.fused_lookup = spy
+    return seen, real
+
+
+def _plain_rows(trainer, rows):
+    """Packed rows of the DeepFM pool read by K1's plain version."""
+    import torch
+    from monolith_tpu_torch.ops import scatter as ops
+    return ops.gather_rows_plain(
+        trainer.table_states["sparse"]["data"],
+        torch.from_numpy(np.ascontiguousarray(rows, np.int32)).cuda())
+
+
+def _revived(inputs):
+    pos = inputs["sparse"].get("revive_pos")
+    return 0 if pos is None else int((pos >= 0).sum())
+
+
+def phase_expiry(launches):
+    """11a: the deepfm_f32 cell with a ttl of 8: 16 steps at ts = step,
+    evict_expired(8), then 4 steps whose new ids take recycled rows.
+    Returns (trainer, untiered per-step ms/step)."""
+    import torch
+    from monolith_tpu_torch.ops import scatter as ops
+    from monolith_tpu_torch.profile_step import CONFIGS
+    trainer, data = CONFIGS["deepfm"](ttl_seconds=EXPIRY_TTL)
+    spec, task = trainer.engine.tables["sparse"], trainer.task
+    batches = [data.batch() for _ in range(EXPIRY_STEPS + 4)]
+    _steps(trainer, batches[:EXPIRY_STEPS], 0, launches)
+    store = trainer.engine.stores["sparse"]
+    _, rows, tss, _ = store.save()
+    survive = torch.from_numpy(rows[tss >= EXPIRE_BEFORE]).cuda()
+    size0 = store.size()
+    pool = trainer.table_states["sparse"]["data"]
+    kept = ops.gather_rows(pool, survive)
+    timed = {}
+    engine = trainer.engine
+    real_evict, real_zero = engine.evict_expired, engine.zero_rows
+
+    def evict(expire_before):
+        t0 = time.perf_counter()
+        out = real_evict(expire_before)
+        timed["evict_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def zero(states, freed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_zero(states, freed)
+        torch.cuda.synchronize()
+        timed["zero_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    engine.evict_expired, engine.zero_rows = evict, zero
+    freed = launches.run(lambda: trainer.evict_expired(EXPIRE_BEFORE))
+    engine.evict_expired, engine.zero_rows = real_evict, real_zero
+    freed = freed["sparse"]
+    n = len(freed)
+    assert n > 0 and store.size() == size0 - n, (n, size0, store.size())
+    freed_t = torch.from_numpy(freed.astype(np.int32)).cuda()
+    got = ops.gather_rows(pool, freed_t)
+    assert not got.any(), "a freed row does not read zero"
+    assert torch.equal(got, _plain_rows(trainer, freed))
+    assert torch.equal(ops.gather_rows(pool, survive), kept), \
+        "a surviving row changed"
+    del got, kept
+    # the first step after: new ids that took recycled rows get init values
+    seen, real = _spy_lookup(trainer)
+    losses, step_ms = _steps(trainer, batches[EXPIRY_STEPS:], EXPIRY_STEPS,
+                             launches)
+    engine.fused_lookup = real
+    prows, inputs = seen[0]
+    tin = inputs["sparse"]
+    took = (tin["new_mask"] > 0) & torch.isin(tin["rows"], freed_t)
+    p = prows["sparse"][took]
+    recycled = int(took.sum())
+    assert recycled > 0, "no new id took a recycled row"
+    d, e = spec.dim, task.embedding_dim
+    assert (p[:, 0] == 0).all(), "a recycled row's bias is not 0"
+    assert (p[:, 1:d].abs() <= task.init_scale).all()
+    assert (p[:, d:d + e] == torch.tensor(task.accumulator_init,
+                                          dtype=torch.float32)).all()
+    assert not p[:, d + e:].any()
+    log(f"11a expiry (deepfm_f32, ttl {EXPIRY_TTL}, {EXPIRY_STEPS} steps at "
+        f"ts = step): evict_expired({EXPIRE_BEFORE}) freed {n} of {size0} "
+        f"rows; host evict {timed['evict_ms']:.3f} ms; zero_rows one K2 of "
+        f"{1 << (n - 1).bit_length()} rows ({n} valid) "
+        f"{timed['zero_ms']:.3f} ms (synchronized); freed rows read zero "
+        f"(K1 = plain), survivors unchanged; next {len(losses)} losses "
+        f"{np.round(losses, 5).tolist()}; {recycled} new ids on recycled "
+        f"rows hold init values; untiered per-step path {step_ms:.3f} "
+        f"ms/step (median, synchronized)")
+    return trainer, step_ms
+
+
+def phase_tiered(untiered, untiered_ms, launches, work):
+    """11b: the same cell tiered: 16 steps, spill_expired(8), 2 steps that
+    revive spilled user ids, 4 more, a checkpoint round trip of the
+    archive, then the tiered host prepare against prepare_wire."""
+    import torch
+    from monolith_tpu_torch.embedding.tiered import state_width
+    from monolith_tpu_torch.profile_step import CONFIGS
+    from monolith_tpu_torch.training import checkpoint
+    trainer, data = CONFIGS["deepfm"](ttl_seconds=EXPIRY_TTL, tiered=True)
+    width = state_width(trainer.engine.tables["sparse"])
+    archive = trainer.engine.archives["sparse"]
+    _steps(trainer, [data.batch() for _ in range(EXPIRY_STEPS)], 0, launches)
+    store = trainer.engine.stores["sparse"]
+    fids, rows, tss, _ = store.save()
+    old = tss < EXPIRE_BEFORE
+    want = dict(zip(fids[old].tolist(),
+                    _plain_rows(trainer, rows[old])[:, :width].cpu().numpy()))
+    t0 = time.perf_counter()
+    spilled = launches.run(lambda: trainer.spill_expired(EXPIRE_BEFORE))
+    spill_s = time.perf_counter() - t0
+    n_spilled = spilled["sparse"]
+    assert n_spilled == int(old.sum()) == archive.size(), \
+        (spilled, archive.size())
+    a_fids, a_rows, _, _ = archive.map.save()
+    for f, v in zip(a_fids.tolist(), archive.values[a_rows]):
+        assert np.array_equal(v.view(np.int32), want[f].view(np.int32)), f
+    assert not _plain_rows(trainer, rows[old]).any(), "spilled rows not zero"
+    entry_bytes = len(a_fids) * (width * 4 + 8 + 4 + 4)
+    # 2 steps whose user_id column holds spilled user ids (slot 1)
+    users = a_fids[(a_fids >> 54) == 1]
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(2):
+        fb, b = data.batch()
+        batches.append((dict(fb, user_id=rng.choice(
+            users, (len(b["label"]), 1), replace=False)), b))
+    archived = {f: archive.values[r].copy()
+                for f, r in zip(a_fids.tolist(), a_rows.tolist())}
+    revive_bytes = []
+    prepare = trainer.engine.prepare_batch
+
+    def measured_prepare(fid_batch, ts):
+        inputs, stats = prepare(fid_batch, ts)
+        tin = inputs["sparse"]
+        revive_bytes.append(tin["revive_pos"].nbytes
+                            + tin["revive_values"].nbytes)
+        return inputs, stats
+
+    trainer.engine.prepare_batch = measured_prepare
+    seen, real = _spy_lookup(trainer)
+    before = archive.revived
+    losses, _ = _steps(trainer, batches, EXPIRY_STEPS, launches)
+    trainer.engine.prepare_batch, trainer.engine.fused_lookup = prepare, real
+    revived_step = [_revived(inputs) for _, inputs in seen]
+    assert archive.revived - before == sum(revived_step), \
+        (archive.revived, before, revived_step)
+    assert revived_step[0] >= len(batches[0][1]["label"]), revived_step
+    # the revive step: every revived row handed to the model is the
+    # archived state, bit for bit, and the columns after it read zero
+    prows, inputs = seen[0]
+    tin = inputs["sparse"]
+    pos = tin["revive_pos"][tin["revive_pos"] >= 0].long()
+    probe = np.array(list(archived), np.int64)
+    fid_of_row = dict(zip(store.lookup(probe).tolist(), probe.tolist()))
+    handed = prows["sparse"][pos].cpu().numpy()
+    for r, h in zip(tin["rows"][pos].cpu().tolist(), handed):
+        assert np.array_equal(h[:width].view(np.int32),
+                              archived[fid_of_row[r]].view(np.int32)), r
+        assert not h[width:].any()
+    # the tiered per-step path, beside 11a's untiered one
+    more = [data.batch() for _ in range(4)]
+    _, tiered_ms = _steps(trainer, more, EXPIRY_STEPS + 2, launches)
+    wire_bytes = 4 * trainer._full_wire_words(
+        trainer._batch_layout(more[0][1]))
+    # checkpoint round trip of the archive
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = checkpoint.save(trainer, work)
+    save_s = time.perf_counter() - t0
+    fresh, _ = CONFIGS["deepfm"](ttl_seconds=EXPIRY_TTL, tiered=True)
+    t0 = time.perf_counter()
+    checkpoint.restore(fresh, work)
+    restore_s = time.perf_counter() - t0
+    other = fresh.engine.archives["sparse"]
+    a_fids, a_rows, _, _ = archive.map.save()
+    b_fids, b_rows, _, _ = other.map.save()
+    oa, ob = np.argsort(a_fids), np.argsort(b_fids)
+    assert np.array_equal(a_fids[oa], b_fids[ob])
+    assert np.array_equal(archive.values[a_rows[oa]], other.values[b_rows[ob]])
+    assert np.array_equal(archive.tss[a_rows[oa]], other.tss[b_rows[ob]])
+    del fresh, other
+    # host prepare a step, alternating: prepare_batch + pack_wire on the
+    # tiered engine, prepare_wire on 11a's untiered engine, on the same
+    # fresh batches (last: these prepares admit ids no step trains)
+    tiered_host, revive_host, wire_host = [], [], []
+    real_revive = archive.revive
+
+    def timed_revive(fids):
+        t0 = time.perf_counter()
+        out = real_revive(fids)
+        revive_host[-1] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    archive.revive = timed_revive
+    for i in range(6):
+        fb, _ = data.batch()
+        revive_host.append(0.0)
+        t0 = time.perf_counter()
+        trainer.engine.pack_wire(trainer.engine.prepare_batch(fb, 100 + i)[0])
+        tiered_host.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        untiered.engine.prepare_wire(fb, ts=100 + i)
+        wire_host.append((time.perf_counter() - t0) * 1e3)
+    archive.revive = real_revive
+    log(f"11b tiered (deepfm_f32): spill_expired({EXPIRE_BEFORE}) spilled "
+        f"{n_spilled} rows in {spill_s:.3f} s (one K1 of "
+        f"{1 << (n_spilled - 1).bit_length()} rows, one zeroing K2); archive "
+        f"{len(a_fids)} entries after the revives, {entry_bytes} bytes of "
+        f"entries ({archive.values.nbytes} bytes of values allocated); "
+        f"archived values = plain gather bit for bit, spilled rows zero; "
+        f"revived rows a step {revived_step}, losses "
+        f"{np.round(losses, 5).tolist()}; every revived row handed to the "
+        f"model = its archived state bit for bit; upload a step: wire "
+        f"{wire_bytes} bytes + revive {revive_bytes} bytes; per-step path "
+        f"ms/step (median, synchronized): tiered {tiered_ms:.3f}, untiered "
+        f"{untiered_ms:.3f}; host prepare ms a step, alternating (median "
+        f"of 6): prepare_batch + pack_wire {np.median(tiered_host):.3f} "
+        f"(of it RowArchive.revive {np.median(revive_host):.3f}), "
+        f"prepare_wire {np.median(wire_host):.3f}; checkpoint with the "
+        f"archive: save {save_s:.3f} s, restore {restore_s:.3f} s, "
+        f"{_tree_bytes(path)} bytes, restored archive equal")
+
+
+def phase_tiered_card_vs_cpu():
+    """11c: a small tiered DeepFM (capacity 256, batch 64, init_scale 0.0)
+    from one state on the card and on the CPU: train, spill, train other
+    ids, revive, train. Losses rtol 1e-4, pools rtol 1e-5 (atol 1e-6);
+    archives, stores and counters equal."""
+    from monolith_tpu_torch import convert
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    def make(device):
+        return Trainer(DeepFMTask(embedding_dim=8, capacity_per_shard=256,
+                                  hidden=(16,), ttl_seconds=3600,
+                                  init_scale=0.0),
+                       TrainerConfig(engine=EngineConfig(
+                           unique_cap=256, new_cap=256, tiered=True),
+                           log_every=0), device=device)
+
+    def batch(ids):
+        ids = np.asarray(ids, np.int64)[:, None]
+        return ({"user_id": ids, "item_id": ids + 10_000,
+                 "hist_items": np.full((len(ids), 10), -1, np.int64)},
+                {"label": (ids[:, 0] % 3 == 0).astype(np.float32)})
+
+    cpu, card = make("cpu"), make("cuda")
+    convert.load_state(card, convert.export_state(cpu))
+    a, b = batch(np.arange(1, 65)), batch(np.arange(200, 264))
+    gaps = []
+    for what, pair, ts in [("step", a, 100), ("step", a, 101),
+                           ("spill", None, 200), ("step", b, 300),
+                           ("step", a, 400), ("step", a, 500)]:
+        if what == "spill":
+            assert cpu.spill_expired(ts) == card.spill_expired(ts)
+            continue
+        lc = cpu.train_step(*pair, ts=ts)["loss"].item()
+        lg = card.train_step(*pair, ts=ts)["loss"].item()
+        np.testing.assert_allclose(lg, lc, rtol=1e-4)
+        gaps.append(abs(lg / lc - 1))
+    sc, sg = convert.export_state(cpu), convert.export_state(card)
+    for x, y in zip(sc["stores"]["sparse"], sg["stores"]["sparse"]):
+        assert np.array_equal(x, y)
+    np.testing.assert_allclose(sg["tables"]["sparse"], sc["tables"]["sparse"],
+                               rtol=1e-5, atol=1e-6)
+    ac, ag = (convert.export_archives(t)["sparse"] for t in (cpu, card))
+    for k in ("fids", "rows", "map_tss", "tss", "spilled", "revived",
+              "dropped"):
+        assert np.array_equal(ag[k], ac[k]), k
+    np.testing.assert_allclose(ag["values"], ac["values"], rtol=1e-5,
+                               atol=1e-6)
+    assert card.engine.archives["sparse"].revived == 128
+    log(f"11c tiered card vs cpu: losses' worst relative gap "
+        f"{max(gaps):.3e}; stores, archives and counters equal; pools within "
+        f"rtol 1e-5")
+
+
+def phase_expiry_and_tiering():
+    """Phases 11a-11c; returns the kernels' launches of 11a's and 11b's
+    driven runs (train steps, evict_expired, spill_expired)."""
+    import shutil
+    import tempfile
+
+    import torch
+    work = tempfile.mkdtemp(prefix="chip_smoke_tiered_")
+    launches = Launches()
+    try:
+        t0 = time.time()
+        untiered, untiered_ms = phase_expiry(launches)
+        phase_tiered(untiered, untiered_ms, launches, work)
+        del untiered
+        torch.cuda.empty_cache()
+        phase_tiered_card_vs_cpu()
+        log(f"phases 11a-11c: {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # one K1 and one K2 a step (11a: 16 + 4, 11b: 16 + 2 + 4), the zeroing
+    # K2 of the eviction, the spill's K1 and zeroing K2, and no K3
+    steps = (EXPIRY_STEPS + 4) + (EXPIRY_STEPS + 2 + 4)
+    expect = {"gather_rows": steps + 1, "scatter_rows": steps + 2,
+              "stochastic_round_bf16": 0}
+    assert launches.total == expect, (launches.total, expect)
+    return launches.total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1091,17 +1486,24 @@ def main():
         losses["multislot_bf16"])
     serving_launches = phase_out_of_the_trainer(blocks["deepfm_f32"],
                                                 blocks["multislot_bf16"])
+    block_launches = {p: b["launches"] for p, b in blocks.items()}
+    del blocks
+    torch.cuda.empty_cache()
+    expiry_launches = phase_expiry_and_tiering()
+    torch.cuda.empty_cache()
     for k in kernels:
         # each path was driven with the counts set to 0 just before it;
         # "serving" is the export and the trainer's eval predictions (both
-        # paths) and the streaming push and the delta (deepfm_f32)
+        # paths) and the streaming push and the delta (deepfm_f32);
+        # "expiry" the train steps, evictions and spills of phase 11
+        # (deepfm_f32)
         k["launches_by_path"] = {
             "per_step": launches[k["path"]][k["name"]],
-            "block": blocks[k["path"]]["launches"][k["name"]],
+            "block": block_launches[k["path"]][k["name"]],
             "serving": serving_launches[k["path"]][k["name"]]}
+        if k["path"] == "deepfm_f32":
+            k["launches_by_path"]["expiry"] = expiry_launches[k["name"]]
         k["launches"] = sum(k["launches_by_path"].values())
-    del blocks
-    torch.cuda.empty_cache()
     phase_block_card_vs_cpu()
     phase_card_vs_cpu()
     phase_multislot_card_vs_cpu()

@@ -17,7 +17,9 @@ trainers (the card and the CPU). `jax_trainer_state` reads the JAX
 package's trainer into the format with numpy alone, and
 `port_trainer_config` reads its `TrainerConfig` into the port's with the
 same settings (clip_norm, steps_per_dispatch, per-table caps,
-async_optimize, record_touch, ...).
+async_optimize, record_touch, tiered, ...). `jax_archives` and
+`load_archives` carry a tiered trainer's host archives across, so that the
+two packages can start a tiered run from identical state.
 
 Optimizer slots travel inside the packed pool, at the offsets that
 `table._layout` gives them in both packages, so no optimizer needs code
@@ -43,7 +45,7 @@ def port_trainer_config(jax_config):
     from monolith_tpu_torch.embedding.engine import EngineConfig
     from monolith_tpu_torch.training.trainer import TrainerConfig
     je = jax_config.engine
-    unported = {"num_shards": je.num_shards != 1, "tiered": je.tiered,
+    unported = {"num_shards": je.num_shards != 1,
                 "packed='off'": je.packed == "off",
                 "compact_wire=False": not je.compact_wire}
     bad = sorted(k for k, v in unported.items() if v)
@@ -54,7 +56,8 @@ def port_trainer_config(jax_config):
             num_shards=1, unique_cap=je.unique_cap, new_cap=je.new_cap,
             unique_caps=je.unique_caps, new_caps=je.new_caps,
             async_optimize=je.async_optimize,
-            record_touch=je.record_touch),
+            record_touch=je.record_touch, tiered=je.tiered,
+            archive_capacity=je.archive_capacity),
         clip_norm=jax_config.clip_norm, seed=jax_config.seed,
         log_every=jax_config.log_every,
         metrics_enabled=jax_config.metrics_enabled,
@@ -172,3 +175,44 @@ def jax_trainer_state(jax_trainer) -> Dict:
             "stores": {t: stores[0].save()
                        for t, stores in jax_trainer.engine.stores.items()},
             "step": int(jax_trainer.step)}
+
+
+def jax_archives(jax_trainer) -> Dict:
+    """A tiered JAX trainer's host archives (shard 0, the port's one) in
+    numpy: {table: {"fids", "rows", "map_tss", "tss", "values", "spilled",
+    "revived", "dropped"}}: the archive map's entries (with the map's
+    timestamps, which order recycling), and each entry's spill timestamp
+    and archived row."""
+    return {t: _archive_state(shards[0])
+            for t, shards in jax_trainer.engine.archives.items()}
+
+
+def export_archives(trainer) -> Dict:
+    """A tiered port trainer's host archives in jax_archives' format."""
+    return {t: _archive_state(a) for t, a in trainer.engine.archives.items()}
+
+
+def _archive_state(archive) -> Dict:
+    fids, rows, map_tss, _ = archive.map.save()
+    return {"fids": fids, "rows": rows, "map_tss": map_tss,
+            "tss": archive.tss[rows].copy(),
+            "values": archive.values[rows].copy(),
+            "spilled": archive.spilled, "revived": archive.revived,
+            "dropped": archive.dropped}
+
+
+def load_archives(archives, state: Dict) -> None:
+    """Write archives in jax_archives' format into RowArchive objects
+    {table: archive} of either package (a port trainer's
+    `engine.archives`, or a JAX trainer's shard-0 archives), in place:
+    the same entries at the same archive rows, values, timestamps and
+    counters."""
+    for tname, st in state.items():
+        arch = archives[tname]
+        arch.map.restore(st["fids"], st["rows"], st["map_tss"], None)
+        arch.values[:] = 0
+        arch.values[st["rows"]] = st["values"]
+        arch.tss[:] = 0
+        arch.tss[st["rows"]] = st["tss"]
+        arch.spilled, arch.revived, arch.dropped = (
+            st["spilled"], st["revived"], st["dropped"])

@@ -21,9 +21,24 @@ only, on freshly gathered rows, with the rows the forward used handed to DC
 segments) and `scatter_rows` (the deferred write-back, one K2 per table, a
 step later).
 
+Expiry (a table with `eviction.ttl_seconds > 0`): `evict_expired` frees
+the rows of ids not updated since a timestamp in the host stores, and
+`zero_rows` zeroes those rows on the device with one K2 launch a table, so
+that no evicted state survives into a recycled row.
+
+Tiered storage (`EngineConfig.tiered`): expired rows spill to a host
+archive a table (embedding/tiered.py, driven by Trainer.spill_expired) and
+come back when their id is admitted again. That takes the host path of
+`prepare_batch`, which runs dedup, the id map and the archive's revive in
+Python over the same C++ and returns the step's arrays; `pack_wire` packs
+them into the wire `prepare_wire` writes, byte for byte, and the revived
+rows travel beside it: only the n revived rows, padded to a power of two
+with position -1. `fused_lookup` lays them over the gathered rows. As in
+the JAX package, a tiered trainer steps one by one (no blocks).
+
 Single-shard only: decoded inputs and table states carry no shard axis
 (the JAX package's carry a leading axis of 1). Table pools are updated in
-place by fused_apply and scatter_rows.
+place by fused_apply, scatter_rows and zero_rows.
 """
 
 from __future__ import annotations
@@ -39,7 +54,9 @@ from monolith_tpu_torch.embedding import host_store
 from monolith_tpu_torch.embedding import table as table_lib
 from monolith_tpu_torch.embedding.host_store import Batcher, FilterKind, HostStore
 from monolith_tpu_torch.embedding.spec import TableSpec
+from monolith_tpu_torch.embedding.tiered import RowArchive, state_width
 from monolith_tpu_torch.feature import FeatureConfig, combine
+from monolith_tpu_torch.ops.scatter import scatter_rows
 
 _FILTER_KINDS = {
     "none": FilterKind.NONE,
@@ -72,6 +89,10 @@ class EngineConfig:
     # record the fids each step touches in the host stores, for the
     # streaming push of touched rows (HostStore.drain_touched)
     record_touch: bool = False
+    # two-tier storage: expired rows spill their full state to a host
+    # archive and revive on re-admission (Trainer.spill_expired)
+    tiered: bool = False
+    archive_capacity: int = 0  # rows an archive holds; 0 = 4x the table's
 
     def ucap(self, table: str) -> int:
         if self.unique_caps:
@@ -122,6 +143,31 @@ def _defer_seed(seed: int, step: int, table_index: int) -> int:
     return _seed_mix(seed, step, table_index) % (1 << 62) | (3 << 62)
 
 
+def pad_rows(rows: np.ndarray) -> np.ndarray:
+    """`rows` as int32, padded with -1 to the next power of two: K1 and K2
+    drop -1 rows, and the launch lengths of an eviction, a spill or a
+    revive stay O(log capacity) in number."""
+    out = np.full(1 << (len(rows) - 1).bit_length(), -1, np.int32)
+    out[:len(rows)] = rows
+    return out
+
+
+def _overlay_revived(p: torch.Tensor, pos: torch.Tensor,
+                     values: torch.Tensor) -> None:
+    """p[pos[i], :width] = values[i], p[pos[i], width:] = 0 in place, for
+    the entries with pos >= 0 (an index_copy_, plain PyTorch as the JAX
+    package's is plain XLA). The -1 entries form the tail after at least
+    one valid entry; each writes entry 0's position and row again, so every
+    write to a position carries the same row and their order cannot matter,
+    and nothing waits for the device to count the valid entries."""
+    keep = pos >= 0
+    idx = torch.where(keep, pos, pos[:1]).long()
+    full = torch.zeros((pos.shape[0], p.shape[1]), dtype=p.dtype,
+                       device=p.device)
+    full[:, :values.shape[1]] = torch.where(keep[:, None], values, values[:1])
+    p.index_copy_(0, idx, full)
+
+
 class EmbeddingEngine:
     """Owns host state (stores/batchers) and the device-side functions."""
 
@@ -149,9 +195,6 @@ class EmbeddingEngine:
         self.stores: Dict[str, HostStore] = {}
         self.batchers: Dict[str, Batcher] = {}
         for name, t in self.tables.items():
-            if t.eviction.ttl_seconds > 0:
-                raise NotImplementedError(f"table {name}: expiry eviction is "
-                                          f"not ported yet")
             self.stores[name] = HostStore(
                 row_capacity=t.capacity_per_shard,
                 filter_kind=_FILTER_KINDS[t.admission.kind],
@@ -160,6 +203,12 @@ class EmbeddingEngine:
                 filter_splits=t.admission.filter_splits,
                 seed=seed * 1000003)
             self.batchers[name] = Batcher(expected_unique=config.ucap(name))
+        # the JAX package seeds shard s's archive with seed + s; this is
+        # shard 0
+        self.archives: Dict[str, RowArchive] = (
+            {name: RowArchive(t, config.archive_capacity
+                              or 4 * t.capacity_per_shard, seed=seed)
+             for name, t in self.tables.items()} if config.tiered else {})
         self._generator = torch.Generator(device=self.device)
 
     # ------------------------------------------------------------------
@@ -227,6 +276,127 @@ class EmbeddingEngine:
             stats["new_rejected"][tname] = int(st[i, 4])
         return wire, stats
 
+    def prepare_batch(self, fid_batch: Dict[str, np.ndarray], ts: int
+                      ) -> Tuple[Dict, Dict]:
+        """The host path of a step's inputs, in Python over the same C++ as
+        prepare_wire: per table, dedup (with each id's occurrences when the
+        table has admission), the id map (`map_train_pos`) and, when
+        tiered, the archive's revive of newly admitted ids. Returns
+        (inputs, stats); inputs per table:
+
+          {"rows": [U] int32 (-1 invalid), "new_mask": [U] uint8,
+           "index": {feature: [B, L] int32 (-1 invalid)}}
+
+        and when tiered "revive_pos" [m] int32 (positions into rows) and
+        "revive_values" [m, state_width] f32: the n revived ids, padded to
+        m = the next power of two with position -1 (m = 0 when none). The
+        JAX package ships [S, new_cap, width] with -1 tails; the values are
+        the same. `pack_wire` turns the rest into prepare_wire's bytes."""
+        cfg = self.config
+        inputs = {}
+        stats = {"overflow": {}, "new": {}, "unique": {}, "filtered": {},
+                 "new_rejected": {}}
+        for tname, feats in self.table_features.items():
+            if not feats:
+                continue
+            U, K = cfg.ucap(tname), cfg.ncap(tname)
+            streams = [np.ascontiguousarray(fid_batch[f.name], dtype=np.int64)
+                       for f in feats]
+            flat = np.concatenate([s.ravel() for s in streams])
+            occ = None
+            if self.tables[tname].admission.kind != "none":
+                unique, index, counts, occ, overflow = \
+                    self.batchers[tname].dedup_counts(flat, 1, U)
+            else:
+                unique, index, counts, overflow = self.batchers[tname].dedup(
+                    flat, 1, U)
+            rows = np.full(U, -1, dtype=np.int32)
+            new_mask = np.zeros(U, dtype=np.uint8)
+            tin = {"rows": rows, "new_mask": new_mask}
+            if cfg.tiered:
+                width = state_width(self.tables[tname])
+                tin["revive_pos"] = np.empty(0, np.int32)
+                tin["revive_values"] = np.zeros((0, width), np.float32)
+            c = int(counts[0])
+            n_new = n_rej = n_filtered = 0
+            if c:
+                store = self.stores[tname]
+                r, nr, nf, npos = store.map_train_pos(
+                    unique[0, :c], ts=ts, new_cap=K,
+                    record_touch=cfg.record_touch,
+                    counts=None if occ is None else occ[0, :c])
+                new_mask[npos] = 1
+                rows[:c] = r
+                n_new, n_rej = len(nr), store.last_rejected
+                # -1 rows are admission-filtered or budget-rejected ids;
+                # the rejected ones are counted in new_rejected already
+                n_filtered = int((r == -1).sum()) - n_rej
+                if cfg.tiered and len(nf):
+                    ok, vals = self.archives[tname].revive(nf)
+                    if ok.any():
+                        pos = pad_rows(npos[ok])
+                        values = np.zeros((len(pos), vals.shape[1]),
+                                          np.float32)
+                        values[:ok.sum()] = vals[ok]
+                        tin["revive_pos"], tin["revive_values"] = pos, values
+            tin["index"] = {}
+            off = 0
+            for f, stream in zip(feats, streams):
+                tin["index"][f.name] = index[off:off + stream.size].reshape(
+                    stream.shape)
+                off += stream.size
+            inputs[tname] = tin
+            stats["overflow"][tname] = overflow
+            stats["new"][tname] = n_new
+            stats["unique"][tname] = c
+            stats["filtered"][tname] = n_filtered
+            stats["new_rejected"][tname] = n_rej
+        return inputs, stats
+
+    def pack_wire(self, inputs: Dict) -> np.ndarray:
+        """prepare_batch's arrays as the int32 wire that prepare_wire writes
+        (layout in its docstring), byte for byte. Indices travel as 16-bit
+        words, decoded unsigned: values up to 65534 keep their bits."""
+        parts = []
+        for tname in sorted(inputs):
+            tin = inputs[tname]
+            rows = np.array(tin["rows"], dtype=np.int32)
+            np.bitwise_or(rows, np.int32(1 << 30), out=rows,
+                          where=tin["new_mask"].astype(bool))
+            parts.append(rows)
+            for f in self.table_features[tname]:
+                idx = np.asarray(tin["index"][f.name]).astype(np.int16).ravel()
+                if idx.size % 2:
+                    idx = np.concatenate([idx, np.full(1, -1, np.int16)])
+                parts.append(idx.view(np.int32))
+        return np.concatenate(parts)
+
+    def evict_expired(self, expire_before: int) -> Dict[str, np.ndarray]:
+        """Expiry on the host stores of every table with a ttl: ids whose
+        last update is older than `expire_before` leave the id map. Returns
+        the freed rows {table: int64 [n]}, for zero_rows."""
+        return {tname: self.stores[tname].evict_expired(expire_before
+                                                        ).astype(np.int64)
+                for tname, t in self.tables.items()
+                if t.eviction.ttl_seconds > 0}
+
+    @torch.no_grad()
+    def zero_rows(self, states: Dict, freed: Dict[str, np.ndarray]) -> Dict:
+        """Zero freed rows of the device pools in place (params and slots),
+        so that no evicted state survives into a recycled row. One K2
+        launch a table writes zero rows of the pool's dtype (a bf16 pool
+        gets bf16 zeros, exact, with no K3), the row list padded by
+        `pad_rows`."""
+        for tname, rows in freed.items():
+            if rows.size == 0:
+                continue
+            pool = states[tname]["data"]
+            idx = pad_rows(rows)
+            scatter_rows(pool, torch.from_numpy(idx).to(pool.device),
+                         torch.zeros((len(idx), pool.shape[1]),
+                                     dtype=pool.dtype, device=pool.device))
+        return states
+
     # ------------------------------------------------------------------
     # device side
     # ------------------------------------------------------------------
@@ -273,7 +443,10 @@ class EmbeddingEngine:
         """Gather each table's packed rows (K1) and select init values for
         newly admitted ids. New-row init draws from Philox through a
         generator seeded from (seed, step, table index) — not the JAX
-        package's threefry draws.
+        package's threefry draws. A tiered table's revived rows
+        (`revive_pos`, `revive_values` in its inputs) are laid over the
+        init: their archived state replaces the first `state_width`
+        columns and the columns after them read zero.
 
         Returns (prows {table: [U, P] f32}, unique {table: [U, dim] f32}),
         f32 for a bf16 pool too."""
@@ -286,6 +459,8 @@ class EmbeddingEngine:
             init = table_lib.init_packed(spec, self._generator, rows.shape[0],
                                          self.device)
             p = torch.where((tin["new_mask"] > 0)[:, None], init, p)
+            if tin.get("revive_pos") is not None and len(tin["revive_pos"]):
+                _overlay_revived(p, tin["revive_pos"], tin["revive_values"])
             prows[tname] = p
             unique[tname] = table_lib.params_of(spec, p)
         return prows, unique

@@ -1,8 +1,8 @@
 """Python wrappers over the native host sparse core (the port's copy).
 
 `HostStore` is the collisionless fid -> row map of one table with admission
-filtering; it holds no float data, only row indices into the device pool.
-It also records the fids touched since the last drain (the streaming push
+filtering and expiry eviction; it holds no float data, only row indices into
+the device pool. It also records the fids touched since the last drain (the streaming push
 reads them) and saves and restores its admission filter (checkpoints).
 `Batcher` owns the dedup scratch of one table. `prepare_wire_multi` is the
 fused per-step host prepare (dedup + map + wire pack for every table in one
@@ -82,6 +82,40 @@ class HostStore:
         self.last_rejected = int(new_count[0]) - k
         return rows, new_rows[:k], new_fids[:k]
 
+    def map_train_pos(self, fids: np.ndarray, ts: int,
+                      new_cap: Optional[int] = None,
+                      record_touch: bool = False,
+                      counts: Optional[np.ndarray] = None
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """map_train that also returns each new id's position within `fids`
+        (strictly increasing int32 [k]). `counts` (int32 [n], optional):
+        each fid's occurrences in the batch, which the admission filters
+        consume. The budget-rejected count is `self.last_rejected`."""
+        fids = np.ascontiguousarray(fids, dtype=np.int64)
+        n = fids.size
+        if new_cap is None:
+            new_cap = n
+        rows = np.empty(n, dtype=np.int32)
+        new_rows = np.empty(new_cap, dtype=np.int32)
+        new_fids = np.empty(new_cap, dtype=np.int64)
+        new_pos = np.empty(new_cap, dtype=np.int32)
+        new_count = np.zeros(1, dtype=np.int64)
+        tail = (_ptr(rows, ctypes.c_int32), _ptr(new_rows, ctypes.c_int32),
+                _ptr(new_fids, ctypes.c_int64), _ptr(new_pos, ctypes.c_int32),
+                new_cap, _ptr(new_count, ctypes.c_int64),
+                1 if record_touch else 0)
+        if counts is not None:
+            counts = np.ascontiguousarray(counts, dtype=np.int32)
+            self._lib.mt_store_map_train_pos2(
+                self._h, _ptr(fids, ctypes.c_int64), n, ts,
+                _ptr(counts, ctypes.c_int32), *tail)
+        else:
+            self._lib.mt_store_map_train_pos(
+                self._h, _ptr(fids, ctypes.c_int64), n, ts, *tail)
+        k = min(int(new_count[0]), new_cap)
+        self.last_rejected = int(new_count[0]) - k
+        return rows, new_rows[:k], new_fids[:k], new_pos[:k]
+
     def lookup(self, fids: np.ndarray) -> np.ndarray:
         """Read-only lookup; missing ids map to -1."""
         fids = np.ascontiguousarray(fids, dtype=np.int64)
@@ -105,6 +139,22 @@ class HostStore:
             _ptr(new_fids, ctypes.c_int64), n, _ptr(new_count, ctypes.c_int64))
         k = int(new_count[0])
         return rows, new_rows[:k], new_fids[:k]
+
+    def evict_expired(self, expire_before: int, return_fids: bool = False):
+        """Evict every entry whose last update ts < expire_before. Returns
+        the freed row indices (int32), or (rows, fids) with
+        return_fids=True (a tiered table spills those fids' rows)."""
+        cap = self.size()
+        out = np.empty(max(cap, 1), dtype=np.int32)
+        if return_fids:
+            fids = np.empty(max(cap, 1), dtype=np.int64)
+            n = min(self._lib.mt_store_evict_expired2(
+                self._h, expire_before, _ptr(out, ctypes.c_int32),
+                _ptr(fids, ctypes.c_int64), cap), cap)
+            return out[:n], fids[:n]
+        n = self._lib.mt_store_evict_expired(self._h, expire_before,
+                                             _ptr(out, ctypes.c_int32), cap)
+        return out[:min(n, cap)]
 
     def size(self) -> int:
         return int(self._lib.mt_store_size(self._h))
@@ -208,6 +258,24 @@ class Batcher:
             num_shards, shard_cap, _ptr(unique, ctypes.c_int64),
             _ptr(index, ctypes.c_int32), _ptr(counts, ctypes.c_int32))
         return unique, index, counts, int(overflow)
+
+    def dedup_counts(self, values: np.ndarray, num_shards: int,
+                     shard_cap: int):
+        """dedup that also returns each unique id's occurrences in the
+        batch ([num_shards, shard_cap] int32, the layout of `unique`), which
+        the admission filters consume. Returns (unique, index, counts,
+        occurrences, overflow)."""
+        values = np.ascontiguousarray(values, dtype=np.int64).ravel()
+        unique = np.empty((num_shards, shard_cap), dtype=np.int64)
+        index = np.empty(values.size, dtype=np.int32)
+        counts = np.empty(num_shards, dtype=np.int32)
+        occ = np.empty((num_shards, shard_cap), dtype=np.int32)
+        overflow = self._lib.mt_batcher_dedup2(
+            self._h, _ptr(values, ctypes.c_int64), values.size,
+            num_shards, shard_cap, _ptr(unique, ctypes.c_int64),
+            _ptr(index, ctypes.c_int32), _ptr(counts, ctypes.c_int32),
+            _ptr(occ, ctypes.c_int32))
+        return unique, index, counts, occ, int(overflow)
 
 
 def prepare_wire_multi(batchers, stores, table_streams, ts: int,

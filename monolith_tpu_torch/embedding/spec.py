@@ -5,8 +5,8 @@ concatenation of `segments`, each with its own dim, optimizer and
 initializer, serving compressor and (optionally) retriever. The port
 carries what it runs: f32 or bf16 pools (bf16 optionally with
 stochastic rounding on write-back), the three learning-rate schedules, the
-per-segment compressors of a serving export and the quantization-aware
-retrievers; no expiry yet (the engine rejects a table with a ttl).
+per-segment compressors of a serving export, the quantization-aware
+retrievers and time-based expiry (`EvictionConfig.ttl_seconds`).
 
 A schedule is called with the trainer's step number, a Python int that the
 host knows, and returns a Python float. The JAX package's schedules take a

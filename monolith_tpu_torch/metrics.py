@@ -21,12 +21,15 @@ def device_metrics_init(num_thresholds: int, device):
 
 
 @torch.no_grad()
-def device_metrics_update(state, loss, preds, labels):
-    """In-place update: bucket preds into the AUC histograms and accumulate
-    loss (a scalar or a [K] block of per-step losses). Returns state."""
+def device_metrics_update(state, loss, preds=None, labels=None):
+    """In-place update: accumulate loss (a scalar or a [K] block of
+    per-step losses) and bucket preds into the AUC histograms; with preds
+    or labels None, the loss alone. Returns state."""
     loss = loss.detach()
     state["loss_sum"] += loss.sum().float()
     state["loss_weight"] += float(max(loss.numel(), 1))
+    if preds is None or labels is None:
+        return state
     T = state["pos"].shape[0]
     p = torch.clamp(preds.detach().reshape(-1).float(), 0.0, 1.0)
     y = labels.reshape(-1).float()
@@ -45,13 +48,15 @@ class StreamingAUC:
         self.pos_hist = np.zeros(num_thresholds, dtype=np.float64)
         self.neg_hist = np.zeros(num_thresholds, dtype=np.float64)
 
-    def update(self, preds, labels) -> None:
+    def update(self, preds, labels, weights=None) -> None:
         preds = np.clip(np.asarray(preds, dtype=np.float64).ravel(), 0.0, 1.0)
         labels = np.asarray(labels, dtype=np.float64).ravel()
+        w = (np.ones_like(labels) if weights is None
+             else np.asarray(weights, np.float64).ravel())
         buckets = np.minimum((preds * self.num_thresholds).astype(np.int64),
                              self.num_thresholds - 1)
-        np.add.at(self.pos_hist, buckets, labels)
-        np.add.at(self.neg_hist, buckets, 1.0 - labels)
+        np.add.at(self.pos_hist, buckets, labels * w)
+        np.add.at(self.neg_hist, buckets, (1.0 - labels) * w)
 
     def update_histograms(self, pos_hist, neg_hist) -> None:
         """Fold in already-bucketed counts (the device-metrics drain path)."""
@@ -74,6 +79,10 @@ class StreamingAUC:
         fpr = np.concatenate([[0.0], fp / total_neg])
         return float(np.trapezoid(tpr, fpr))
 
+    def reset(self) -> None:
+        self.pos_hist[:] = 0
+        self.neg_hist[:] = 0
+
 
 class StreamingMean:
     def __init__(self):
@@ -86,6 +95,9 @@ class StreamingMean:
 
     def result(self) -> float:
         return self.total / self.count if self.count else 0.0
+
+    def reset(self) -> None:
+        self.total = self.count = 0.0
 
 
 def auc(preds, labels) -> float:

@@ -11,7 +11,8 @@ import torch
 from torch import nn
 
 from monolith_tpu_torch.embedding import initializers, optimizers
-from monolith_tpu_torch.embedding.spec import (AdmissionConfig, TableSegment,
+from monolith_tpu_torch.embedding.spec import (AdmissionConfig,
+                                               EvictionConfig, TableSegment,
                                                TableSpec)
 from monolith_tpu_torch.feature import FeatureConfig
 from monolith_tpu_torch.layers.mlp import MLP
@@ -65,6 +66,7 @@ class DeepFMTask(RecTask):
     init_scale: float = 0.3
     accumulator_init: float = 0.01
     admission_threshold: int = 1
+    ttl_seconds: int = 0
     hidden: Sequence[int] = (256, 128, 64)
     table_dtype: torch.dtype = torch.float32
     stochastic_rounding: bool = False
@@ -86,6 +88,7 @@ class DeepFMTask(RecTask):
                      if self.admission_threshold > 1 else AdmissionConfig())
         return [TableSpec(name="sparse", capacity_per_shard=self.capacity_per_shard,
                           segments=segs, admission=admission,
+                          eviction=EvictionConfig(ttl_seconds=self.ttl_seconds),
                           dtype=self.table_dtype,
                           stochastic_rounding=self.stochastic_rounding)]
 

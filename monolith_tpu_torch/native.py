@@ -31,10 +31,24 @@ def _declare(lib: ctypes.CDLL) -> None:
     d.mt_store_map_train.argtypes = [
         ctypes.c_void_p, c_i64_p, ctypes.c_int64, ctypes.c_uint32,
         c_i32_p, c_i32_p, c_i64_p, ctypes.c_int64, c_i64_p, ctypes.c_int32]
+    d.mt_store_map_train_pos.argtypes = [
+        ctypes.c_void_p, c_i64_p, ctypes.c_int64, ctypes.c_uint32,
+        c_i32_p, c_i32_p, c_i64_p, c_i32_p, ctypes.c_int64, c_i64_p,
+        ctypes.c_int32]
+    d.mt_store_map_train_pos2.argtypes = [
+        ctypes.c_void_p, c_i64_p, ctypes.c_int64, ctypes.c_uint32, c_i32_p,
+        c_i32_p, c_i32_p, c_i64_p, c_i32_p, ctypes.c_int64, c_i64_p,
+        ctypes.c_int32]
     d.mt_store_lookup.argtypes = [ctypes.c_void_p, c_i64_p, ctypes.c_int64, c_i32_p]
     d.mt_store_assign.argtypes = [
         ctypes.c_void_p, c_i64_p, ctypes.c_int64, ctypes.c_uint32,
         c_i32_p, c_i32_p, c_i64_p, ctypes.c_int64, c_i64_p]
+    d.mt_store_evict_expired.restype = ctypes.c_int64
+    d.mt_store_evict_expired.argtypes = [ctypes.c_void_p, ctypes.c_uint32,
+                                         c_i32_p, ctypes.c_int64]
+    d.mt_store_evict_expired2.restype = ctypes.c_int64
+    d.mt_store_evict_expired2.argtypes = [ctypes.c_void_p, ctypes.c_uint32,
+                                          c_i32_p, c_i64_p, ctypes.c_int64]
     d.mt_store_size.restype = ctypes.c_int64
     d.mt_store_size.argtypes = [ctypes.c_void_p]
     d.mt_store_save.restype = ctypes.c_int64
@@ -59,6 +73,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     d.mt_batcher_dedup.argtypes = [
         ctypes.c_void_p, c_i64_p, ctypes.c_int64, ctypes.c_int32,
         ctypes.c_int64, c_i64_p, c_i32_p, c_i32_p]
+    d.mt_batcher_dedup2.restype = ctypes.c_int64
+    d.mt_batcher_dedup2.argtypes = [
+        ctypes.c_void_p, c_i64_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int64, c_i64_p, c_i32_p, c_i32_p, c_i32_p]
     d.mt_shard_of.restype = ctypes.c_int32
     d.mt_shard_of.argtypes = [ctypes.c_int64, ctypes.c_int32]
     d.mt_prepare_wire_multi.restype = ctypes.c_int64

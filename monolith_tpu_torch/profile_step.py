@@ -99,22 +99,23 @@ def _kernel_count(event):
 
 
 def _trainer_config(cap, steps_per_dispatch=1, async_optimize=False,
-                    record_touch=False):
+                    record_touch=False, tiered=False):
     from monolith_tpu_torch.embedding.engine import EngineConfig
     from monolith_tpu_torch.training.trainer import TrainerConfig
     return TrainerConfig(
         engine=EngineConfig(num_shards=1, unique_cap=cap, new_cap=cap,
                             async_optimize=async_optimize,
-                            record_touch=record_touch),
+                            record_touch=record_touch, tiered=tiered),
         log_every=0, steps_per_dispatch=steps_per_dispatch)
 
 
-def _deepfm(**cfg):
+def _deepfm(ttl_seconds=0, **cfg):
     from monolith_tpu_torch.data.synthetic import SyntheticCTR
     from monolith_tpu_torch.models.deepfm import DeepFMTask
     from monolith_tpu_torch.training.trainer import Trainer
     trainer = Trainer(DeepFMTask(embedding_dim=16, capacity_per_shard=1 << 21,
-                                 hidden=(256, 128, 64)),
+                                 hidden=(256, 128, 64),
+                                 ttl_seconds=ttl_seconds),
                       _trainer_config(32768, **cfg))
     return trainer, SyntheticCTR(num_users=1_000_000, num_items=200_000,
                                  batch_size=8192, seed=0)
@@ -137,8 +138,9 @@ def _multislot_bf16(**cfg):
 
 
 #: bench.py's configs at full width: name -> (steps_per_dispatch=1,
-#: async_optimize=False, record_touch=False) -> (trainer on the card, data
-#: stream); chip_smoke.py drives the same two
+#: async_optimize=False, record_touch=False, tiered=False) -> (trainer on
+#: the card, data stream); chip_smoke.py drives the same two (deepfm also
+#: with a table ttl, `ttl_seconds=`)
 CONFIGS = {"deepfm": _deepfm, "multislot_bf16": _multislot_bf16}
 #: a serving replica's unique ids per predict at batch 8192, by config
 SERVE_UNIQUE_CAP = {"deepfm": 32768, "multislot_bf16": 49152}

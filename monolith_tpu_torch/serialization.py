@@ -25,6 +25,7 @@ the template's shape; otherwise it raises.
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any, Dict
 
@@ -278,3 +279,19 @@ def from_bytes(template: Dict, data: bytes) -> Dict:
     """Decode `data` into a tree with exactly the template's keys (and, for
     array leaves, the template's shapes); raises on any difference."""
     return _restore_into(template, msgpack_restore(data), "")
+
+
+def refuse_model_state(directory: str) -> None:
+    """Raise for a checkpoint or an export whose `model_state.msgpack`
+    holds non-parameter state (a BatchNorm's statistics, say). The JAX
+    package writes that file only for a model with such state, and no
+    module of the port has any yet (ROADMAP item 10): reading the rest
+    without it would train or serve another model than the one saved."""
+    path = os.path.join(directory, "model_state.msgpack")
+    if not os.path.exists(path):
+        return
+    with open(path, "rb") as f:
+        if msgpack_restore(f.read()):
+            raise NotImplementedError(
+                f"{path}: non-parameter model state (model_state.msgpack) "
+                f"is not ported yet (ROADMAP item 10)")

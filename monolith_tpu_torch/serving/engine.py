@@ -16,7 +16,8 @@ The forward is the task's `nn.Module` under `torch.inference_mode()`; there
 is nothing to trace or compile. The module owns its parameters from
 construction, so `dense.msgpack` is loaded into it when the model is
 constructed (the JAX package defers that to the first predict, when it can
-build a template).
+build a template). An export with non-parameter state (a non-empty
+`model_state.msgpack`) is refused: no ported module has such state yet.
 
 Concurrency. `predict` does its host prepare (dedup, id -> row lookup) and
 takes references to the pools and the module under the version lock, then
@@ -42,7 +43,7 @@ import json
 import os
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +88,7 @@ class ServingModel:
         with open(os.path.join(export_path, "meta.json")) as f:
             self.meta = json.load(f)
         self.step = self.meta["step"]
+        serialization.refuse_model_state(export_path)
         with open(os.path.join(export_path, "dense.msgpack"), "rb") as f:
             self.module = self._load_module(f.read())
 
@@ -158,10 +160,12 @@ class ServingModel:
                              "shapes": [s.shape for s in streams]}
         return inputs
 
-    def _forward(self, module, pools, inputs, batch) -> torch.Tensor:
+    def _forward(self, module, pools, inputs, batch
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device half of predict: per table one lookup of the unique rows
         and one gather over the flat index; per feature a slice and its
-        combiner; the module; the task's predictions."""
+        combiner; the module. Returns (the task's predictions, the
+        module's logits), as the JAX package's does."""
         dev = self.device
         pooled = {}
         for tname, tin in inputs.items():
@@ -185,7 +189,8 @@ class ServingModel:
                 off += size
         batch_t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
             dev, non_blocking=True) for k, v in batch.items()}
-        return self.task.predictions(module(pooled, batch_t))
+        out = module(pooled, batch_t)
+        return self.task.predictions(out), out["logits"]
 
     def predict(self, fid_batch: Dict[str, np.ndarray],
                 batch: Optional[Dict[str, np.ndarray]] = None,
@@ -209,7 +214,7 @@ class ServingModel:
             pools, module = dict(self.pools), self.module
         t1 = time.perf_counter()
         with torch.inference_mode():
-            preds = self._forward(module, pools, inputs, batch)
+            preds, _ = self._forward(module, pools, inputs, batch)
         if timing is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t2 = time.perf_counter()

@@ -9,6 +9,8 @@ Layout (one directory per step):
         tables/<table>-s0.npz          pool params + optimizer slot arrays +
                                        host map dump (fids/rows/tss/counts)
         filters/<table>-s0.bin         admission-filter state
+        archives/<table>-s0.npz        a tiered table's host archive
+                                       (fids, rows, tss, values)
     <dir>/CHECKPOINT                   latest step pointer
 
 The port's tables are single-shard, so it writes `-s0` files and
@@ -29,8 +31,11 @@ timestamp, as (fids, tss, counts, values); `restore_delta` assigns rows
 through the host map and writes the values with `table.assign_rows`, which
 on the card is K1, an overwrite of the params columns, and K2.
 
-Not ported: expiry before a save (`evict_before_save`) and the tiered
-store's `archives/` directory, neither written nor read.
+`save(..., evict_before_save=True)` first runs expiry on every table with
+a ttl (`trainer.evict_expired(now - ttl)`), as the JAX package does. A
+tiered trainer's archives are written to `archives/` (a non-empty archive
+only) and read back on restore; a JAX checkpoint of several shards gives
+the port the archive of shard 0, as it would a one-shard JAX trainer.
 """
 
 from __future__ import annotations
@@ -58,14 +63,16 @@ def _rows_tensor(rows: np.ndarray, device) -> torch.Tensor:
 def save(trainer, directory: str, evict_before_save: bool = False,
          dense_only: bool = False) -> str:
     """Save trainer state; returns the checkpoint path."""
-    if evict_before_save:
-        raise NotImplementedError(
-            "evict_before_save: expiry eviction is not ported yet (ROADMAP "
-            "item 6)")
     step = trainer.step
     path = os.path.join(directory, f"ckpt-{step}")
     os.makedirs(_tables_dir(path), exist_ok=True)
     os.makedirs(os.path.join(path, "filters"), exist_ok=True)
+
+    if evict_before_save:
+        now = int(time.time())
+        for spec in trainer.engine.tables.values():
+            if spec.eviction.ttl_seconds > 0:
+                trainer.evict_expired(now - spec.eviction.ttl_seconds)
 
     with open(os.path.join(path, "dense.msgpack"), "wb") as f:
         f.write(serialization.to_bytes(
@@ -97,11 +104,39 @@ def save(trainer, directory: str, evict_before_save: bool = False,
                           "wb") as f:
                     f.write(blob)
 
+    _save_archives(trainer, path)
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f)
     with open(os.path.join(directory, "CHECKPOINT"), "w") as f:
         f.write(str(step))
     return path
+
+
+def _save_archives(trainer, path) -> None:
+    """A tiered trainer's host archives, so that a restart keeps its cold
+    rows: `archives/<table>-s0.npz` for every non-empty archive."""
+    archives = trainer.engine.archives
+    if not archives:
+        return
+    adir = os.path.join(path, "archives")
+    os.makedirs(adir, exist_ok=True)
+    for tname, arch in archives.items():
+        if arch.size() > 0:
+            arch.save(os.path.join(adir, f"{tname}-s0.npz"))
+
+
+def _restore_archives(trainer, path) -> None:
+    """Read back `archives/<table>-s0.npz` into a tiered trainer's
+    archives. The port is one shard, so a JAX checkpoint of several gives
+    it the archive of shard 0 only, as it gives a one-shard JAX trainer:
+    the other shards' cold rows start afresh when their ids come back."""
+    adir = os.path.join(path, "archives")
+    if not trainer.engine.archives or not os.path.isdir(adir):
+        return
+    for tname, arch in trainer.engine.archives.items():
+        p = os.path.join(adir, f"{tname}-s0.npz")
+        if os.path.exists(p):
+            arch.restore(p)
 
 
 def _opt_state_tree(trainer) -> Dict:
@@ -190,6 +225,7 @@ def restore(trainer, directory: str, step: Optional[int] = None) -> int:
     path = os.path.join(directory, f"ckpt-{step}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
+    serialization.refuse_model_state(path)
 
     dense_path = os.path.join(path, "dense.msgpack")
     if os.path.exists(dense_path):
@@ -229,6 +265,7 @@ def restore(trainer, directory: str, step: Optional[int] = None) -> int:
                 {k[5:]: z[k] for k in z.files if k.startswith("slot:")},
                 trainer.device)
 
+    _restore_archives(trainer, path)
     trainer.step = meta["step"]
     return meta["step"]
 

@@ -11,13 +11,17 @@ at a power-of-two padded length, which bounds the distinct launch shapes
 across rounds, and only those rows cross to the host: a round costs what
 the touched rows cost, never what the pool does.
 
-Not ported: periodic expiry eviction (`evict_interval_steps`).
+Every `evict_interval_steps` steps the loop runs expiry at now minus the
+largest ttl of the tables: a tiered trainer spills the expired rows to its
+host archive (`spill_expired`), any other evicts and zeroes them
+(`evict_expired`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Dict, Iterable, Optional
 
 import numpy as np
@@ -34,7 +38,7 @@ class StreamingConfig:
     sync_interval_steps: int = 50          # push deltas every N steps
     dense_ckpt_interval_steps: int = 0     # 0 = off
     full_ckpt_interval_steps: int = 0
-    evict_interval_steps: int = 0          # not ported: must stay 0
+    evict_interval_steps: int = 0          # 0 = off
     ckpt_dir: Optional[str] = None
     max_push_rows: int = 1 << 20
 
@@ -48,10 +52,6 @@ class StreamingTrainer:
         if not trainer.config.engine.record_touch and sync_manager is not None:
             raise ValueError("engine.record_touch must be True for realtime "
                              "parameter sync (EngineConfig(record_touch=True))")
-        if config.evict_interval_steps > 0:
-            raise NotImplementedError(
-                "evict_interval_steps: expiry eviction is not ported yet "
-                "(ROADMAP item 6)")
         self.pushed_rows = 0
         self.sync_rounds = 0
 
@@ -106,6 +106,21 @@ class StreamingTrainer:
         self.sync_rounds += 1
         return pushed
 
+    def _expire(self) -> None:
+        """Expiry at now minus the largest ttl of the tables: spill to the
+        host archive when tiered, else free and zero the rows."""
+        t = self.trainer
+        ttl = max((spec.eviction.ttl_seconds
+                   for spec in t.engine.tables.values()
+                   if spec.eviction.ttl_seconds > 0), default=0)
+        if not ttl:
+            return
+        now = int(time.time())
+        if t.config.engine.tiered:
+            t.spill_expired(now - ttl)
+        else:
+            t.evict_expired(now - ttl)
+
     def run(self, data: Iterable, max_steps: Optional[int] = None) -> Dict:
         """Consume a (possibly unbounded) stream of (fid_batch, batch)."""
         t = self.trainer
@@ -123,6 +138,8 @@ class StreamingTrainer:
             if cfg.ckpt_dir and cfg.full_ckpt_interval_steps and \
                     n % cfg.full_ckpt_interval_steps == 0:
                 ckpt_lib.save(t, cfg.ckpt_dir)
+            if cfg.evict_interval_steps and n % cfg.evict_interval_steps == 0:
+                self._expire()
             if max_steps is not None and n >= max_steps:
                 break
         if self.sync is not None:

@@ -33,8 +33,18 @@ from a CPU generator seeded with `config.seed`, so a trainer on the card
 and one on the CPU start from identical weights; every step, the first
 included, takes the fused wire path.
 
+Expiry: `evict_expired` frees the expired ids' rows in the host stores and
+zeroes them on the device (one K2 a table). A tiered trainer
+(`EngineConfig.tiered`) spills them instead (`spill_expired`: one K1 a
+table gathers just those rows into the host archive, then the zeroing K2)
+and revives them when their ids come back. Its steps take the engine's
+host path (`prepare_batch` + `pack_wire` write the same wire), with the
+revived rows as a second small upload beside it, and it steps one by one:
+as in the JAX package, a tiered trainer runs no blocks.
+
 Loss and AUC accumulate on the device (metrics.device_metrics_update) and
-are read back only by `_drain_metrics`.
+are read back only by `_drain_metrics`. A task whose batch carries no
+"label", or whose predictions are a dict, accumulates the loss alone.
 """
 
 from __future__ import annotations
@@ -47,7 +57,10 @@ import numpy as np
 import torch
 
 from monolith_tpu_torch.device import resolve_device
-from monolith_tpu_torch.embedding.engine import EmbeddingEngine, EngineConfig
+from monolith_tpu_torch.embedding import table as table_lib
+from monolith_tpu_torch.embedding.engine import (EmbeddingEngine,
+                                                 EngineConfig, pad_rows)
+from monolith_tpu_torch.embedding.tiered import state_width
 from monolith_tpu_torch.metrics import (StreamingAUC, StreamingMean,
                                         device_metrics_init,
                                         device_metrics_update)
@@ -149,25 +162,40 @@ class Trainer:
                 + sum(int(np.prod(s)) for _, _, s in layout) + 1)
 
     def _pack_full_wire(self, fid_batch, batch, layout, ts, stepno, out):
-        """Host side of _decode, into the int32 buffer `out` [W]."""
+        """Host side of _decode, into the int32 buffer `out` [W]. Returns
+        (stats, revive): revive is None, or for a tiered engine the step's
+        revived rows {table: (positions, values)} (`prepare_batch`'s
+        arrays), which travel beside the wire."""
         ew = self.engine.wire_words(layout[0][2][0])
-        _, stats = self.engine.prepare_wire(fid_batch, ts=ts, out=out[:ew])
+        revive = None
+        if self.engine.config.tiered:
+            inputs, stats = self.engine.prepare_batch(fid_batch, ts=ts)
+            out[:ew] = self.engine.pack_wire(inputs)
+            revive = {t: (tin["revive_pos"], tin["revive_values"])
+                      for t, tin in inputs.items()}
+        else:
+            _, stats = self.engine.prepare_wire(fid_batch, ts=ts,
+                                                out=out[:ew])
         off = ew
         for k, _, shape in layout:
             n = int(np.prod(shape))
             out[off:off + n] = np.ascontiguousarray(batch[k]).view(np.int32).ravel()
             off += n
         out[off] = stepno
-        return stats
+        return stats, revive
 
     def _pack_block(self, pairs, ts: int) -> Tuple[torch.Tensor, List[Dict],
-                                                    tuple]:
+                                                    tuple, List]:
         """Pack K consecutive batches into one pinned [K, W] buffer and
         start its upload (one non_blocking copy). Mutates the host stores
         (admission, row assignment) exactly like K sequential packs, and
         bakes in the step numbers self.step .. self.step + K - 1, so the
         result must be dispatched before any other step runs. Returns
-        (wires [K, W] on the device, K stats, batch layout)."""
+        (wires [K, W] on the device, K stats, batch layout, K revives)."""
+        if len(pairs) > 1 and self.engine.config.tiered:
+            raise ValueError("a tiered trainer steps one by one: its "
+                             "revived rows are taken from the archive at "
+                             "each step's prepare")
         layout = self._batch_layout(pairs[0][1])
         key = (layout, len(pairs))
         if key not in self._wires:
@@ -175,14 +203,16 @@ class Trainer:
                 len(pairs), self._full_wire_words(layout), self.device)
         staging = self._wires[key]
         host = staging.host()
-        stats = []
+        stats, revives = [], []
         for i, (fid_batch, batch) in enumerate(pairs):
             if i and self._batch_layout(batch) != layout:
                 raise ValueError("the batches of a block must share one "
                                  "layout (keys, dtypes, shapes)")
-            stats.append(self._pack_full_wire(fid_batch, batch, layout, ts,
-                                              self.step + i, host[i]))
-        return staging.upload(), stats, layout
+            st, revive = self._pack_full_wire(fid_batch, batch, layout, ts,
+                                              self.step + i, host[i])
+            stats.append(st)
+            revives.append(revive)
+        return staging.upload(), stats, layout, revives
 
     def _decode(self, wire: torch.Tensor, layout):
         """Device-side split of one step's wire [W]: the engine's region,
@@ -203,20 +233,52 @@ class Trainer:
     def _upload(self, fid_batch, batch, ts):
         """Pack one step's wire and send it to the device; returns (decoded
         engine inputs, batch tensors, stats)."""
-        wires, stats, layout = self._pack_block([(fid_batch, batch)], ts)
+        wires, stats, layout, revives = self._pack_block(
+            [(fid_batch, batch)], ts)
         inputs, batch_t = self._decode(wires[0], layout)
+        if revives[0] is not None:
+            for tname, (pos, values) in self._upload_revive(
+                    revives[0]).items():
+                inputs[tname]["revive_pos"] = pos
+                inputs[tname]["revive_values"] = values
         return inputs, batch_t, stats[0]
+
+    def _upload_revive(self, revive) -> Dict[str, Tuple[torch.Tensor,
+                                                        torch.Tensor]]:
+        """The revived rows of a step, every table's in ONE copy: its
+        positions [m] int32 and values [m, width] f32 as the raw words of
+        one int32 buffer. Returns {table: (positions, values)} on the
+        device, for the tables that revive any row."""
+        parts, spans = [], []
+        for tname, (pos, values) in sorted(revive.items()):
+            if len(pos):
+                parts += [pos, values.view(np.int32).ravel()]
+                spans.append((tname, len(pos), values.shape[1]))
+        if not parts:
+            return {}
+        words = torch.from_numpy(np.concatenate(parts)).to(self.device)
+        out, off = {}, 0
+        for tname, m, width in spans:
+            out[tname] = (words[off:off + m], words[off + m:off + m + m * width]
+                          .view(torch.float32).reshape(m, width))
+            off += m + m * width
+        return out
 
     # ------------------------------------------------------------------
 
     def _metrics_update(self, loss, preds, batch_t):
+        """Accumulate the step's loss, and its AUC histograms when the
+        batch has a "label" and the predictions are one tensor."""
         if not self.config.metrics_enabled:
             return
         if self._dev_metrics is None:
             self._dev_metrics = device_metrics_init(self.auc.num_thresholds,
                                                     self.device)
-        device_metrics_update(self._dev_metrics, loss, preds,
-                              batch_t["label"])
+        label = batch_t.get("label")
+        if label is not None and isinstance(preds, torch.Tensor):
+            device_metrics_update(self._dev_metrics, loss, preds, label)
+        else:
+            device_metrics_update(self._dev_metrics, loss)
 
     def _dense_step(self, inputs, batch_t, unique, step: int):
         """Forward and backward on the gathered unique rows, the global-norm
@@ -237,7 +299,7 @@ class Trainer:
         if self.config.clip_norm > 0:
             gp, _ = clip_by_global_norm(gp, self.config.clip_norm)
         self.tx.update_(named, gp, self.opt_state)
-        loss, preds = loss.detach(), task.predictions(out).detach()
+        loss, preds = loss.detach(), _detach(task.predictions(out))
         self._metrics_update(loss, preds, batch_t)
         return loss, preds, aux, gu
 
@@ -306,7 +368,7 @@ class Trainer:
         before. The staged block bakes in step numbers and admissions: it
         MUST be the next thing dispatched (train_step_block checks)."""
         ts = int(time.time()) if ts is None else ts
-        wires, stats, layout = self._pack_block(pairs, ts)
+        wires, stats, layout, _ = self._pack_block(pairs, ts)
         return {"wires": wires, "stats": stats, "base_step": self.step,
                 "K": len(pairs), "layout": layout}
 
@@ -320,7 +382,8 @@ class Trainer:
         schedule (_step_async) and the last step's write-back lands at the
         end of the block, keyed with step number 0 as in the JAX package.
 
-        Returns {"loss": [K], "preds": [K, B], "stats": list of K,
+        Returns {"loss": [K], "preds": [K, B] (a dict of them for a task
+        whose predictions are a dict), "stats": list of K,
         "aux": {name: [K, ...]}} with the tensors on the device."""
         K = len(pairs)
         if staged is not None:
@@ -334,7 +397,7 @@ class Trainer:
                                     staged["layout"])
         else:
             ts = int(time.time()) if ts is None else ts
-            wires, stats, layout = self._pack_block(pairs, ts)
+            wires, stats, layout, _ = self._pack_block(pairs, ts)
         stale = self.config.engine.async_optimize
         pending = None
         losses, preds, auxes = [], [], []
@@ -354,10 +417,51 @@ class Trainer:
                 self.engine.scatter_rows(self.table_states, *pending, 0,
                                          seed=self.config.seed)
         self.step += K
-        return {"loss": torch.stack(losses), "preds": torch.stack(preds),
+        if isinstance(preds[0], dict):
+            preds = {k: torch.stack([p[k] for p in preds]) for k in preds[0]}
+        else:
+            preds = torch.stack(preds)
+        return {"loss": torch.stack(losses), "preds": preds,
                 "stats": stats,
                 "aux": {k: torch.stack([a[k] for a in auxes])
                         for k in auxes[0]}}
+
+    def evict_expired(self, expire_before: int) -> Dict[str, np.ndarray]:
+        """Expiry: evict ids not updated since `expire_before` from the
+        host stores of every table with a ttl, and zero their rows on the
+        device (one K2 a table), so that no stale state survives into a
+        recycled row. Returns the freed rows {table: int64 [n]}."""
+        freed = self.engine.evict_expired(expire_before)
+        self.engine.zero_rows(self.table_states, freed)
+        return freed
+
+    @torch.no_grad()
+    def spill_expired(self, expire_before: int) -> Dict[str, int]:
+        """Two-tier expiry (EngineConfig(tiered=True)): per table, evict
+        the expired ids from the host store, gather just their rows with
+        ONE K1 launch (`pad_rows`), keep the first
+        `state_width` columns (params and optimizer slots, as f32) in the
+        host archive, then zero the rows (engine.zero_rows). Only the
+        expired rows cross to the host; the JAX package reads back the
+        whole pool and takes the same values. Returns the rows spilled by
+        table."""
+        if not self.config.engine.tiered:
+            raise ValueError("spill_expired requires EngineConfig(tiered=True)")
+        spilled, freed = {}, {}
+        for tname, spec in self.engine.tables.items():
+            rows, fids = self.engine.stores[tname].evict_expired(
+                expire_before, return_fids=True)
+            freed[tname] = rows.astype(np.int64)
+            spilled[tname] = 0
+            if len(rows):
+                values = table_lib.gather_packed(
+                    spec, self.table_states[tname],
+                    torch.from_numpy(pad_rows(rows)).to(self.device))
+                spilled[tname] = self.engine.archives[tname].spill(
+                    fids, values[:len(rows), :state_width(spec)].cpu().numpy(),
+                    ts=expire_before)
+        self.engine.zero_rows(self.table_states, freed)
+        return spilled
 
     def _drain_metrics(self):
         """Read back and reset the on-device metric accumulator (the only
@@ -403,17 +507,18 @@ class Trainer:
         return {"auc": auc.result(), "loss": loss_mean.result()}
 
     def _block_capable(self) -> bool:
-        """Whether train() may run blocks at all. The wire is this
-        trainer's only path, so it may; a trainer whose steps cannot be
+        """Whether train() may run blocks at all: not for a tiered engine,
+        whose steps revive rows at their own prepare (the JAX package's
+        `fuse_wire` is off when tiered). A trainer whose steps cannot be
         packed ahead (a later multi-device one) overrides this."""
-        return True
+        return not self.engine.config.tiered
 
     def _stage_capable(self) -> bool:
         """Whether this trainer implements stage_block(). A subclass that
         overrides train_step_block either brings its own stage_block or
         returns False here, so that _train_blocked never hands it a block
         staged by another trainer's rules."""
-        return True
+        return not self.engine.config.tiered
 
     def _block_eligible(self, batch) -> bool:
         """Whether this batch's arrays can ride the wire (all 4-byte)."""
@@ -458,12 +563,13 @@ class Trainer:
 
     def _train_blocked(self, data: Iterator, steps: Optional[int],
                        hooks, K: int) -> Dict[str, float]:
-        """The block-dispatch loop: the first step alone (it builds the
-        kernels and sizes the buffers), then full blocks of K, each staged
-        (packed and uploading) while the block before it runs, then a
-        short tail stepped one by one. Hooks fire once per group, with the
-        group's last output; metrics drain at the same steps as the
-        per-step loop's log."""
+        """The block-dispatch loop. Batches come in groups of K, so groups
+        end at steps K, 2K, ... and at the last step, as in the JAX
+        package; every group of more than one batch runs as a block (the
+        short tail too), staged (packed and uploading) while the block
+        before it runs; a group of one runs as a step. Hooks fire once per
+        group, with the group's last output; metrics drain at the same
+        steps as the per-step loop's log."""
         t0 = time.time()
         examples = 0
         done = 0
@@ -479,10 +585,18 @@ class Trainer:
             return pairs
 
         def blockable(pairs):
-            return len(pairs) == K and self._block_eligible(pairs[0][1])
+            return len(pairs) > 1 and self._block_eligible(pairs[0][1])
 
-        pairs = fetch(1 if steps is None else min(1, steps))
-        staged = None
+        def stage(pairs):
+            # only a group that will be dispatched as a block may be
+            # staged: the pack bakes in step numbers and host-store
+            # admissions
+            if blockable(pairs) and self._stage_capable():
+                return self.stage_block(pairs)
+            return None
+
+        pairs = fetch(K if steps is None else min(K, steps))
+        staged = stage(pairs)
         while pairs:
             if blockable(pairs):
                 out = self.train_step_block(pairs, staged=staged)
@@ -500,14 +614,18 @@ class Trainer:
             else:
                 pairs = fetch(K if steps is None else min(K, steps - done))
                 # lookahead: pack and upload the next block while this one
-                # still runs on the device. Only a block that will be
-                # dispatched as a block may be staged: the pack bakes in
-                # step numbers and host-store admissions.
-                if blockable(pairs) and self._stage_capable():
-                    staged = self.stage_block(pairs)
+                # still runs on the device
+                staged = stage(pairs)
             if log_now:
                 self._log(t0, examples)
         return self._result(t0, examples)
+
+
+def _detach(preds):
+    """A task's predictions (a tensor or a dict of them), detached."""
+    if isinstance(preds, dict):
+        return {k: v.detach() for k, v in preds.items()}
+    return preds.detach()
 
 
 def _call_hooks(hooks, trainer, out) -> bool:

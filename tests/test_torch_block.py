@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from monolith_tpu.data.synthetic import SyntheticCTR as JaxSyntheticCTR
 from monolith_tpu.data.synthetic import \
     SyntheticMultiSlot as JaxSyntheticMultiSlot
 from monolith_tpu.embedding import optimizers as jopt
@@ -480,6 +481,10 @@ def _counted(tr):
 
 
 def test_train_blocked_takes_1_4_4_2_steps_and_matches_the_per_step_loop():
+    """steps=11, K=4: groups of 4, 4 and 3, each run as a staged block, so
+    hooks see steps 4, 8 and 11, as in the JAX package (whose first group
+    is stepped one by one, which changes no grouping); the result equals
+    the per-step loop's bit for bit."""
     def run(k):
         tr = _port_deepfm(steps_per_dispatch=k)
         groups = _counted(tr)
@@ -492,8 +497,8 @@ def test_train_blocked_takes_1_4_4_2_steps_and_matches_the_per_step_loop():
 
     blk, rb, groups, calls = run(4)
     seq, rs, sgroups, scalls = run(1)
-    assert groups == [1, (4, True), (4, True), 1, 1]
-    assert calls == [(1, ()), (5, (4,)), (9, (4,)), (11, ())]
+    assert groups == [(4, True), (4, True), (3, True)]
+    assert calls == [(4, (4,)), (8, (4,)), (11, (3,))]
     assert sgroups == [1] * 11 and [c[0] for c in scalls] == list(range(1, 12))
     assert blk.step == seq.step == 11
     assert blk.loss_mean.count == seq.loss_mean.count == 11
@@ -511,8 +516,9 @@ def test_train_blocked_stops_cleanly_on_stopiteration():
 
     data = SyntheticCTR(num_users=60, num_items=40, batch_size=64, seed=7)
     res = tr.train(iter(data), steps=50, hooks=[stop_after_first_block])
-    assert tr.step == 5 and groups == [1, (4, True)]
-    assert tr.loss_mean.count == 5 and np.isfinite(res["loss"])
+    # the hook sees steps 4, then 8, and stops there
+    assert tr.step == 8 and groups == [(4, True), (4, True)]
+    assert tr.loss_mean.count == 8 and np.isfinite(res["loss"])
     seq = _port_deepfm()
     seq.train(iter(SyntheticCTR(num_users=60, num_items=40, batch_size=64,
                                 seed=7)), steps=50,
@@ -528,9 +534,39 @@ def test_train_blocked_drains_metrics_at_the_per_step_loops_log_steps(capsys):
     logged = [int(line.split()[1].rstrip(":"))
               for line in capsys.readouterr().out.splitlines()
               if line.startswith("step ")]
-    # groups end at steps 1, 5, 9, 10, 11; a multiple of 3 falls in the
-    # groups ending at 5 (3), 9 (6, 9)
-    assert logged == [5, 9]
+    # groups end at steps 4, 8, 11; a multiple of 3 falls in each of them
+    # (3; 6; 9)
+    assert logged == [4, 8, 11]
+
+
+@pytest.mark.parametrize("steps", [17, 20])
+def test_step_modulo_hook_fires_at_the_jax_trainers_steps(steps):
+    """A CheckpointHook-shaped hook (fires when step % every == 0, every =
+    2K) under block dispatch fires at the same steps in the port and in the
+    JAX trainer; the port's hooks see the ends of its groups of K."""
+    every = 2 * K
+
+    def make_hook(seen):
+        def hook(t, out):
+            if t.step % every == 0:
+                seen.append(t.step)
+        return hook
+
+    jt = JaxTrainer(JaxDeepFMTask(**DEEPFM), JaxTrainerConfig(
+        engine=JaxEngineConfig(num_shards=1, unique_cap=256, new_cap=256),
+        log_every=0, steps_per_dispatch=K))
+    pt = _port_deepfm(steps_per_dispatch=K)
+    jseen, pseen, steps_seen = [], [], []
+    jt.train(iter(JaxSyntheticCTR(num_users=60, num_items=40, batch_size=32,
+                                  seed=7)), steps=steps,
+             hooks=[make_hook(jseen)])
+    pt.train(iter(SyntheticCTR(num_users=60, num_items=40, batch_size=32,
+                               seed=7)), steps=steps,
+             hooks=[make_hook(pseen),
+                    lambda t, out: steps_seen.append(t.step)])
+    assert pseen == jseen == [8, 16]
+    assert steps_seen == sorted({*range(K, steps + 1, K), steps})
+    assert pt.step == jt.step == steps
 
 
 def test_metrics_disabled_skips_the_device_accumulator():

@@ -15,6 +15,7 @@ fid's params and slots exactly and the eval AUC within 1e-5.
 
 import json
 import os
+import time
 
 import jax
 import numpy as np
@@ -538,9 +539,37 @@ def test_dense_only_checkpoint(tmp_path, direction, jax_to_port):
 
 
 def test_evict_before_save_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        pckpt.save(port_trainer(), str(tmp_path), evict_before_save=True)
-    assert os.listdir(str(tmp_path)) == []
+    """save(evict_before_save=True) runs expiry first (now - ttl) in both
+    packages: the ids last updated before it leave the store, their rows
+    read zero, and the checkpoint written by either package holds the
+    same store and pool."""
+    now = int(time.time())
+    pairs = batches(2, seed=83)
+    states = {}
+    for pkg in ("jax", "port"):
+        if pkg == "jax":
+            tr = jax_ready(jax_trainer(ttl_seconds=100, init_scale=0.0),
+                           pairs[0])
+            tr.engine.stores["sparse"][0].restore(np.empty(0, np.int64),
+                                                  np.empty(0, np.int32))
+            port = port_trainer(ttl_seconds=100, init_scale=0.0)
+            convert.load_state(port, convert.jax_trainer_state(tr))
+        else:
+            tr = port
+        tr.train_step(*pairs[0], ts=now - 1000)
+        tr.train_step(*pairs[1], ts=now)
+        path = (jckpt if pkg == "jax" else pckpt).save(
+            tr, str(tmp_path / pkg), evict_before_save=True)
+        z = np.load(os.path.join(path, "tables", "sparse-s0.npz"))
+        states[pkg] = {k: z[k] for k in ("fids", "rows", "tss", "pool")}
+    a, b = states["jax"], states["port"]
+    for k in ("fids", "rows", "tss"):
+        np.testing.assert_array_equal(b[k], a[k])
+    np.testing.assert_allclose(b["pool"], a["pool"], atol=1e-5)
+    assert (b["tss"] == now).all()
+    live = set(np.concatenate([v.ravel() for v in pairs[1][0].values()]
+                              ).tolist()) - {-1}
+    assert set(b["fids"].tolist()) == live
 
 
 def test_restore_picks_the_step_asked_for(tmp_path):

@@ -430,3 +430,107 @@ def test_streaming_push_on_the_card(card, tmp_path):
     want = table_lib.lookup(task.tables()[0], tr.table_states["sparse"], rows)
     np.testing.assert_array_equal(model.lookup_rows("sparse", fids),
                                   want.cpu().numpy())
+
+
+# ----------------------------------------------------------------------
+# expiry and tiered storage
+# ----------------------------------------------------------------------
+
+def _ids_batch(ids, label=1.0):
+    ids = np.asarray(ids, np.int64)[:, None]
+    return ({"user_id": ids, "item_id": ids + 10_000,
+             "hist_items": np.full((len(ids), 10), -1, np.int64)},
+            {"label": np.full(len(ids), label, np.float32)})
+
+
+@pytest.mark.parametrize("n", [1, 5, 1000, 4097])
+def test_zero_rows_is_one_k2_of_zeros_and_no_k3_on_a_bf16_pool(card, n):
+    """zero_rows on a bf16 pool with stochastic rounding: exactly one K2
+    launch and no K3; the freed rows read zero, every other row keeps its
+    bits (held against the plain version on a copy)."""
+    from monolith_tpu_torch import ops as port_ops
+    tr = Trainer(MultiSlotTask(
+        num_tables=2, num_slots=4, embedding_dim=8, capacity_per_shard=8192,
+        history_length=6, hidden=(16,), merge=True,
+        table_dtype=torch.bfloat16, stochastic_rounding=True),
+        TrainerConfig(engine=EngineConfig(unique_cap=512, new_cap=512),
+                      log_every=0), device=card)
+    (tname, state), = tr.table_states.items()
+    pool = state["data"]
+    g = torch.Generator(device=card).manual_seed(n)
+    pool.copy_(torch.randn(pool.shape, generator=g, device=card))
+    rows = np.random.default_rng(n).choice(pool.shape[0], n, replace=False)
+    expect = pool.clone()
+    ops.scatter_rows_plain(expect, torch.from_numpy(rows.astype(np.int32)
+                                                    ).to(card),
+                           torch.zeros((n, pool.shape[1]), dtype=pool.dtype,
+                                       device=card))
+    port_ops.reset_launch_counts()
+    tr.engine.zero_rows(tr.table_states, {tname: rows.astype(np.int64)})
+    assert port_ops.launch_counts() == {
+        "gather_rows": 0, "scatter_rows": 1, "stochastic_round_bf16": 0}
+    assert pool.dtype == torch.bfloat16
+    assert torch.equal(pool.view(torch.int16), expect.view(torch.int16))
+
+
+def _tiered_deepfm(device, capacity=256):
+    return Trainer(DeepFMTask(embedding_dim=8, capacity_per_shard=capacity,
+                              hidden=(16,), ttl_seconds=3600,
+                              init_scale=0.0),
+                   TrainerConfig(engine=EngineConfig(
+                       unique_cap=256, new_cap=256, tiered=True),
+                       log_every=0), device=device)
+
+
+def test_spill_is_one_k1_a_table_and_archives_the_plain_gather(card):
+    """spill_expired: one K1 gather a table (of just the expired rows, padded
+    to a power of two) and one zeroing K2; the archived values equal the
+    plain version's gather of those rows, bit for bit."""
+    from monolith_tpu_torch import ops as port_ops
+    tr = _tiered_deepfm(card)
+    for ts in (100, 101):
+        tr.train_step(*_ids_batch(np.arange(1, 40)), ts=ts)
+    fids, rows, _, _ = tr.engine.stores["sparse"].save()
+    plain = ops.gather_rows_plain(
+        tr.table_states["sparse"]["data"],
+        torch.from_numpy(rows.astype(np.int32)).to(card))[:, :17].cpu()
+    port_ops.reset_launch_counts()
+    assert tr.spill_expired(200) == {"sparse": len(fids)}
+    assert port_ops.launch_counts() == {
+        "gather_rows": 1, "scatter_rows": 1, "stochastic_round_bf16": 0}
+    ok, vals = tr.engine.archives["sparse"].revive(fids)
+    assert ok.all()
+    assert np.array_equal(vals, plain.numpy())
+    assert not tr.table_states["sparse"]["data"][
+        torch.from_numpy(rows).long().to(card)].any()
+
+
+def test_tiered_card_steps_match_cpu(card):
+    """From one state: train, spill, other ids, revive, train on the card
+    and on the CPU: losses rtol 1e-4, pools atol 1e-5, archives, stores and
+    counters equal."""
+    cpu = _tiered_deepfm("cpu")
+    gpu = _tiered_deepfm(card)
+    convert.load_state(gpu, convert.export_state(cpu))
+    a, b = _ids_batch(np.arange(1, 33)), _ids_batch(np.arange(100, 132))
+    schedule = [("step", a, 100), ("step", a, 101), ("spill", None, 200),
+                ("step", b, 300), ("step", a, 400), ("step", a, 500)]
+    for what, pair, ts in schedule:
+        if what == "spill":
+            assert cpu.spill_expired(ts) == gpu.spill_expired(ts)
+            continue
+        lc = cpu.train_step(*pair, ts=ts)["loss"].item()
+        lg = gpu.train_step(*pair, ts=ts)["loss"].item()
+        np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    sc, sg = convert.export_state(cpu), convert.export_state(gpu)
+    for x, y in zip(sc["stores"]["sparse"], sg["stores"]["sparse"]):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_allclose(sg["tables"]["sparse"], sc["tables"]["sparse"],
+                               atol=1e-5, rtol=0)
+    ac, ag = convert.export_archives(cpu), convert.export_archives(gpu)
+    for k in ("fids", "rows", "map_tss", "tss", "spilled", "revived",
+              "dropped"):
+        np.testing.assert_array_equal(ag["sparse"][k], ac["sparse"][k])
+    np.testing.assert_allclose(ag["sparse"]["values"],
+                               ac["sparse"]["values"], atol=1e-5, rtol=0)
+    assert gpu.engine.archives["sparse"].revived == 64

@@ -48,6 +48,7 @@ def test_walk_covers_the_slice():
                  "monolith_tpu_torch/training/trainer.py",
                  "monolith_tpu_torch/embedding/engine.py",
                  "monolith_tpu_torch/embedding/merge.py",
+                 "monolith_tpu_torch/embedding/tiered.py",
                  "monolith_tpu_torch/models/multislot.py",
                  "monolith_tpu_torch/ops/clip.py",
                  "monolith_tpu_torch/embedding/optimizers.py",

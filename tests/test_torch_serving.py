@@ -15,6 +15,7 @@ exact.
 import dataclasses
 import os
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -42,6 +43,8 @@ from monolith_tpu_torch.serving import (ServingModel, codec, export_model,
                                         latest_export)
 from monolith_tpu_torch.serving.export import (read_warmup_data,
                                                write_warmup_data)
+from monolith_tpu_torch.training import streaming as streaming_mod
+from monolith_tpu_torch.training import trainer as trainer_mod
 from monolith_tpu_torch.training.streaming import (StreamingConfig,
                                                    StreamingTrainer)
 from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
@@ -350,13 +353,42 @@ class TestRealtime:
                 (0, 1, 512, 513, 1024, 1025, 5000)] == [
                     512, 512, 512, 1024, 1024, 2048, 8192]
 
-    def test_record_touch_is_required_and_eviction_is_not_ported(self):
+    def test_record_touch_is_required_and_eviction_is_not_ported(
+            self, monkeypatch):
+        """record_touch is required for a sync target. Periodic expiry
+        runs (evict_interval_steps): with the clock moved past the ttl, the
+        loop's eviction frees every id not trained since, and zeroes its
+        row."""
         with pytest.raises(ValueError, match="record_touch"):
             StreamingTrainer(make_trainer(), PushTo(None))
         StreamingTrainer(make_trainer(), None)        # no sync: allowed
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-            StreamingTrainer(make_trainer(record_touch=True), PushTo(None),
-                             StreamingConfig(evict_interval_steps=5))
+        now = [0]
+        for mod in (streaming_mod, trainer_mod):
+            monkeypatch.setattr(mod, "time",
+                                types.SimpleNamespace(time=lambda: now[0]))
+        trainer = make_trainer(task=make_task(ttl_seconds=60))
+        data = SyntheticCTR(num_users=80, num_items=40, batch_size=128,
+                            seed=55)
+        pairs = [data.batch() for _ in range(3)]
+
+        def stream():
+            for i, pair in enumerate(pairs):
+                now[0] = 0 if i < 2 else 200
+                yield pair
+
+        freed = []
+        evict = trainer.evict_expired
+        trainer.evict_expired = lambda ts: freed.append(evict(ts)) or freed[-1]
+        st = StreamingTrainer(trainer, None,
+                              StreamingConfig(evict_interval_steps=3))
+        assert st.run(stream())["steps"] == 3
+        last = np.concatenate([v.ravel() for v in pairs[2][0].values()])
+        fids = trainer.engine.stores["sparse"].save()[0]
+        assert set(fids.tolist()) == set(last[last >= 0].tolist())
+        rows = freed[0]["sparse"]
+        assert len(rows) > 0
+        assert not trainer.table_states["sparse"]["data"][
+            torch.from_numpy(rows)].any()
 
     def test_without_a_sync_target_nothing_is_drained(self):
         trainer = make_trainer(record_touch=True)
@@ -700,3 +732,52 @@ def test_sharded_jax_export_merges_at_load(tmp_path):
     fb, b = data.batch()
     np.testing.assert_allclose(pmodel.predict(fb, b), jmodel.predict(fb, b),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["plain", "fake_quant_fp16"])
+def test_serving_logits_equal_jax(tmp_path, kind):
+    """ServingModel._forward returns (predictions, logits) in both
+    packages: on one export, the port's logits equal the JAX ServingModel's
+    (rtol 1e-5), and predict returns the predictions."""
+    pt = make_trainer(task=_variant("port", kind))
+    data = train_some(pt, steps=8)
+    path = export_model(pt, str(tmp_path))
+    jmodel = JaxServingModel(_variant("jax", kind), path, unique_cap=512)
+    pmodel = serve(path, task=_variant("port", kind), unique_cap=512)
+    for _ in range(2):
+        fb, b = data.batch()
+        jinputs, jparams = jmodel._predict_host(fb, b)
+        jpreds, jlogits = jmodel._forward(dict(jmodel.pools), jparams,
+                                          jinputs, b)
+        with torch.inference_mode():
+            ppreds, plogits = pmodel._forward(
+                pmodel.module, dict(pmodel.pools), pmodel._prepare(fb), b)
+        np.testing.assert_allclose(plogits.numpy(), np.asarray(jlogits),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(ppreds.numpy(), np.asarray(jpreds),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(pmodel.predict(fb, b), ppreds.numpy())
+
+
+def test_non_parameter_model_state_is_refused(tmp_path):
+    """An export or checkpoint with a non-empty model_state.msgpack (a
+    BatchNorm's statistics in the JAX package) raises, naming ROADMAP item
+    10; an empty one loads."""
+    from monolith_tpu_torch.training import checkpoint as pckpt
+    pt = make_trainer()
+    train_some(pt, steps=2)
+    path = export_model(pt, str(tmp_path / "export"))
+    ckpt = pckpt.save(pt, str(tmp_path / "ckpt"))
+    for d in (path, ckpt):
+        with open(os.path.join(d, "model_state.msgpack"), "wb") as f:
+            f.write(serialization.to_bytes({}))
+    serve(path, unique_cap=512)
+    assert pckpt.restore(make_trainer(), str(tmp_path / "ckpt")) == 2
+    state = {"batch_stats": {"bn": {"mean": np.zeros(4, np.float32)}}}
+    for d in (path, ckpt):
+        with open(os.path.join(d, "model_state.msgpack"), "wb") as f:
+            f.write(serialization.to_bytes(state))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        serve(path, unique_cap=512)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        pckpt.restore(make_trainer(), str(tmp_path / "ckpt"))

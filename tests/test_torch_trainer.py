@@ -134,3 +134,81 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(DeepFMTask(**TASK))
+
+
+# ----------------------------------------------------------------------
+# a task without "label" whose predictions are a dict
+# ----------------------------------------------------------------------
+
+def _labelless(base):
+    """DeepFM whose batch carries "labels" (no "label") and whose
+    predictions are a dict, in either package: metrics accumulate the loss
+    alone."""
+    if base is JaxDeepFMTask:
+        import jax
+        from monolith_tpu.losses.losses import bce_with_logits as bce
+        sigmoid = jax.nn.sigmoid
+    else:
+        from monolith_tpu_torch.losses.losses import bce_with_logits as bce
+        sigmoid = torch.sigmoid
+
+    class Labelless(base):
+        def loss(self, outputs, batch):
+            return bce(outputs["logits"], batch["labels"]), {}
+
+        def predictions(self, outputs):
+            return {"ctr": sigmoid(outputs["logits"]),
+                    "logit": outputs["logits"]}
+
+    return Labelless(**TASK)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_a_labelless_task_trains_with_metrics_like_jax(K):
+    """With metrics on (the default), per step and in blocks of 4: the loss
+    mean equals the JAX trainer's over the same 9 batches, and the AUC
+    histograms stay empty; a block's predictions are stacked key by key."""
+    data = SyntheticCTR(num_users=400, num_items=300, batch_size=B, seed=12)
+    pairs = [(fb, {"labels": b["label"]}) for fb, b in
+             (data.batch() for _ in range(9))]
+    jt = JaxTrainer(_labelless(JaxDeepFMTask), JaxTrainerConfig(
+        engine=JaxEngineConfig(num_shards=1, unique_cap=U, new_cap=U),
+        log_every=0, steps_per_dispatch=K))
+    inputs, _ = jt.engine.prepare_batch(pairs[0][0], ts=0)
+    jt._maybe_init(inputs, pairs[0][1])
+    jt.engine.stores["sparse"][0].restore(np.empty(0, np.int64),
+                                          np.empty(0, np.int32))
+    pt = Trainer(_labelless(DeepFMTask), convert.port_trainer_config(
+        jt.config), device="cpu")
+    convert.load_state(pt, convert.jax_trainer_state(jt))
+    assert pt.config.metrics_enabled
+    outs = []
+    jr = jt.train(iter(pairs), steps=9)
+    pr = pt.train(iter(pairs), steps=9,
+                  hooks=[lambda t, out: outs.append(out["preds"])])
+    assert pt.loss_mean.count == jt.loss_mean.count == 9
+    np.testing.assert_allclose(pr["loss"], jr["loss"], rtol=1e-5)
+    assert pr["auc"] == jr["auc"] == 0.5
+    assert pt.auc.pos_hist.sum() == pt.auc.neg_hist.sum() == 0
+    assert set(outs[0]) == {"ctr", "logit"}
+    assert tuple(outs[0]["ctr"].shape) == ((K, B) if K > 1 else (B,))
+
+
+def test_streaming_metrics_weights_and_resets_match_jax():
+    from monolith_tpu import metrics as jm
+    from monolith_tpu_torch import metrics as pm
+    rng = np.random.default_rng(4)
+    preds, labels = rng.random(50), rng.integers(0, 2, 50)
+    weights = rng.random(50)
+    ja, pa = jm.StreamingAUC(), pm.StreamingAUC()
+    ja.update(preds, labels, weights=weights)
+    pa.update(preds, labels, weights=weights)
+    np.testing.assert_array_equal(pa.pos_hist, ja.pos_hist)
+    np.testing.assert_array_equal(pa.neg_hist, ja.neg_hist)
+    assert pa.result() == ja.result()
+    pa.reset()
+    assert pa.result() == 0.5 and not pa.pos_hist.any()
+    mean = pm.StreamingMean()
+    mean.update(3.0, weight=2.0)
+    mean.reset()
+    assert mean.result() == 0.0 and mean.count == 0.0
