@@ -112,7 +112,33 @@ failures is caught:
        prepare (prepare_batch + pack_wire against prepare_wire);
      11c. a small tiered DeepFM on the card and on the CPU from one state
        (train, spill, other ids, revive, train): pools rtol 1e-5, archives,
-       stores and counters equal.
+       stores and counters equal;
+ 12. the front door at full width, run after phase 11, through the entry
+     points a user calls (`train.main(argv)` in this process, so that the
+     launch counts see it):
+     12a. 8 batches of bench.py's deepfm stream (SyntheticCTR(1,000,000
+       users, 200,000 items, batch 8192, seed 0)) as 65,536 Examples in a
+       framed mtex file, and the first batch as one pb_example_batch
+       record (pb_compat); both read back through FileSource +
+       BatchedDataset equal the generator's batches; host ms to write and
+       a batch to read, by format;
+     12b. `train.main` with bench.py's deepfm config on the file (6 steps
+       in blocks of 3, 2 eval batches, the Estimator's checkpoint, an
+       export): finite losses, CHECKPOINT at step 6, the export served by
+       a ServingModel on the card; K1 = 6 + 2 + 1 (export), K2 = 6; ms/step
+       of the CLI's train loop beside the same trainer alone on the
+       batches in memory, and prepare_wire's ms a batch;
+     12c. `train.main --mode eval` restores step 6 through the Estimator
+       and evaluates the file's first 2 batches: loss and AUC equal a
+       direct checkpoint.restore + Trainer.evaluate to 1e-6 relative;
+     12d. README's real-data command (`--task movie_ranking --data
+       movielens:examples/movielens/ratings.dat --mode train_and_eval
+       --steps 800 --batch_size 512`): ms/step, examples/s, eval AUC;
+       K1 = 2 x (800 + 50), K2 = 2 x 800; the JAX package's frozen
+       MovieRanking configuration (parity.py) trained on the card: eval AUC
+       within PARITY_BAND of JAX_PARITY_AUC; then K1/K2 at the CLI's shapes
+       (the user table's pool [2^17, 128] f32 and its 8192 rows of the last
+       step) as in phase 3, entries with `launches_by_path["cli"]`.
 
 TF32 is off for matrix products and convolutions (torch.backends), so the
 card's f32 dense towers run in full f32 like the CPU's. The second-to-last
@@ -180,14 +206,16 @@ def phase_build():
             if "registers" in ln or "Compiling" in ln))
 
 
-def phase_rows(path, floor):
-    """K1/K2 at one path's shapes against their plain versions."""
+def phase_rows(path, floor, case=None):
+    """K1/K2 at one path's shapes against their plain versions. `case` is
+    (pool, rows, values) on the card; by default bench_rows' case at the
+    path's SHAPES."""
     import torch
     from monolith_tpu_torch.bench_rows import SHAPES, bounds_ms, make_case
     from monolith_tpu_torch.ops import scatter as ops
     from monolith_tpu_torch.timing import time_ms
-    cap, width, dtype, u = SHAPES[path]
-    pool, rows, values = make_case(cap, width, dtype, u)
+    pool, rows, values = case or make_case(*SHAPES[path])
+    (cap, width), dtype, u = pool.shape, pool.dtype, rows.shape[0]
     valid = rows >= 0
     n_valid = int(valid.sum())
     row_bytes = width * pool.element_size()
@@ -354,20 +382,22 @@ def phase_rounding(path, floor):
     return [k3]
 
 
-def phase_kernel_durations(kernels):
+def phase_kernel_durations(kernels, cases):
     """Each kernel's own duration, by kernel name, from a torch.profiler
-    window (CPU + CUDA) over 20 flushed launches at the shapes of phase 3,
-    written into its entry as `kernel_ms_profiler` (None where the profiler
-    saw no device time). It runs after every timed phase, so that none of
-    them runs in a process that has had the profiler on."""
+    window (CPU + CUDA) over 20 flushed launches at the shapes of phase 3
+    (and of `cases`, {path: (pool, rows, values)}, for the paths phase 3
+    does not make), written into its entry as `kernel_ms_profiler` (None
+    where the profiler saw no device time). It runs after every timed
+    phase, so that none of them runs in a process that has had the
+    profiler on."""
     import torch
     from monolith_tpu_torch.bench_rows import SHAPES, make_case
     from monolith_tpu_torch.ops import rounding
     from monolith_tpu_torch.ops import scatter as ops
     from monolith_tpu_torch.timing import profiler_ms
     calls = {}
-    for path in SHAPES:
-        pool, rows, values = make_case(*SHAPES[path])
+    for path in [*SHAPES, *cases]:
+        pool, rows, values = cases.get(path) or make_case(*SHAPES[path])
         calls["gather_rows", path] = (
             lambda pool=pool, rows=rows: ops.gather_rows(pool, rows))
         calls["scatter_rows", path] = (
@@ -1447,6 +1477,266 @@ def phase_expiry_and_tiering():
     return launches.total
 
 
+# ----------------------------------------------------------------------
+# phase 12: the front door (files, the CLI, the Estimator) at full width
+# ----------------------------------------------------------------------
+
+FILE_BATCHES, FILE_BATCH = 8, 8192
+#: bench.py's deepfm config as the CLI's --task_args
+CLI_TASK_ARGS = {"embedding_dim": 16, "capacity_per_shard": 1 << 21,
+                 "hidden": [256, 128, 64]}
+CLI_STEPS, CLI_EVALS, CLI_K = 6, 2, 3
+#: the JAX package's eval AUC on its frozen MovieRanking configuration
+#: (monolith_tpu_torch/parity.py's PARITY), `train_monolith(
+#: *frozen_data())` of monolith_tpu/parity.py, measured on the CPU (JAX
+#: 0.9.0) at commit 2239d4d by `JAX_PLATFORMS=cpu python -c "from
+#: monolith_tpu.parity import train_monolith, frozen_data;
+#: print(train_monolith(*frozen_data()))"` (the card machine has no JAX)
+JAX_PARITY_AUC = 0.8867084622810547
+
+
+def _wall(fn):
+    """(fn(), seconds on the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _launches_of(fn):
+    """(fn(), the kernels' launches in it), counted from 0."""
+    launches = Launches()
+    out = launches.run(fn)
+    return out, launches.total
+
+
+def phase_files(work):
+    """12a: 8 batches of bench.py's deepfm stream as 65,536 Examples (the
+    -1 pads dropped, as a producer writes them) in a framed mtex file, and
+    the first batch as one pb_example_batch record; both read back through
+    FileSource + BatchedDataset equal the generator's batches. Returns
+    (the mtex batches read back, host ms a batch by format)."""
+    from monolith_tpu_torch.data import pb_compat
+    from monolith_tpu_torch.data.datasets import BatchedDataset, FileSource
+    from monolith_tpu_torch.data.example import Example
+    from monolith_tpu_torch.data.framing import (RecordWriter,
+                                                 write_example_file)
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    gen = SyntheticCTR(num_users=1_000_000, num_items=200_000,
+                       batch_size=FILE_BATCH, seed=0)
+    batches = [gen.batch() for _ in range(FILE_BATCHES)]
+    exs, build_s = _wall(lambda: [
+        Example(features={k: v[i][v[i] >= 0] for k, v in fb.items()},
+                labels=np.asarray([b["label"][i]], np.float32))
+        for fb, b in batches for i in range(FILE_BATCH)])
+    mtex, pb = os.path.join(work, "part-0.rec"), os.path.join(work, "batch.pb")
+    n, mtex_s = _wall(lambda: write_example_file(mtex, exs))
+    assert n == FILE_BATCHES * FILE_BATCH
+
+    def write_pb():
+        with open(pb, "wb") as f:
+            RecordWriter(f).write(pb_compat.encode_example_batch(
+                exs[:FILE_BATCH]))
+    _, pb_s = _wall(write_pb)
+    lengths = {f.name: f.max_length for f in DeepFMTask().features()}
+    read, ms = {}, {}
+    for fmt, path, want in (("mtex", mtex, FILE_BATCHES),
+                            ("pb_example_batch", pb, 1)):
+        it = iter(BatchedDataset(FileSource(path, fmt=fmt), FILE_BATCH,
+                                 lengths))
+        got, times = [], []
+        for _ in range(want):
+            pair, secs = _wall(lambda: next(it))
+            got.append(pair)
+            times.append(secs * 1e3)
+        assert next(it, None) is None, fmt
+        for (fb, b), (gf, gb) in zip(batches, got):
+            assert sorted(fb) == sorted(gf), (fmt, sorted(gf))
+            for k in fb:
+                assert np.array_equal(fb[k], gf[k]), (fmt, k)
+            assert np.array_equal(b["label"], gb["label"]), fmt
+        read[fmt], ms[fmt] = got, float(np.median(times))
+    log(f"12a files: {len(exs)} Examples built in {build_s * 1e3:.1f} ms; "
+        f"written as mtex in {mtex_s * 1e3:.1f} ms ({os.path.getsize(mtex)} "
+        f"B), one batch as pb_example_batch in {pb_s * 1e3:.1f} ms "
+        f"({os.path.getsize(pb)} B); read back equal to the generator's "
+        f"batches, host ms a batch of {FILE_BATCH} (FileSource + "
+        f"BatchedDataset, median): mtex {ms['mtex']:.1f}, pb_example_batch "
+        f"{ms['pb_example_batch']:.1f}")
+    return read["mtex"], ms
+
+
+def _cli_argv(work, mode, *extra):
+    return ["--task", "deepfm", "--task_args", json.dumps(CLI_TASK_ARGS),
+            "--data", f"files:{work}/part-*.rec",
+            "--batch_size", str(FILE_BATCH), "--unique_cap", "32768",
+            "--new_cap", "32768", "--mode", mode, "--log_every", "0",
+            "--model_dir", os.path.join(work, "model"), *extra]
+
+
+def phase_cli(work, file_batches, read_ms):
+    """12b: bench.py's deepfm config trained by `train.main` on the files
+    (6 steps in blocks of 3, 2 eval batches, the Estimator's checkpoint at
+    the end of train, an export that the card's ServingModel loads); the
+    same trainer alone on the batches in memory for comparison. 12c: a
+    second `train.main --mode eval` restores step 6 and evaluates the
+    file's first 2 batches, as a direct checkpoint.restore into a fresh
+    Trainer does (loss and AUC to 1e-6 relative). Returns the launches of
+    both CLI runs."""
+    import torch
+    from monolith_tpu_torch import train
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    from monolith_tpu_torch.profile_step import CONFIGS
+    from monolith_tpu_torch.serving.engine import ServingModel
+    from monolith_tpu_torch.training import checkpoint
+    (out, cli_s), launches = _launches_of(lambda: _wall(lambda: train.main(
+        _cli_argv(work, "train_and_eval", "--steps", str(CLI_STEPS),
+                  "--eval_steps", str(CLI_EVALS), "--steps_per_dispatch",
+                  str(CLI_K), "--export_dir", os.path.join(work, "export")))))
+    # K1 a step, an eval batch and the export (one table); K2 a step
+    expect = {"gather_rows": CLI_STEPS + CLI_EVALS + 1,
+              "scatter_rows": CLI_STEPS, "stochastic_round_bf16": 0}
+    assert launches == expect, (launches, expect)
+    assert np.isfinite(out["train"]["loss"]) and np.isfinite(
+        out["eval"]["loss"]), out
+    model_dir = os.path.join(work, "model")
+    assert os.path.exists(os.path.join(model_dir, "CHECKPOINT"))
+    assert checkpoint.latest_step(model_dir) == CLI_STEPS
+    model = ServingModel(DeepFMTask(**CLI_TASK_ARGS), out["export_path"],
+                         unique_cap=32768)
+    preds = model.predict(*file_batches[0])
+    assert preds.shape == (FILE_BATCH,) and np.isfinite(preds).all()
+    del model
+
+    trainer, _ = CONFIGS["deepfm"](steps_per_dispatch=CLI_K)
+    packs = []
+    real_prepare = trainer.engine.prepare_wire
+
+    def timed_prepare(*a, **kw):
+        res, secs = _wall(lambda: real_prepare(*a, **kw))
+        packs.append(secs * 1e3)
+        return res
+    trainer.engine.prepare_wire = timed_prepare
+    _, alone_s = _wall(lambda: (trainer.train(
+        iter(file_batches[:CLI_STEPS]), steps=CLI_STEPS),
+        torch.cuda.synchronize()))
+    del trainer
+    torch.cuda.empty_cache()
+    cli_ms = FILE_BATCH / out["train"]["examples_per_sec"] * 1e3
+    log(f"12b cli: train.main (train_and_eval, {CLI_STEPS} steps in blocks "
+        f"of {CLI_K}, {CLI_EVALS} eval batches, checkpoint, export) "
+        f"{cli_s:.3f} s; train {out['train']}; eval {out['eval']}; train "
+        f"loop {cli_ms:.3f} ms/step with the files' decode (Estimator."
+        f"train's first batch read before it); the trainer alone on the "
+        f"same batches in memory {alone_s / CLI_STEPS * 1e3:.3f} ms/step "
+        f"(host clock, one synchronize at the end), of which prepare_wire "
+        f"{np.median(packs):.3f} ms a batch (median) beside the files' "
+        f"{read_ms['mtex']:.1f} (mtex) and {read_ms['pb_example_batch']:.1f}"
+        f" (pb_example_batch) ms a batch; serving predicts [{FILE_BATCH}] "
+        f"from the export; launches {launches}")
+
+    (out_c, eval_s), launches_c = _launches_of(lambda: _wall(
+        lambda: train.main(_cli_argv(work, "eval", "--eval_steps",
+                                     str(CLI_EVALS)))))
+    assert launches_c == {"gather_rows": CLI_EVALS, "scatter_rows": 0,
+                          "stochastic_round_bf16": 0}, launches_c
+    direct, _ = CONFIGS["deepfm"]()
+    assert checkpoint.restore(direct, model_dir) == CLI_STEPS
+    ref = direct.evaluate(iter(file_batches[:CLI_EVALS]))
+    del direct
+    torch.cuda.empty_cache()
+    for k in ("loss", "auc"):
+        assert abs(out_c["eval"][k] - ref[k]) <= 1e-6 * abs(ref[k]), \
+            (k, out_c["eval"], ref)
+    log(f"12c restore through the Estimator: train.main --mode eval "
+        f"{eval_s:.3f} s, eval {out_c['eval']}; a direct checkpoint.restore "
+        f"+ Trainer.evaluate {ref}; launches {launches_c}")
+    return {k: launches[k] + launches_c[k] for k in launches}
+
+
+def phase_movielens(floor):
+    """12d: the README's real-data command (`--task movie_ranking --data
+    movielens:examples/movielens/ratings.dat --mode train_and_eval --steps
+    800 --batch_size 512`) through `train.main` on the card; then the
+    quality gate on the JAX package's frozen configuration: the eval AUC
+    within PARITY_BAND of JAX_PARITY_AUC; then K1/K2 at the CLI's shapes
+    (the user table's pool and its rows of the last step: unique_cap 8192,
+    RunnerConfig's default), as phase 3. Returns (the kernels' entries,
+    their case)."""
+    import torch
+    from monolith_tpu_torch import parity, train
+    from monolith_tpu_torch.embedding.engine import EmbeddingEngine
+    seen = {}
+    real_lookup = EmbeddingEngine.fused_lookup
+
+    def spy(self, states, inputs, seed, step):
+        seen["states"], seen["inputs"] = states, inputs
+        return real_lookup(self, states, inputs, seed, step)
+    EmbeddingEngine.fused_lookup = spy
+    try:
+        (out, cli_s), launches = _launches_of(lambda: _wall(
+            lambda: train.main(["--task", "movie_ranking", "--data",
+                                f"movielens:{parity.MOVIELENS}", "--mode",
+                                "train_and_eval", "--steps", "800",
+                                "--batch_size", "512", "--log_every", "0"])))
+    finally:
+        EmbeddingEngine.fused_lookup = real_lookup
+    # two tables: K1 a table a step and an eval batch (50, the CLI's
+    # default), K2 a table a step
+    expect = {"gather_rows": 2 * (800 + 50), "scatter_rows": 2 * 800,
+              "stochastic_round_bf16": 0}
+    assert launches == expect, (launches, expect)
+    assert np.isfinite(out["train"]["loss"]) and np.isfinite(
+        out["eval"]["loss"]), out
+    eps = out["train"]["examples_per_sec"]
+    log(f"12d movie_ranking cli: train.main {cli_s:.3f} s; "
+        f"{512 / eps * 1e3:.3f} ms/step, {eps:.0f} examples/s; train "
+        f"{out['train']}; eval AUC {out['eval']['auc']:.4f} (50 batches "
+        f"of the training split, as the JAX CLI reads them); launches "
+        f"{launches}")
+
+    p = parity.PARITY
+    auc, gate_s = _wall(lambda: parity.train_port(*parity.frozen_data()))
+    log(f"12d quality gate (parity.py's frozen configuration, "
+        f"{p['steps']} steps + {p['eval_steps']} eval batches in "
+        f"{gate_s:.1f} s): eval AUC {auc:.6f} against the JAX package's "
+        f"{JAX_PARITY_AUC:.6f} (band {parity.PARITY_BAND})")
+    assert abs(auc - JAX_PARITY_AUC) <= parity.PARITY_BAND, \
+        (auc, JAX_PARITY_AUC)
+
+    pool = seen["states"]["emb_user_id"]["data"]
+    rows = seen["inputs"]["emb_user_id"]["rows"]
+    g = torch.Generator(device=pool.device).manual_seed(0)
+    values = torch.randn((rows.shape[0], pool.shape[1]), generator=g,
+                         device=pool.device)
+    case = (pool, rows, values)
+    entries = phase_rows("movie_ranking", floor, case)
+    for k in entries:
+        k["launches_by_path"] = {"cli": launches[k["name"]]}
+    return entries, case
+
+
+def phase_front_door(floor):
+    """Phases 12a-12d; returns (the deepfm CLI runs' launches, the
+    MovieRanking kernels' entries, their case)."""
+    import shutil
+    import tempfile
+
+    import torch
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t0 = time.time()
+        file_batches, read_ms = phase_files(work)
+        cli_launches = phase_cli(work, file_batches, read_ms)
+        del file_batches
+        torch.cuda.empty_cache()
+        entries, case = phase_movielens(floor)
+        log(f"phases 12a-12d: {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return cli_launches, entries, case
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1491,6 +1781,8 @@ def main():
     torch.cuda.empty_cache()
     expiry_launches = phase_expiry_and_tiering()
     torch.cuda.empty_cache()
+    cli_launches, mr_kernels, mr_case = phase_front_door(floor)
+    torch.cuda.empty_cache()
     for k in kernels:
         # each path was driven with the counts set to 0 just before it;
         # "serving" is the export and the trainer's eval predictions (both
@@ -1503,14 +1795,19 @@ def main():
             "serving": serving_launches[k["path"]][k["name"]]}
         if k["path"] == "deepfm_f32":
             k["launches_by_path"]["expiry"] = expiry_launches[k["name"]]
+            k["launches_by_path"]["cli"] = cli_launches[k["name"]]
         k["launches"] = sum(k["launches_by_path"].values())
+    # "cli": 12d's train.main (MovieRanking, two tables)
+    for k in mr_kernels:
+        k["launches"] = sum(k["launches_by_path"].values())
+    kernels += mr_kernels
     phase_block_card_vs_cpu()
     phase_card_vs_cpu()
     phase_multislot_card_vs_cpu()
     phase_multislot_trains()
     phase_northstar()
     torch.cuda.empty_cache()
-    phase_kernel_durations(kernels)
+    phase_kernel_durations(kernels, {"movie_ranking": mr_case})
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

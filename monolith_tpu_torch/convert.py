@@ -3,7 +3,8 @@
 The state format is the JAX trainer's, in numpy:
 
     {"params":         flax params tree, e.g. {"deep": {"dense_0":
-                       {"kernel": [in, out], "bias": [out]}, ...}},
+                       {"kernel": [in, out], "bias": [out]}, ...}}
+                       (DeepFM's tower; MovieRanking's is "ratings"),
      "sum_of_squares": optax adagrad's accumulators, the same tree,
      "tables":         {table: packed pool [1, cap, P] (or [cap, P]),
                        f32 whatever the pool's dtype},
@@ -13,7 +14,7 @@ The state format is the JAX trainer's, in numpy:
 `load_state` writes such a state into a port `Trainer` (kernels are
 transposed into `nn.Linear`'s [out, in]); `export_state` reads a port
 trainer back out in the same form, so a state also moves between two port
-trainers (the card and the CPU). `jax_trainer_state` reads the JAX
+trainers (the card and the CPU). An `Estimator`'s state is its `trainer`'s. `jax_trainer_state` reads the JAX
 package's trainer into the format with numpy alone, and
 `port_trainer_config` reads its `TrainerConfig` into the port's with the
 same settings (clip_norm, steps_per_dispatch, per-table caps,

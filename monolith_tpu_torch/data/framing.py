@@ -3,6 +3,10 @@ reader): each record is [optional sort_id section][8-byte LE size][payload].
 The optional headers (has_sort_id, kafka_dump, kafka_dump_prefix) are kept,
 so a file framed by the JAX package reads here and the reverse. The warmup
 records beside a serving export use this framing.
+
+`write_example_file` / `read_example_file` / `read_example_records` carry
+`Example` payloads in any of `payload_decoder`'s formats (the native "mtex"
+codec and the reference's protobuf formats, `pb_compat`).
 """
 
 from __future__ import annotations
@@ -72,3 +76,66 @@ class RecordReader:
             if payload is None:
                 return
             yield sort_id, payload
+
+
+def write_example_file(path: str, examples, has_sort_id: bool = False) -> int:
+    """Write Examples to a framed file; returns record count."""
+    n = 0
+    with open(path, "wb") as f:
+        w = RecordWriter(f, has_sort_id=has_sort_id)
+        for ex in examples:
+            w.write(ex.to_bytes())
+            n += 1
+    return n
+
+
+def payload_decoder(fmt: str = "mtex"):
+    """Record-payload decoder: bytes -> list[Example].
+
+    Formats: "mtex" (this framework's native codec), and the reference's
+    protobuf wire formats "pb_instance" / "pb_example" / "pb_example_batch"
+    (idl/matrix/proto; see data/pb_compat.py) so existing monolith datasets
+    and Kafka topics stream straight in."""
+    from monolith_tpu_torch.data.example import Example
+    if fmt == "mtex":
+        return lambda b: [Example.from_bytes(b)]
+    from monolith_tpu_torch.data import pb_compat
+    if fmt == "pb_instance":
+        return lambda b: [pb_compat.parse_instance(b)]
+    if fmt == "pb_example":
+        return lambda b: [pb_compat.parse_example(b)]
+    if fmt == "pb_example_batch":
+        return pb_compat.parse_example_batch
+    raise ValueError(f"unknown payload format {fmt!r}")
+
+
+def read_example_file(path: str, has_sort_id: bool = False,
+                      fmt: str = "mtex"):
+    """Yield Examples from a framed file (see payload_decoder for formats)."""
+    decode = payload_decoder(fmt)
+    with open(path, "rb") as f:
+        for _, payload in RecordReader(f, has_sort_id=has_sort_id):
+            yield from decode(payload)
+
+
+def read_example_records(path: str, has_sort_id: bool = False,
+                         fmt: str = "mtex", skip_records: int = 0,
+                         skip_examples: int = 0):
+    """Yield (record_idx, example_idx_in_record, Example) from a framed file.
+
+    Records before `skip_records` are frame-skipped — their payload bytes
+    are never DECODED (for pb_example_batch the protobuf parse dominates
+    read cost, so resume cost is O(bytes) sequential IO, not O(examples)
+    parse). Within the first yielded record, the first `skip_examples`
+    examples are dropped — resuming mid-batch after an ExampleBatch
+    checkpoint lands exactly on the next unseen example."""
+    decode = payload_decoder(fmt)
+    with open(path, "rb") as f:
+        for ri, (_, payload) in enumerate(
+                RecordReader(f, has_sort_id=has_sort_id)):
+            if ri < skip_records:
+                continue
+            exs = decode(payload)
+            start = skip_examples if ri == skip_records else 0
+            for ei in range(start, len(exs)):
+                yield ri, ei, exs[ei]

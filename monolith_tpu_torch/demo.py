@@ -1,18 +1,26 @@
-"""The fixed-dataset AUC north star, trained by the port.
+"""Runnable end-to-end demo of the port (the JAX package's demo.py, the
+reference's `demo.py` / local_train), on the card unless `--cpu` is given:
 
-    python -m monolith_tpu_torch.demo            # on the card
-    python -m monolith_tpu_torch.demo --device cpu
+    python -m monolith_tpu_torch.demo --steps 500 --batch_size 1024 \\
+        --model_dir /tmp/demo_model
 
-Same pinned knobs as the JAX package's `demo.NORTHSTAR` (the synthetic
-generator's seed is the frozen dataset; the trainer seed pins dense init),
-trained through the port's Trainer with the JAX estimator's default engine
-caps (unique_cap = new_cap = 8192). The eval AUC must land in
-NORTHSTAR_BAND, as the JAX package's does.
+Trains the flagship DeepFM CTR task on the synthetic stream through the
+`Estimator`, prints AUC/loss against the generator's Bayes ceiling,
+checkpoints and exports for serving. `--realtime` (the streaming and
+serving sync demo) needs the serving agent of ROADMAP item 9b and is
+refused until then.
+
+`northstar` trains the fixed-dataset AUC north star: the JAX package's
+`demo.NORTHSTAR` knobs (the synthetic generator's seed is the frozen
+dataset; the trainer seed pins dense init) through the port's `Estimator`
+with its default engine caps (unique_cap = new_cap = 8192). The eval AUC
+must land in NORTHSTAR_BAND, as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import argparse
+import tempfile
 
 NORTHSTAR = dict(steps=6000, batch_size=1024, num_users=1000, num_items=500,
                  embedding_dim=16, data_seed=7, trainer_seed=0,
@@ -24,26 +32,26 @@ NORTHSTAR_BAND = (0.730, 0.768)
 
 
 def northstar(device=None) -> dict:
-    """Train the demo config on the frozen dataset; return the metrics
-    {"train_auc", "eval_auc", "train_loss", "eval_loss", "bayes_auc",
-    "examples_per_sec"}."""
+    """Train the demo config on the frozen dataset through the Estimator;
+    return the metrics {"train_auc", "eval_auc", "train_loss", "eval_loss",
+    "bayes_auc", "examples_per_sec"}."""
     from monolith_tpu_torch.data.synthetic import SyntheticCTR
-    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.estimator import Estimator, RunnerConfig
     from monolith_tpu_torch.models.deepfm import DeepFMTask
-    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
 
     ns = NORTHSTAR
     data = SyntheticCTR(num_users=ns["num_users"],
                         num_items=ns["num_items"],
                         batch_size=ns["batch_size"], seed=ns["data_seed"])
-    trainer = Trainer(DeepFMTask(embedding_dim=ns["embedding_dim"]),
-                      TrainerConfig(engine=EngineConfig(unique_cap=8192,
-                                                        new_cap=8192),
-                                    seed=ns["trainer_seed"], log_every=0),
-                      device=device)
-    result = trainer.train(iter(data), steps=ns["steps"])
-    # the generator's rng advances, so eval sees the held-out continuation
-    ev = trainer.evaluate(iter(data), max_steps=ns["eval_steps"])
+    with tempfile.TemporaryDirectory(prefix="monolith_northstar_") as d:
+        est = Estimator(DeepFMTask(embedding_dim=ns["embedding_dim"]),
+                        RunnerConfig(model_dir=d, num_shards=1, log_every=0,
+                                     seed=ns["trainer_seed"]),
+                        device=device)
+        result = est.train(iter(data), steps=ns["steps"])
+        # the generator's rng advances, so eval sees the held-out
+        # continuation
+        ev = est.evaluate(iter(data), steps=ns["eval_steps"])
     return {"train_auc": result["auc"], "eval_auc": ev["auc"],
             "train_loss": result["loss"], "eval_loss": ev["loss"],
             "bayes_auc": data.bayes_auc(20000),
@@ -52,12 +60,48 @@ def northstar(device=None) -> dict:
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--device", default=None, help="default: cuda")
+    p.add_argument("--steps", type=int, default=500)
+    p.add_argument("--batch_size", type=int, default=1024)
+    p.add_argument("--num_users", type=int, default=5000)
+    p.add_argument("--num_items", type=int, default=2000)
+    p.add_argument("--embedding_dim", type=int, default=16)
+    p.add_argument("--num_shards", type=int, default=1)
+    p.add_argument("--model_dir", type=str, default="")
+    p.add_argument("--realtime", action="store_true",
+                   help="also run the streaming+serving sync demo (not "
+                        "ported yet: ROADMAP item 9b)")
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="K steps per dispatch (bit-identical blocks)")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (default: the card)")
     args = p.parse_args(argv)
-    r = northstar(device=args.device)
-    lo, hi = NORTHSTAR_BAND
-    print(f"eval auc {r['eval_auc']:.4f} (band [{lo}, {hi}], bayes "
-          f"{r['bayes_auc']:.4f}); train auc {r['train_auc']:.4f}")
+    if args.realtime:
+        raise SystemExit("--realtime needs the serving agent, which is not "
+                         "ported yet (ROADMAP item 9b)")
+
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.estimator import Estimator, RunnerConfig
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+
+    model_dir = args.model_dir or tempfile.mkdtemp(prefix="monolith_demo_")
+    data = SyntheticCTR(num_users=args.num_users, num_items=args.num_items,
+                        batch_size=args.batch_size, seed=0)
+    print(f"generator Bayes AUC ceiling: {data.bayes_auc(20000):.4f}")
+
+    task = DeepFMTask(embedding_dim=args.embedding_dim)
+    est = Estimator(task, RunnerConfig(
+        model_dir=model_dir, num_shards=args.num_shards,
+        log_every=max(args.steps // 10, 1),
+        steps_per_dispatch=args.steps_per_dispatch),
+        device="cpu" if args.cpu else None)
+    result = est.train(iter(data), steps=args.steps)
+    print(f"train: auc={result['auc']:.4f} loss={result['loss']:.4f} "
+          f"ex/s={result['examples_per_sec']:.0f}")
+    ev = est.evaluate(iter(data), steps=20)
+    print(f"eval:  auc={ev['auc']:.4f} loss={ev['loss']:.4f}")
+
+    export_path = est.export_saved_model(model_dir)
+    print(f"exported to {export_path}")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,143 @@
+"""Config-driven training CLI of the port (the JAX package's train.py, the
+rebuild's `local_train` binary), on the card unless `--cpu` is given:
+
+    python -m monolith_tpu_torch.train --task deepfm --steps 1000 \\
+        --batch_size 512 --model_dir /tmp/m --mode train_and_eval
+    python -m monolith_tpu_torch.train --task movie_ranking \\
+        --data movielens:examples/movielens/ratings.dat \\
+        --mode train_and_eval --steps 800 --batch_size 512
+    python -m monolith_tpu_torch.train --task mypkg.mymod:MyTask \\
+        --data 'files:/data/part-*.rec' --data_fmt pb_example_batch ...
+
+Flags: RunnerConfig fields (model_dir, num_shards, unique_cap, ...) are
+registered by config.extract_flags, as in the JAX package; --task picks a
+zoo task by name or imports `module:Class`; --task_args passes JSON
+kwargs; --data selects "synthetic" (default; the task-matched generator),
+"files:<glob>" (with --data_fmt for the payload codec), "parquet:<path>"
+or "movielens:<ratings file>". It prints the JAX CLI's one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import sys
+from typing import Iterable
+
+from monolith_tpu_torch.config import extract_flags, parse_into
+from monolith_tpu_torch.estimator import Estimator, RunnerConfig
+
+ZOO = {
+    "deepfm": ("monolith_tpu_torch.models.deepfm", "DeepFMTask"),
+    "multislot": ("monolith_tpu_torch.models.multislot", "MultiSlotTask"),
+    "movie_ranking": ("monolith_tpu_torch.models.movie_ranking",
+                      "MovieRankingTask"),
+}
+#: the JAX package's zoo tasks that the port does not have yet
+NOT_PORTED = ("ffm", "din", "mmoe", "dcn", "autoint")
+
+
+def build_task(name: str, task_args: dict):
+    if name in ZOO:
+        mod, cls = ZOO[name]
+    elif name in NOT_PORTED:
+        raise SystemExit(f"--task {name} is not ported yet (ROADMAP item 10); "
+                         f"the port's zoo has {sorted(ZOO)}, or pass "
+                         f"module:Class")
+    elif ":" in name:
+        mod, cls = name.split(":", 1)
+    else:
+        raise SystemExit(f"--task must be one of {sorted(ZOO)} or module:Class,"
+                         f" got {name!r}")
+    return getattr(importlib.import_module(mod), cls)(**task_args)
+
+
+def build_data(task, spec: str, fmt: str, batch_size: int,
+               seed: int) -> Iterable:
+    """Returns an iterable of (fid_batch, batch) trainer inputs."""
+    from monolith_tpu_torch.data.datasets import (BatchedDataset, FileSource,
+                                                  ParquetSource)
+    if spec == "synthetic":
+        # task-matched generators (the demo/bench path)
+        from monolith_tpu_torch.data import synthetic
+        from monolith_tpu_torch.models.multislot import MultiSlotTask
+        if isinstance(task, MultiSlotTask):
+            return synthetic.SyntheticMultiSlot(
+                num_slots=task.num_slots, history_length=task.history_length,
+                batch_size=batch_size, seed=seed)
+        return synthetic.SyntheticCTR(batch_size=batch_size, seed=seed)
+    lengths = {f.name: f.max_length for f in task.features()}
+    if spec.startswith("files:"):
+        src = FileSource(spec[len("files:"):], fmt=fmt)
+    elif spec.startswith("parquet:"):
+        fid_cols = {f.name: f.name for f in task.features()}
+        src = ParquetSource(spec[len("parquet:"):], fid_columns=fid_cols,
+                            label_column="label")
+    elif spec.startswith("movielens:"):
+        # ratings.dat / u.data ingestion (ref markdown/demo/ml_dataset.py);
+        # see examples/movielens/ for the vendored quickstart sample
+        from monolith_tpu_torch.data.movielens import MovieLensRatings
+        names = tuple(f.name for f in task.features())
+        if len(names) != 2:
+            raise SystemExit(
+                f"--data movielens: needs a (user, item) 2-feature task "
+                f"(e.g. movie_ranking); --task {task.name} declares "
+                f"{len(names)} features: {names}")
+        return MovieLensRatings(path=spec[len("movielens:"):],
+                                batch_size=batch_size, seed=seed,
+                                feature_names=names)
+    else:
+        raise SystemExit(f"--data must be synthetic, files:<glob>, "
+                         f"parquet:<path> or movielens:<ratings file>, "
+                         f"got {spec!r}")
+    return BatchedDataset(src, batch_size, lengths)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="monolith_tpu_torch.train",
+        description="Train / evaluate / export a task with the PyTorch port",
+        allow_abbrev=False)
+    parser.add_argument("--task", default="deepfm")
+    parser.add_argument("--task_args", default="{}",
+                        help="JSON kwargs for the task dataclass")
+    parser.add_argument("--mode", default="train",
+                        choices=["train", "eval", "train_and_eval", "export"])
+    parser.add_argument("--data", default="synthetic")
+    parser.add_argument("--data_fmt", default="mtex",
+                        help="files: payload codec (mtex / pb_instance / "
+                             "pb_example / pb_example_batch)")
+    parser.add_argument("--steps", type=int, default=1000)
+    parser.add_argument("--eval_steps", type=int, default=50)
+    parser.add_argument("--batch_size", type=int, default=512)
+    parser.add_argument("--export_dir", default="")
+    parser.add_argument("--cpu", action="store_true",
+                        help="run on the CPU (default: the card; without "
+                             "CUDA the run fails)")
+    extract_flags(RunnerConfig, parser)
+    args, _ = parser.parse_known_args(argv)
+
+    task = build_task(args.task, json.loads(args.task_args))
+    run_cfg = parse_into(RunnerConfig, argv)
+    est = Estimator(task, run_cfg, device="cpu" if args.cpu else None)
+    data = build_data(task, args.data, args.data_fmt, args.batch_size,
+                      run_cfg.seed)
+
+    out = {}
+    if args.mode in ("train", "train_and_eval"):
+        out["train"] = est.train(iter(data), steps=args.steps)
+    if args.mode in ("eval", "train_and_eval"):
+        out["eval"] = est.evaluate(iter(data), steps=args.eval_steps)
+    if args.mode == "export" or (args.export_dir and args.mode != "eval"):
+        if not args.export_dir:
+            raise SystemExit("--export_dir required for --mode export")
+        out["export_path"] = est.export_saved_model(args.export_dir)
+    print(json.dumps({k: (v if isinstance(v, str)
+                          else {m: round(float(x), 6) for m, x in v.items()})
+                      for k, v in out.items()}))
+    return out
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

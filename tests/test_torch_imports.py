@@ -62,5 +62,21 @@ def test_walk_covers_the_slice():
                  "monolith_tpu_torch/serving/codec.py",
                  "monolith_tpu_torch/data/framing.py",
                  "monolith_tpu_torch/embedding/compressors.py",
-                 "monolith_tpu_torch/embedding/retrievers.py"):
+                 "monolith_tpu_torch/embedding/retrievers.py",
+                 "monolith_tpu_torch/data/example.py",
+                 "monolith_tpu_torch/data/pb_compat.py",
+                 "monolith_tpu_torch/data/datasets.py",
+                 "monolith_tpu_torch/data/prefetch.py",
+                 "monolith_tpu_torch/data/movielens.py",
+                 "monolith_tpu_torch/config.py",
+                 "monolith_tpu_torch/utils/__init__.py",
+                 "monolith_tpu_torch/utils/metrics_client.py",
+                 "monolith_tpu_torch/utils/deep_insight.py",
+                 "monolith_tpu_torch/training/hooks.py",
+                 "monolith_tpu_torch/training/recovery.py",
+                 "monolith_tpu_torch/models/movie_ranking.py",
+                 "monolith_tpu_torch/estimator.py",
+                 "monolith_tpu_torch/train.py",
+                 "monolith_tpu_torch/demo.py",
+                 "monolith_tpu_torch/parity.py"):
         assert must in files
