@@ -139,6 +139,35 @@ failures is caught:
        within PARITY_BAND of JAX_PARITY_AUC; then K1/K2 at the CLI's shapes
        (the user table's pool [2^17, 128] f32 and its 8192 rows of the last
        step) as in phase 3, entries with `launches_by_path["cli"]`.
+ 13. the realtime loop over localhost gRPC at full width, run after phase
+     12 on a fresh deepfm_f32 trainer that records touched ids (4 steps,
+     then an export; every kernel launch of 13a-13d counted as path
+     "realtime"):
+     13a. a ServingAgent on the card registers in a FileDiscovery; a
+       SyncClientManager finds it there; StreamingTrainer runs 24 steps
+       with a round every 8 (100k-250k rows a round, several requests of
+       at most 4 MiB each): every ack equals the rows pushed (no -1), every
+       pushed fid's row in the agent's model equals the trainer's as K1's
+       plain version reads it, K1 = steps + non-empty gathers, K2 = steps;
+       a ServingClient predict at batch 8192 equals the in-process predict
+       (rtol 1e-6) and differs from one before the push; ms a round and
+       rows/s over gRPC beside an in-process round on the same trainer, ms
+       a predict over gRPC beside in-process;
+     13b. two row-shard ServingModels on the card, each behind an agent,
+       and a ShardedServingRouter (unique_cap 32768) over two
+       ServingClients: shard sizes sum to the single model's, 3 predicts at
+       batch 8192 equal the single ServingModel's exactly, push_routed of
+       4,096 rows lands each row on its owning shard only; ms a routed
+       predict beside the single model's;
+     13c. 8 more steps and a second export: VersionWatcher.poll_once swaps
+       the agent's model, predicts over gRPC follow the new export, a push
+       after the swap applies; a TrainingController over a
+       ControllerClient: status (step, table size), pause and resume around
+       a `train` call on another thread, SaveCheckpoint honoured at the
+       next hook;
+     13d. `demo.main(["--realtime", "--model_dir", tmp])` at its defaults on
+       the card: a pushed row count > 0, K1 = 500 + 20 + 1 + 100 +
+       non-empty gathers, K2 = 600.
 
 TF32 is off for matrix products and convolutions (torch.backends), so the
 card's f32 dense towers run in full f32 like the CPU's. The second-to-last
@@ -1737,6 +1766,335 @@ def phase_front_door(floor):
     return cli_launches, entries, case
 
 
+# ----------------------------------------------------------------------
+# phase 13: the realtime loop over localhost gRPC at full width
+# ----------------------------------------------------------------------
+
+RT_PRE_STEPS, RT_STEPS, RT_EVERY, RT_MORE = 4, 24, 8, 8
+RT_ROUTED_ROWS = 4096
+#: the agent's pool grows by ~21,000 ids a step of this stream; after 4
+#: steps' rows (~85,000) it needs room for ~30 more steps' pushes
+RT_HEADROOM = 16.0
+
+
+def _recording_sync(model_name, discovery):
+    """The real SyncClientManager, each push's (table, fids, acks, host ms)
+    kept."""
+    from monolith_tpu_torch.serving import SyncClientManager
+
+    class Recording(SyncClientManager):
+        def __init__(self):
+            super().__init__(model_name, discovery=discovery)
+            self.pushes = []
+
+        def push(self, table, fids, values):
+            t0 = time.perf_counter()
+            acks = super().push(table, fids, values)
+            self.pushes.append((table, fids.copy(), acks,
+                                (time.perf_counter() - t0) * 1e3))
+            return acks
+    return Recording()
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_realtime_push(trainer, data, work, launches):
+    """13a: export, an agent that registers in discovery, a streaming run
+    whose pushes travel over gRPC. Returns (the agent, its client, the
+    discovery, the in-process round ms)."""
+    import torch
+    from monolith_tpu_torch.serving import (FileDiscovery, ServingAgent,
+                                            ServingClient, ServingModel,
+                                            export_model)
+    from monolith_tpu_torch.training.streaming import (StreamingConfig,
+                                                       StreamingTrainer)
+    task = trainer.task
+    pre = [data.batch() for _ in range(RT_PRE_STEPS)]
+    launches.run(lambda: [trainer.train_step(fb, b) for fb, b in pre])
+    path = launches.run(lambda: export_model(trainer, os.path.join(work,
+                                                                    "export")))
+    disc = FileDiscovery(os.path.join(work, "discovery"))
+    model = ServingModel(task, path, unique_cap=32768, headroom=RT_HEADROOM)
+    agent = ServingAgent(model, discovery=disc)
+    addr = agent.start()
+    assert disc.query("serving") == {0: addr}
+    client = ServingClient(addr, timeout_s=60.0)
+    sync = _recording_sync(task.name, disc)
+    probe = data.batch()
+    before = client.predict(*probe)
+    st = StreamingTrainer(trainer, sync, StreamingConfig(
+        sync_interval_steps=RT_EVERY, max_push_rows=1 << 22))
+    rounds = []
+    real_sync_now = st.sync_now
+
+    def timed_sync_now():
+        out, ms = _timed(real_sync_now)
+        rounds.append((ms, sum(out.values())))
+        return out
+    st.sync_now = timed_sync_now
+    batches = [data.batch() for _ in range(RT_STEPS)]
+    counted = Launches()
+    res, run_ms = _timed(lambda: counted.run(
+        lambda: st.run(iter(batches), max_steps=RT_STEPS)))
+    for k, v in counted.total.items():
+        launches.total[k] = launches.total.get(k, 0) + v
+    # one K1 and one K2 a train step; one K1 more for every non-empty
+    # (table, round) gather, each of which ended in one push
+    assert res["steps"] == RT_STEPS and len(sync.pushes) >= RT_STEPS // RT_EVERY
+    assert counted.total == {"gather_rows": RT_STEPS + len(sync.pushes),
+                             "scatter_rows": RT_STEPS,
+                             "stochastic_round_bf16": 0}, counted.total
+    for _, fids, acks, _ in sync.pushes:
+        assert acks == {addr: len(fids)}, (acks, len(fids))
+    assert res["pushed_rows"] == sum(len(f) for _, f, _, _ in sync.pushes)
+    pushed = np.unique(np.concatenate([f for _, f, _, _ in sync.pushes]))
+    _serving_rows_equal_trainer(model, trainer, "sparse", pushed)
+    after = client.predict(*probe)
+    assert after.shape == (len(probe[1]["label"]),) and np.isfinite(after).all()
+    np.testing.assert_allclose(after, model.predict(*probe), rtol=1e-6)
+    assert not np.allclose(before, after), "the push changed no prediction"
+    # predicts at batch 8192, over gRPC and in process, in turns
+    over, local = [], []
+    for _ in range(5):
+        fb, b = data.batch()
+        over.append(_timed(lambda: client.predict(fb, b))[1])
+        local.append(_timed(lambda: model.predict(fb, b))[1])
+    # a round after one more step, over gRPC and in process, in turns
+    st_local = StreamingTrainer(trainer, PushTo(model), StreamingConfig(
+        sync_interval_steps=0))
+    grpc_rounds, local_rounds = [], []
+    for i in range(6):
+        launches.run(lambda: trainer.train_step(*data.batch()))
+        torch.cuda.synchronize()
+        one = st_local.sync_now if i % 2 else real_sync_now
+        got, ms = _timed(lambda: launches.run(one))
+        (local_rounds if i % 2 else grpc_rounds).append(
+            (ms, sum(got.values())))
+    big = [(ms, n) for ms, n in rounds if n]
+    sync.close()
+    log(f"13a realtime push over gRPC: {RT_STEPS} steps in {run_ms:.3f} ms, "
+        f"{res['sync_rounds']} rounds; (ms, rows) a round incl. the K1 "
+        f"gather and the pushes {[(round(ms, 3), n) for ms, n in rounds]}, "
+        f"{sum(n for _, n in big) / (sum(ms for ms, _ in big) / 1e3):.0f} "
+        f"rows/s over the non-empty rounds; host ms of each push "
+        f"{[round(ms, 3) for *_, ms in sync.pushes]}; every ack equals its "
+        f"rows ({[len(f) for _, f, _, _ in sync.pushes]}), {len(pushed)} "
+        f"distinct rows equal the trainer's; a round after one more step "
+        f"(ms, rows): over gRPC "
+        f"{[(round(ms, 3), n) for ms, n in grpc_rounds]}, in process "
+        f"{[(round(ms, 3), n) for ms, n in local_rounds]}; ms a predict at "
+        f"batch {len(probe[1]['label'])} (median of 5, in turns): over gRPC "
+        f"{np.median(over):.3f}, in process {np.median(local):.3f}; "
+        f"launches of the streaming run {counted.total}")
+    return agent, client, disc, path
+
+
+def phase_realtime_router(trainer, data, work, path):
+    """13b: two row-shard replicas behind agents, a router over their
+    clients, against one ServingModel of the same export."""
+    from monolith_tpu_torch.embedding.host_store import shard_of_batch
+    from monolith_tpu_torch.serving import (FileDiscovery, ServingAgent,
+                                            ServingClient, ServingModel,
+                                            SyncClientManager)
+    from monolith_tpu_torch.serving.router import ShardedServingRouter
+    task = trainer.task
+    single = ServingModel(task, path, unique_cap=32768)
+    disc = FileDiscovery(os.path.join(work, "discovery_shards"))
+    shards = [ServingModel(task, path, unique_cap=32768, shard_index=s,
+                           num_row_shards=2) for s in range(2)]
+    sizes = [m.table_sizes()["sparse"] for m in shards]
+    assert sum(sizes) == single.table_sizes()["sparse"] and min(sizes) > 0
+    agents = [ServingAgent(m, discovery=disc, replica_index=s)
+              for s, m in enumerate(shards)]
+    try:
+        addrs = [a.start() for a in agents]
+        clients = {s: ServingClient(a, timeout_s=60.0)
+                   for s, a in enumerate(addrs)}
+        router = ShardedServingRouter(task, path, clients, unique_cap=32768)
+        routed, alone = [], []
+        for _ in range(3):
+            fb, b = data.batch()
+            got, ms = _timed(lambda: router.predict(fb, b))
+            want, ms1 = _timed(lambda: single.predict(fb, b))
+            assert got.shape == (len(b["label"]),) and np.isfinite(got).all()
+            np.testing.assert_array_equal(got, want)
+            routed.append(ms)
+            alone.append(ms1)
+        router.close()
+        rng = np.random.default_rng(13)
+        fids = rng.integers(1 << 50, 1 << 51, size=RT_ROUTED_ROWS,
+                            dtype=np.int64)
+        vals = rng.standard_normal((RT_ROUTED_ROWS, 17)).astype(np.float32)
+        owner = shard_of_batch(fids, 2)
+        routed_sync = SyncClientManager(task.name, discovery=disc)
+        acks = routed_sync.push_routed("sparse", fids, vals, num_row_shards=2)
+        routed_sync.close()
+        assert acks == {addrs[s]: int((owner == s).sum()) for s in range(2)}
+        for s, m in enumerate(shards):
+            mine = owner == s
+            np.testing.assert_array_equal(m.lookup_rows("sparse", fids[mine]),
+                                          vals[mine])
+            np.testing.assert_array_equal(
+                m.lookup_rows("sparse", fids[~mine]), 0.0)
+        for c in clients.values():
+            c.close()
+    finally:
+        for a in agents:
+            a.stop()
+    log(f"13b row-sharded serving: shard rows {sizes} = the single model's "
+        f"{single.table_sizes()['sparse']}; 3 routed predicts at batch 8192 "
+        f"equal the single ServingModel's exactly; ms a predict (host clock, "
+        f"in turns): routed over 2 gRPC shards {[round(x, 3) for x in routed]}"
+        f", single in process {[round(x, 3) for x in alone]}; push_routed of "
+        f"{RT_ROUTED_ROWS} rows acked {sorted(acks.values())}, each on its "
+        f"owning shard only")
+
+
+def phase_realtime_swap_and_control(trainer, data, work, agent, client,
+                                    launches):
+    """13c: a second export swapped in by the VersionWatcher, then the
+    TrainingController."""
+    import threading
+
+    import torch
+    from monolith_tpu_torch.serving import (ParameterSyncClient,
+                                            VersionWatcher, export_model)
+    from monolith_tpu_torch.training import checkpoint
+    from monolith_tpu_torch.training.controller import (ControllerClient,
+                                                        TrainingController)
+    batches = [data.batch() for _ in range(RT_MORE)]
+    launches.run(lambda: [trainer.train_step(fb, b) for fb, b in batches])
+    base = os.path.join(work, "export")
+    launches.run(lambda: export_model(trainer, base))
+    model = agent.model
+    probe = data.batch()
+    old = client.predict(*probe)
+    watcher = VersionWatcher(model, base, poll_s=999)
+    swapped, swap_ms = _timed(watcher.poll_once)
+    assert swapped and model.step == trainer.step and watcher.swaps == 1
+    assert not watcher.poll_once()
+    new = client.predict(*probe)
+    np.testing.assert_allclose(new, trainer.predict(*probe).cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert not np.allclose(old, new)
+    fids = np.arange(1 << 52, (1 << 52) + 16, dtype=np.int64)
+    vals = np.full((16, 17), 0.125, np.float32)
+    sync = ParameterSyncClient(agent.addr)
+    assert sync.push(trainer.task.name, "sparse", fids, vals) == 16
+    sync.close()
+    np.testing.assert_array_equal(model.lookup_rows("sparse", fids), vals)
+    log(f"13c hot swap: poll_once swapped to step {model.step} in "
+        f"{swap_ms:.3f} ms; predicts over gRPC follow the new export; a "
+        f"push after the swap applies")
+
+    ckpt = os.path.join(work, "ckpt")
+    ctl = TrainingController(trainer, ckpt_dir=ckpt)
+    ctl_client = ControllerClient(ctl.start())
+    try:
+        status = ctl_client.get_status()
+        assert status["step"] == trainer.step, status
+        assert status["table:sparse:s0:size"] == \
+            trainer.engine.stores["sparse"].size(), status
+        s0 = trainer.step
+        more = [data.batch() for _ in range(3)]
+        counted = Launches()
+
+        def controlled():
+            assert ctl_client.stop_training()["paused"] == 1
+            worker = threading.Thread(target=trainer.train, args=(
+                iter(more[:2]),), kwargs={"steps": 2, "hooks": [ctl.hook]})
+            worker.start()
+            deadline = time.time() + 30
+            while trainer.step < s0 + 1 and time.time() < deadline:
+                time.sleep(0.01)
+            time.sleep(0.3)
+            held = trainer.step
+            paused = ctl_client.get_status()["paused"]
+            assert ctl_client.resume_training()["paused"] == 0
+            worker.join(30)
+            assert not worker.is_alive()
+            assert ctl_client.save_checkpoint() == {"ok": 1}
+            trainer.train(iter(more[2:]), steps=1, hooks=[ctl.hook])
+            return held, paused
+        (held, paused), ms = _timed(lambda: counted.run(controlled))
+        for k, v in counted.total.items():
+            launches.total[k] = launches.total.get(k, 0) + v
+        assert held == s0 + 1 and paused == 1, (held, paused, s0)
+        assert trainer.step == s0 + 3
+        assert checkpoint.latest_step(ckpt) == s0 + 3
+        # one K1 and one K2 a step; the save launches none
+        assert counted.total == {"gather_rows": 3, "scatter_rows": 3,
+                                 "stochastic_round_bf16": 0}, counted.total
+        ctl_client.close()
+    finally:
+        ctl._paused.clear()
+        ctl.stop()
+    torch.cuda.synchronize()
+    log(f"13c controller: status step {status['step']}, table size "
+        f"{status['table:sparse:s0:size']}; paused at step {held} while a "
+        f"train call on another thread waited in the hook, resumed to step "
+        f"{s0 + 2}; SaveCheckpoint honoured at the next hook (ckpt-{s0 + 3}); "
+        f"{ms:.3f} ms in all; launches {counted.total}")
+
+
+def phase_realtime_demo(work, launches):
+    """13d: the user's entry point, `demo --realtime` at its defaults."""
+    from monolith_tpu_torch import demo
+    counted = Launches()
+    out, ms = _timed(lambda: counted.run(lambda: demo.main(
+        ["--realtime", "--model_dir", os.path.join(work, "demo")])))
+    for k, v in counted.total.items():
+        launches.total[k] = launches.total.get(k, 0) + v
+    res = out["realtime"]
+    assert res["pushed_rows"] > 0 and res["steps"] == 100, res
+    # K1: 500 steps, 20 eval batches, the export, 100 streaming steps and
+    # one a non-empty round; K2: a step
+    gathers = counted.total["gather_rows"] - (500 + 20 + 1 + 100)
+    assert 1 <= gathers <= res["sync_rounds"], (counted.total, res)
+    assert counted.total["scatter_rows"] == 600, counted.total
+    assert counted.total["stochastic_round_bf16"] == 0, counted.total
+    log(f"13d demo --realtime: {ms / 1e3:.3f} s; train {out['train']}; eval "
+        f"{out['eval']}; realtime {res}; launches {counted.total}")
+
+
+def phase_realtime():
+    """Phases 13a-13d; returns the kernels' launches of the realtime
+    path."""
+    import shutil
+    import tempfile
+
+    import torch
+    from monolith_tpu_torch.profile_step import CONFIGS
+    work = tempfile.mkdtemp(prefix="chip_smoke_rt_")
+    launches = Launches()
+    agent = None
+    try:
+        t0 = time.time()
+        trainer, data = CONFIGS["deepfm"](record_touch=True)
+        agent, client, disc, path = phase_realtime_push(trainer, data, work,
+                                                        launches)
+        phase_realtime_router(trainer, data, work, path)
+        phase_realtime_swap_and_control(trainer, data, work, agent, client,
+                                        launches)
+        client.close()
+        agent.stop()
+        assert disc.query("serving") == {}
+        agent = None
+        del trainer
+        torch.cuda.empty_cache()
+        phase_realtime_demo(work, launches)
+        log(f"phases 13a-13d: {time.time() - t0:.1f} s")
+    finally:
+        if agent is not None:
+            agent.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches.total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1783,12 +2141,15 @@ def main():
     torch.cuda.empty_cache()
     cli_launches, mr_kernels, mr_case = phase_front_door(floor)
     torch.cuda.empty_cache()
+    realtime_launches = phase_realtime()
+    torch.cuda.empty_cache()
     for k in kernels:
         # each path was driven with the counts set to 0 just before it;
         # "serving" is the export and the trainer's eval predictions (both
         # paths) and the streaming push and the delta (deepfm_f32);
-        # "expiry" the train steps, evictions and spills of phase 11
-        # (deepfm_f32)
+        # "expiry" the train steps, evictions and spills of phase 11,
+        # "cli" phase 12's train.main and "realtime" phase 13's steps,
+        # exports and sync rounds (deepfm_f32)
         k["launches_by_path"] = {
             "per_step": launches[k["path"]][k["name"]],
             "block": block_launches[k["path"]][k["name"]],
@@ -1796,6 +2157,7 @@ def main():
         if k["path"] == "deepfm_f32":
             k["launches_by_path"]["expiry"] = expiry_launches[k["name"]]
             k["launches_by_path"]["cli"] = cli_launches[k["name"]]
+            k["launches_by_path"]["realtime"] = realtime_launches[k["name"]]
         k["launches"] = sum(k["launches_by_path"].values())
     # "cli": 12d's train.main (MovieRanking, two tables)
     for k in mr_kernels:

@@ -6,9 +6,11 @@ reference's `demo.py` / local_train), on the card unless `--cpu` is given:
 
 Trains the flagship DeepFM CTR task on the synthetic stream through the
 `Estimator`, prints AUC/loss against the generator's Bayes ceiling,
-checkpoints and exports for serving. `--realtime` (the streaming and
-serving sync demo) needs the serving agent of ROADMAP item 9b and is
-refused until then.
+checkpoints and exports for serving. `--realtime` then runs the realtime
+loop over localhost gRPC: a `ServingModel` of the export behind a
+`ServingAgent` that registers in a `FileDiscovery`, a `SyncClientManager`
+that finds it there, 100 streaming steps pushing the touched rows every 20,
+and a predict from the replica.
 
 `northstar` trains the fixed-dataset AUC north star: the JAX package's
 `demo.NORTHSTAR` knobs (the synthetic generator's seed is the frozen
@@ -68,16 +70,13 @@ def main(argv=None):
     p.add_argument("--num_shards", type=int, default=1)
     p.add_argument("--model_dir", type=str, default="")
     p.add_argument("--realtime", action="store_true",
-                   help="also run the streaming+serving sync demo (not "
-                        "ported yet: ROADMAP item 9b)")
+                   help="also run the streaming+serving sync demo")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
                    help="K steps per dispatch (bit-identical blocks)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (default: the card)")
     args = p.parse_args(argv)
-    if args.realtime:
-        raise SystemExit("--realtime needs the serving agent, which is not "
-                         "ported yet (ROADMAP item 9b)")
+    device = "cpu" if args.cpu else None
 
     from monolith_tpu_torch.data.synthetic import SyntheticCTR
     from monolith_tpu_torch.estimator import Estimator, RunnerConfig
@@ -92,8 +91,9 @@ def main(argv=None):
     est = Estimator(task, RunnerConfig(
         model_dir=model_dir, num_shards=args.num_shards,
         log_every=max(args.steps // 10, 1),
+        enable_realtime_training=args.realtime,
         steps_per_dispatch=args.steps_per_dispatch),
-        device="cpu" if args.cpu else None)
+        device=device)
     result = est.train(iter(data), steps=args.steps)
     print(f"train: auc={result['auc']:.4f} loss={result['loss']:.4f} "
           f"ex/s={result['examples_per_sec']:.0f}")
@@ -102,6 +102,34 @@ def main(argv=None):
 
     export_path = est.export_saved_model(model_dir)
     print(f"exported to {export_path}")
+    out = {"train": result, "eval": ev, "export_path": export_path}
+
+    if args.realtime:
+        from monolith_tpu_torch.serving import (FileDiscovery, ServingAgent,
+                                                ServingModel,
+                                                SyncClientManager)
+        from monolith_tpu_torch.training.streaming import (StreamingConfig,
+                                                           StreamingTrainer)
+
+        disc = FileDiscovery(model_dir + "/discovery")
+        model = ServingModel(task, export_path, device=device)
+        agent = ServingAgent(model, discovery=disc)
+        agent.start()
+        sync = SyncClientManager(task.name, discovery=disc)
+        try:
+            st = StreamingTrainer(est.trainer, sync,
+                                  StreamingConfig(sync_interval_steps=20))
+            res = st.run(iter(data), max_steps=100)
+            print(f"realtime: pushed {res['pushed_rows']} rows over "
+                  f"{res['sync_rounds']} sync rounds to {agent.addr}")
+            fb, b = data.batch()
+            preds = model.predict(fb, b)
+            print(f"serving replica predicts: mean={preds.mean():.4f}")
+        finally:
+            sync.close()
+            agent.stop()
+        out["realtime"] = res
+    return out
 
 
 if __name__ == "__main__":

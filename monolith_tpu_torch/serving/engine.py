@@ -57,6 +57,44 @@ from monolith_tpu_torch.feature import combine
 from monolith_tpu_torch.training.task import RecTask
 
 
+def load_module(task: RecTask, dense_bytes: bytes,
+                device: torch.device) -> torch.nn.Module:
+    """A new task module on `device` in eval mode with `dense_bytes` (a
+    dense.msgpack) as its parameters; names and shapes must match."""
+    module = task.build_module()
+    params = dict(module.named_parameters())
+    convert.load_dense_tree(params, serialization.from_bytes(
+        convert.dense_tree(params), dense_bytes))
+    return module.to(device).eval()
+
+
+def pool_table(buf: torch.Tensor, index: torch.Tensor, features,
+               shapes) -> Dict[str, torch.Tensor]:
+    """One table's pooled features: `buf` [n, dim] holds the table's
+    unique rows of the request, `index` the flat int32 index into it over
+    all of `features`' streams in order (-1 for padding, which reads a zero
+    row), `shapes` each stream's [B, L]. Each feature is a slice of one
+    gather, pooled by its combiner."""
+    n, dim = buf.shape
+    # row n of the padded buffer is the zero row that -1 reads
+    padded = torch.cat([buf, buf.new_zeros((1, dim))])
+    emb = padded.index_select(0, torch.where(index < 0, n, index))
+    pooled, off = {}, 0
+    for f, shape in zip(features, shapes):
+        size = int(np.prod(shape))
+        e = emb[off:off + size].reshape(*shape, dim)
+        valid = index[off:off + size].reshape(shape) >= 0
+        pooled[f.name] = combine(e, valid, f.combiner)
+        off += size
+    return pooled
+
+
+def batch_tensors(batch: Dict[str, np.ndarray],
+                  device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+        device, non_blocking=True) for k, v in batch.items()}
+
+
 class ServingModel:
     """Loads an export and serves predictions; accepts online row deltas.
 
@@ -90,7 +128,7 @@ class ServingModel:
         self.step = self.meta["step"]
         serialization.refuse_model_state(export_path)
         with open(os.path.join(export_path, "dense.msgpack"), "rb") as f:
-            self.module = self._load_module(f.read())
+            self.module = load_module(task, f.read(), self.device)
 
         self.stores: Dict[str, HostStore] = {}
         self.pools: Dict[str, torch.Tensor] = {}
@@ -129,15 +167,6 @@ class ServingModel:
         self._batchers = {t: Batcher(expected_unique=unique_cap)
                           for t in self.tables}
 
-    def _load_module(self, dense_bytes: bytes) -> torch.nn.Module:
-        """A new module on the device with `dense_bytes` (a dense.msgpack)
-        as its parameters; names and shapes must match the task's module."""
-        module = self.task.build_module()
-        params = dict(module.named_parameters())
-        convert.load_dense_tree(params, serialization.from_bytes(
-            convert.dense_tree(params), dense_bytes))
-        return module.to(self.device).eval()
-
     # ------------------------------------------------------------------
 
     def _prepare(self, fid_batch) -> Dict:
@@ -171,25 +200,13 @@ class ServingModel:
         for tname, tin in inputs.items():
             spec = self.tables[tname]
             rows = torch.from_numpy(tin["rows"]).to(dev, non_blocking=True)
-            index = torch.from_numpy(tin["index"]).to(dev, non_blocking=True)
             buf = table_lib.lookup(
                 spec, {"params": pools[tname], "slots": []}, rows)
-            n = buf.shape[0]
-            # row n of the padded buffer is the zero row that -1 reads
-            padded = torch.cat([buf, buf.new_zeros((1, buf.shape[1]))])
-            emb = padded.index_select(0, torch.where(index < 0, n, index))
-            off = 0
-            for fname, shape in zip(self.table_features[tname],
-                                    tin["shapes"]):
-                f = self.features[fname]
-                size = int(np.prod(shape))
-                e = emb[off:off + size].reshape(*shape, spec.dim)
-                valid = index[off:off + size].reshape(shape) >= 0
-                pooled[fname] = combine(e, valid, f.combiner)
-                off += size
-        batch_t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-            dev, non_blocking=True) for k, v in batch.items()}
-        out = module(pooled, batch_t)
+            pooled.update(pool_table(
+                buf, torch.from_numpy(tin["index"]).to(dev, non_blocking=True),
+                [self.features[f] for f in self.table_features[tname]],
+                tin["shapes"]))
+        out = module(pooled, batch_tensors(batch, dev))
         return self.task.predictions(out), out["logits"]
 
     def predict(self, fid_batch: Dict[str, np.ndarray],
@@ -269,7 +286,7 @@ class ServingModel:
     def reload_dense(self, dense_bytes: bytes) -> None:
         """Hot-swap the dense params (the dense-only fast checkpoint
         path): a new module is built and swapped in whole."""
-        module = self._load_module(dense_bytes)
+        module = load_module(self.task, dense_bytes, self.device)
         with self._lock:
             self.module = module
 

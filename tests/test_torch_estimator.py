@@ -304,6 +304,16 @@ def test_demo_main_trains_through_the_estimator(tmp_path, capsys):
     assert (tmp_path / "CHECKPOINT").exists()
 
 
-def test_demo_realtime_waits_for_the_serving_agent():
-    with pytest.raises(SystemExit, match="9b"):
-        demo.main(["--realtime", "--cpu"])
+def test_demo_realtime_waits_for_the_serving_agent(tmp_path, capsys):
+    """`--realtime` (refused until the serving agent was ported) now runs
+    the realtime loop: the agent is up and registered before the
+    streaming run pushes to it, and gone after."""
+    out = demo.main(["--realtime", "--cpu", "--steps", "4", "--batch_size",
+                     "64", "--num_users", "50", "--num_items", "30",
+                     "--embedding_dim", "4", "--model_dir", str(tmp_path)])
+    text = capsys.readouterr().out
+    assert out["realtime"]["pushed_rows"] > 0
+    assert f"realtime: pushed {out['realtime']['pushed_rows']} rows over " \
+        f"6 sync rounds to localhost:" in text
+    assert not [f for f in os.listdir(tmp_path / "discovery")
+                if f.endswith(".json")]
