@@ -168,6 +168,28 @@ failures is caught:
      13d. `demo.main(["--realtime", "--model_dir", tmp])` at its defaults on
        the card: a pushed row count > 0, K1 = 500 + 20 + 1 + 100 +
        non-empty gathers, K2 = 600.
+ 14. the model zoo at full width, run after phase 13, for each of six
+     variants (ffm, din, din with seq_encoder="dien", mmoe, dcn, autoint)
+     at the task's default widths with capacity_per_shard 2^21 and the
+     deepfm_f32 engine (unique_cap = new_cap = 32768, batch 8192):
+     14a. `train.main` on the CLI's synthetic data (seed 0): 8 steps one by
+       one, 16 in blocks of 4 with the Estimator's checkpoint and an
+       export, then `--mode eval` on 4 batches (K1 = 8 / 16 + 1 / 4, K2 =
+       8 / 16); ms/step of the CLI's train loop;
+     14d. a direct checkpoint.restore evaluates the same 4 batches as the
+       CLI did (1e-6 relative), and a ServingModel on the card loaded from
+       the export predicts a batch as the trainer does (rtol 1e-4); then
+       2 + 8 + 8 train steps of the restored trainer on bench.py's deepfm
+       stream: ms/step (host clock), device busy ms/step, idle share and
+       device operations per step under torch.profiler, K1/K2 bit for bit
+       against their plain versions on the trained pool and the last
+       step's rows; every launch of 14a and 14d counted as path "zoo"
+       (K1 52, K2 42 a variant);
+     14b. tests/test_models.py's size on the card, 80 steps: the mean loss
+       of the last 10 below the first 10's; DIN's eval AUC > 0.53; MMoE's
+       per-task losses in aux;
+     14c. that small model on the card and on the CPU from one carried
+       state, 3 steps on batches of admitted ids: losses rtol 1e-4.
 
 TF32 is off for matrix products and convolutions (torch.backends), so the
 card's f32 dense towers run in full f32 like the CPU's. The second-to-last
@@ -1160,9 +1182,12 @@ class Launches:
         ops.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
-        for k, v in ops.launch_counts().items():
-            self.total[k] = self.total.get(k, 0) + v
+        self.add(ops.launch_counts())
         return out
+
+    def add(self, counts):
+        for k, v in counts.items():
+            self.total[k] = self.total.get(k, 0) + v
 
 
 def _steps(trainer, batches, ts0, launches):
@@ -1840,8 +1865,7 @@ def phase_realtime_push(trainer, data, work, launches):
     counted = Launches()
     res, run_ms = _timed(lambda: counted.run(
         lambda: st.run(iter(batches), max_steps=RT_STEPS)))
-    for k, v in counted.total.items():
-        launches.total[k] = launches.total.get(k, 0) + v
+    launches.add(counted.total)
     # one K1 and one K2 a train step; one K1 more for every non-empty
     # (table, round) gather, each of which ended in one push
     assert res["steps"] == RT_STEPS and len(sync.pushes) >= RT_STEPS // RT_EVERY
@@ -2021,8 +2045,7 @@ def phase_realtime_swap_and_control(trainer, data, work, agent, client,
             trainer.train(iter(more[2:]), steps=1, hooks=[ctl.hook])
             return held, paused
         (held, paused), ms = _timed(lambda: counted.run(controlled))
-        for k, v in counted.total.items():
-            launches.total[k] = launches.total.get(k, 0) + v
+        launches.add(counted.total)
         assert held == s0 + 1 and paused == 1, (held, paused, s0)
         assert trainer.step == s0 + 3
         assert checkpoint.latest_step(ckpt) == s0 + 3
@@ -2047,8 +2070,7 @@ def phase_realtime_demo(work, launches):
     counted = Launches()
     out, ms = _timed(lambda: counted.run(lambda: demo.main(
         ["--realtime", "--model_dir", os.path.join(work, "demo")])))
-    for k, v in counted.total.items():
-        launches.total[k] = launches.total.get(k, 0) + v
+    launches.add(counted.total)
     res = out["realtime"]
     assert res["pushed_rows"] > 0 and res["steps"] == 100, res
     # K1: 500 steps, 20 eval batches, the export, 100 streaming steps and
@@ -2091,6 +2113,325 @@ def phase_realtime():
     finally:
         if agent is not None:
             agent.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches.total
+
+
+# ----------------------------------------------------------------------
+# phase 14: the model zoo at full width
+# ----------------------------------------------------------------------
+
+#: variant -> (the CLI's --task, its --task_args beside the capacity)
+ZOO = {"ffm": ("ffm", {}), "din": ("din", {}),
+       "dien": ("din", {"seq_encoder": "dien"}), "mmoe": ("mmoe", {}),
+       "dcn": ("dcn", {}), "autoint": ("autoint", {})}
+#: the deepfm_f32 cell's engine: pool rows, unique_cap = new_cap, batch
+ZOO_CAP, ZOO_U, ZOO_B = 1 << 21, 32768, 8192
+#: CLI steps with --steps_per_dispatch 1, then 4; eval batches
+ZOO_STEPS_K1, ZOO_STEPS_K4, ZOO_EVALS = 8, 16, 4
+#: the measurement windows on the deepfm_f32 cell's stream
+ZOO_WARM, ZOO_WINDOW = 2, 8
+#: tests/test_models.py's sizes (task kwargs, data seed) for each variant:
+#: the learning check and the card against the CPU
+ZOO_SMALL = {
+    "ffm": (dict(capacity_per_shard=8192), 31),
+    "din": (dict(embedding_dim=8, capacity_per_shard=4096, hidden=(32, 16)),
+            21),
+    "dien": (dict(embedding_dim=8, capacity_per_shard=8192, hidden=(16,),
+                  seq_encoder="dien"), 35),
+    "mmoe": (dict(capacity_per_shard=8192), 32),
+    "dcn": (dict(capacity_per_shard=8192), 33),
+    "autoint": (dict(capacity_per_shard=8192), 34)}
+ZOO_LEARN_STEPS, ZOO_DIN_AUC = 80, 0.53
+
+
+def _expect_launches(got, want, what):
+    want = {"gather_rows": 0, "scatter_rows": 0, "stochastic_round_bf16": 0,
+            **want}
+    assert got == want, (what, got, want)
+
+
+def _zoo_task_args(name):
+    task, extra = ZOO[name]
+    return task, {**extra, "capacity_per_shard": ZOO_CAP}
+
+
+def _zoo_cli(name, work, launches, device_args=()):
+    """14a: `train.main` on the CLI's synthetic data (seed 0) at the task's
+    widths and the deepfm_f32 engine: ZOO_STEPS_K1 steps one by one, then
+    ZOO_STEPS_K4 in blocks of 4 ending in the Estimator's checkpoint and an
+    export, then `--mode eval`. Returns (model_dir, export path, the three
+    runs' JSON outputs)."""
+    from monolith_tpu_torch import train
+    task, args = _zoo_task_args(name)
+    model_dir = os.path.join(work, name, "model")
+
+    def cli(mode, *extra):
+        return train.main(["--task", task, "--task_args", json.dumps(args),
+                           "--batch_size", str(ZOO_B), "--unique_cap",
+                           str(ZOO_U), "--new_cap", str(ZOO_U), "--mode",
+                           mode, "--log_every", "0", "--model_dir",
+                           model_dir, *extra, *device_args])
+    outs = []
+    for mode, extra, want in (
+            ("train", ["--steps", str(ZOO_STEPS_K1)],
+             {"gather_rows": ZOO_STEPS_K1, "scatter_rows": ZOO_STEPS_K1}),
+            ("train", ["--steps", str(ZOO_STEPS_K4), "--steps_per_dispatch",
+                       "4", "--export_dir", os.path.join(work, name,
+                                                         "export")],
+             # a step each, and the export's one gather
+             {"gather_rows": ZOO_STEPS_K4 + 1, "scatter_rows": ZOO_STEPS_K4}),
+            ("eval", ["--eval_steps", str(ZOO_EVALS)],
+             {"gather_rows": ZOO_EVALS})):
+        counted = Launches()
+        out, secs = _wall(lambda: counted.run(lambda: cli(mode, *extra)))
+        _expect_launches(counted.total, want, f"{name} cli {mode}")
+        launches.add(counted.total)
+        for part in ("train", "eval"):
+            if part in out:
+                assert all(np.isfinite(v) for v in out[part].values()), out
+        outs.append((out, secs))
+    return model_dir, outs[1][0]["export_path"], outs
+
+
+def _zoo_restored(name, model_dir, device):
+    """A Trainer of the variant at the CLI's engine, restored from the
+    CLI's checkpoint, as a direct `checkpoint.restore` gives it."""
+    from monolith_tpu_torch import train
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.training import checkpoint
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+    task, args = _zoo_task_args(name)
+    trainer = Trainer(train.build_task(task, args), TrainerConfig(
+        engine=EngineConfig(unique_cap=ZOO_U, new_cap=ZOO_U), log_every=0),
+        device=device)
+    assert checkpoint.restore(trainer, model_dir) == \
+        ZOO_STEPS_K1 + ZOO_STEPS_K4
+    return trainer
+
+
+def _zoo_serve(name, trainer, export_path, cli_eval, launches):
+    """14d: the eval of `--mode eval` equals a direct restore's on the
+    CLI's first ZOO_EVALS batches; a ServingModel loaded from the export
+    (made at the same step) predicts a batch as the trainer does. Returns
+    the largest difference of the two predictions."""
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.serving.engine import ServingModel
+    data = SyntheticCTR(batch_size=ZOO_B, seed=0)
+    batches = [data.batch() for _ in range(ZOO_EVALS)]
+    counted = Launches()
+    ev = counted.run(lambda: trainer.evaluate(iter(batches)))
+    for k in ("loss", "auc"):
+        assert abs(cli_eval[k] - ev[k]) <= 1e-6 * abs(ev[k]), \
+            (name, k, cli_eval, ev)
+    model = ServingModel(trainer.task, export_path, unique_cap=ZOO_U,
+                         device=trainer.device)
+    fb, b = batches[0]
+    want = counted.run(lambda: trainer.predict(fb, b)).cpu().numpy()
+    got = counted.run(lambda: model.predict(fb, b))
+    _expect_launches(counted.total, {"gather_rows": ZOO_EVALS + 1},
+                     f"{name} eval and serve")
+    launches.add(counted.total)
+    assert got.shape == (ZOO_B,) and np.isfinite(got).all(), name
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    return float(np.max(np.abs(got - want)))
+
+
+def _zoo_window(name, trainer, launches):
+    """ms/step (host clock, one synchronize at the end of each window),
+    device busy ms/step and operations (kernels and copies) per step under
+    torch.profiler, on the deepfm_f32 cell's stream (bench.py's
+    SyntheticCTR(1,000,000 users, 200,000 items), seed 0), continuing the
+    restored trainer; K1/K2 per step and bit for bit on the trained pool
+    with the last step's rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.embedding.engine import EmbeddingEngine
+    from monolith_tpu_torch.ops import scatter as ops
+    from monolith_tpu_torch.profile_step import _device_intervals, _union_us
+    data = SyntheticCTR(num_users=1_000_000, num_items=200_000,
+                        batch_size=ZOO_B, seed=0)
+    batches = [data.batch() for _ in range(ZOO_WARM + 2 * ZOO_WINDOW)]
+    seen = {}
+    real_lookup = EmbeddingEngine.fused_lookup
+
+    def spy(self, states, inputs, seed, step):
+        seen["states"], seen["inputs"] = states, inputs
+        return real_lookup(self, states, inputs, seed, step)
+
+    def steps(pairs):
+        losses, uniques = [], []
+        for fb, b in pairs:
+            out = trainer.train_step(fb, b)
+            losses.append(out["loss"])
+            uniques.append(sum(out["stats"]["unique"].values()))
+            assert not any(out["stats"]["overflow"].values()), out["stats"]
+        torch.cuda.synchronize()
+        return torch.stack(losses).cpu().numpy(), uniques
+
+    counted = Launches()
+    counted.run(lambda: steps(batches[:ZOO_WARM]))
+    win = batches[ZOO_WARM:ZOO_WARM + ZOO_WINDOW]
+    (losses, uniques), secs = _wall(lambda: counted.run(lambda: steps(win)))
+    ms = secs / ZOO_WINDOW * 1e3
+    EmbeddingEngine.fused_lookup = spy
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            counted.run(lambda: steps(batches[ZOO_WARM + ZOO_WINDOW:]))
+    finally:
+        EmbeddingEngine.fused_lookup = real_lookup
+    n = ZOO_WARM + 2 * ZOO_WINDOW
+    _expect_launches(counted.total, {"gather_rows": n, "scatter_rows": n},
+                     f"{name} windows")
+    launches.add(counted.total)
+    assert np.isfinite(losses).all(), (name, losses)
+    intervals = _device_intervals(prof)
+    busy = _union_us(intervals) / 1e3 / ZOO_WINDOW
+    ops_per_step = len(intervals) / ZOO_WINDOW
+    # the kernels on this run's pool and rows, against their plain versions
+    pool = seen["states"]["sparse"]["data"]
+    rows = seen["inputs"]["sparse"]["rows"]
+    out = ops.gather_rows(pool, rows)
+    assert torch.equal(out, ops.gather_rows_plain(pool, rows)), name
+    values = out + 1.0
+    pool_k, pool_p = pool.clone(), pool.clone()
+    ops.scatter_rows(pool_k, rows, values)
+    ops.scatter_rows_plain(pool_p, rows, values)
+    assert torch.equal(pool_k, pool_p), name
+    del pool_k, pool_p, out, values
+    return {"ms_per_step": ms, "busy_ms": busy, "idle": 1 - busy / ms,
+            "ops_per_step": ops_per_step, "losses": losses,
+            "uniques": int(np.mean(uniques)),
+            "valid_rows": int((rows >= 0).sum())}
+
+
+def _zoo_small(name, device):
+    from monolith_tpu_torch import train
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+    kw, _ = ZOO_SMALL[name]
+    task, extra = ZOO[name]
+    return Trainer(train.build_task(task, {**extra, **kw}), TrainerConfig(
+        engine=EngineConfig(unique_cap=1024, new_cap=1024), log_every=0),
+        device=device)
+
+
+def _zoo_batch(name, pair):
+    """MMoE's batches carry a second head's labels, as tests/test_models.py
+    gives them."""
+    fb, b = pair
+    if name == "mmoe":
+        b = dict(b, labels=np.stack([b["label"], 1.0 - b["label"]], axis=1))
+    return fb, b
+
+
+def _zoo_learns(name, device):
+    """14b: tests/test_models.py's size and criterion, on the card: the
+    mean loss of the last 10 of ZOO_LEARN_STEPS steps below that of the
+    first 10; DIN's eval AUC above ZOO_DIN_AUC; MMoE's per-task losses in
+    aux."""
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    _, seed = ZOO_SMALL[name]
+    trainer = _zoo_small(name, device)
+    size = (80, 40, 128) if name == "mmoe" else (100, 60, 256)
+    data = SyntheticCTR(num_users=size[0], num_items=size[1],
+                        batch_size=size[2], seed=seed)
+    losses = []
+    for _ in range(ZOO_LEARN_STEPS):
+        out = trainer.train_step(*_zoo_batch(name, data.batch()))
+        losses.append(out["loss"])
+        if name == "mmoe":
+            assert "loss_task0" in out["aux"], out["aux"]
+    losses = np.array([float(v) for v in losses])
+    assert np.isfinite(losses).all(), (name, losses)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    assert last < first, (name, first, last)
+    res = {"first10": first, "last10": last}
+    if name in ("din", "dien"):
+        ev = trainer.evaluate(iter(SyntheticCTR(
+            num_users=100, num_items=60, batch_size=256, seed=seed)),
+            max_steps=10)
+        res["auc"] = ev["auc"]
+        if name == "din":
+            assert ev["auc"] > ZOO_DIN_AUC, (name, ev)
+    return res
+
+
+def _zoo_card_vs_cpu(name, device):
+    """14c: one state, carried from a CPU trainer after 3 steps, trains 3
+    more steps on the card and on the CPU on the same 3 batches again, whose
+    ids both have admitted (new rows draw their init from the device's
+    generator): losses to rtol 1e-4."""
+    from monolith_tpu_torch import convert
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    _, seed = ZOO_SMALL[name]
+    data = SyntheticCTR(num_users=100, num_items=60, batch_size=256,
+                        seed=seed + 100)
+    pairs = [_zoo_batch(name, data.batch()) for _ in range(3)]
+    cpu = _zoo_small(name, "cpu")
+    for i, p in enumerate(pairs):
+        cpu.train_step(*p, ts=500 + i)
+    card = _zoo_small(name, device)
+    convert.load_state(card, convert.export_state(cpu))
+    lc, lg = [], []
+    for i, (fb, b) in enumerate(pairs):
+        lc.append(cpu.train_step(fb, b, ts=600 + i)["loss"].item())
+        out = card.train_step(fb, b, ts=600 + i)
+        assert not any(out["stats"]["new"].values()), out["stats"]
+        lg.append(out["loss"].item())
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    return lg, lc
+
+
+def phase_zoo(device="cuda", device_args=()):
+    """Phase 14 for each variant; returns the kernels' launches of the
+    full-width runs (14a, 14d and the windows: path "zoo")."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    work = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    launches = Launches()
+    try:
+        t0 = time.time()
+        for name in ZOO:
+            model_dir, export_path, outs = _zoo_cli(name, work, launches,
+                                                    device_args)
+            trainer = _zoo_restored(name, model_dir, device)
+            serve_err = _zoo_serve(name, trainer, export_path,
+                                   outs[2][0]["eval"], launches)
+            win = _zoo_window(name, trainer, launches)
+            del trainer
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            learned = _zoo_learns(name, device)
+            lg, lc = _zoo_card_vs_cpu(name, device)
+            train = [o["train"] for o, _ in outs[:2]]
+            cli_ms = [ZOO_B / t["examples_per_sec"] * 1e3 for t in train]
+            log(f"14 {name}: cli (a) {outs[0][1]:.3f} + {outs[1][1]:.3f} + "
+                f"{outs[2][1]:.3f} s (train K=1, train K=4 + export, eval): "
+                f"train loop {cli_ms[0]:.3f} / {cli_ms[1]:.3f} ms/step with "
+                f"the data's generation, loss {train[0]['loss']:.5f} -> "
+                f"{train[1]['loss']:.5f}, eval "
+                f"{outs[2][0]['eval']} = a direct restore's; (d) served "
+                f"predictions equal the trainer's (max abs diff "
+                f"{serve_err:.3g}); window on the deepfm_f32 stream: "
+                f"{win['ms_per_step']:.3f} ms/step, device busy "
+                f"{win['busy_ms']:.4f} ms/step, idle {win['idle']:.4f}, "
+                f"{win['ops_per_step']:.1f} device operations/step, K1 1 and "
+                f"K2 1 a step, {win['uniques']} unique ids/step, "
+                f"{win['valid_rows']} valid rows of the last gather (bit "
+                f"for bit against the plain versions), losses "
+                f"{np.round(win['losses'], 5).tolist()}; (b) {learned}; (c) "
+                f"card {lg} vs cpu {lc}")
+        log(f"phase 14: {time.time() - t0:.1f} s; zoo launches "
+            f"{launches.total}")
+    finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches.total
 
@@ -2143,13 +2484,16 @@ def main():
     torch.cuda.empty_cache()
     realtime_launches = phase_realtime()
     torch.cuda.empty_cache()
+    zoo_launches = phase_zoo()
+    torch.cuda.empty_cache()
     for k in kernels:
         # each path was driven with the counts set to 0 just before it;
         # "serving" is the export and the trainer's eval predictions (both
         # paths) and the streaming push and the delta (deepfm_f32);
         # "expiry" the train steps, evictions and spills of phase 11,
-        # "cli" phase 12's train.main and "realtime" phase 13's steps,
-        # exports and sync rounds (deepfm_f32)
+        # "cli" phase 12's train.main, "realtime" phase 13's steps,
+        # exports and sync rounds and "zoo" phase 14's full-width runs
+        # (deepfm_f32: the zoo's pools are [2^21, 128] f32 too)
         k["launches_by_path"] = {
             "per_step": launches[k["path"]][k["name"]],
             "block": block_launches[k["path"]][k["name"]],
@@ -2158,6 +2502,7 @@ def main():
             k["launches_by_path"]["expiry"] = expiry_launches[k["name"]]
             k["launches_by_path"]["cli"] = cli_launches[k["name"]]
             k["launches_by_path"]["realtime"] = realtime_launches[k["name"]]
+            k["launches_by_path"]["zoo"] = zoo_launches[k["name"]]
         k["launches"] = sum(k["launches_by_path"].values())
     # "cli": 12d's train.main (MovieRanking, two tables)
     for k in mr_kernels:

@@ -11,10 +11,10 @@ The state format is the JAX trainer's, in numpy:
      "stores":         {table: HostStore.save() -> (fids, rows, tss, counts)},
      "step":           int}
 
-`load_state` writes such a state into a port `Trainer` (kernels are
-transposed into `nn.Linear`'s [out, in]); `export_state` reads a port
-trainer back out in the same form, so a state also moves between two port
-trainers (the card and the CPU). An `Estimator`'s state is its `trainer`'s. `jax_trainer_state` reads the JAX
+`load_state` writes such a state into a port `Trainer` (Dense kernels are
+transposed into `nn.Linear`'s [out, in]; every other leaf crosses by name
+as it is); `export_state` reads a port trainer back out in the same form,
+so a state also moves between two port trainers (the card and the CPU). An `Estimator`'s state is its `trainer`'s. `jax_trainer_state` reads the JAX
 package's trainer into the format with numpy alone, and
 `port_trainer_config` reads its `TrainerConfig` into the port's with the
 same settings (clip_norm, steps_per_dispatch, per-table caps,
@@ -76,13 +76,18 @@ def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
 
 
 def _torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
-    """flax leaf path -> (nn.Module parameter name, transpose?)."""
+    """flax leaf path -> (nn.Module parameter name, transpose?). A Dense
+    `kernel` is `nn.Linear`'s `weight`, transposed; every other leaf
+    (`bias`, `allint_kernel`, `cin_w_0`, `pos_emb`, ...) keeps its name and
+    its layout. A flax leaf named `weight` would read back as a kernel, so
+    it has no counterpart."""
     leaf = path[-1]
     if leaf == "kernel":
         return ".".join(path[:-1]) + ".weight", True
-    if leaf == "bias":
-        return ".".join(path[:-1]) + ".bias", False
-    raise ValueError(f"no port counterpart for flax parameter {'/'.join(path)}")
+    if leaf == "weight":
+        raise ValueError(f"no port counterpart for flax parameter "
+                         f"{'/'.join(path)}")
+    return ".".join(path), False
 
 
 def _to_module_tensors(tree) -> Dict[str, np.ndarray]:

@@ -1,0 +1,9 @@
+from monolith_tpu_torch.layers import activations
+from monolith_tpu_torch.layers.mlp import MLP
+from monolith_tpu_torch.layers.cross import CrossNet, CIN
+from monolith_tpu_torch.layers.feature_cross import (FFM, CAN, CDot, DCN,
+                                                     AllInt, GroupInt)
+from monolith_tpu_torch.layers.feature_trans import AutoInt, SeNet, iRazor
+from monolith_tpu_torch.layers.feature_seq import DIEN, DIN, DMR_U2I
+from monolith_tpu_torch.layers.agru import AGRUCell, AUGRU, GRU, GRUCell
+from monolith_tpu_torch.layers.multi_task import MMoE

@@ -285,7 +285,7 @@ def refuse_model_state(directory: str) -> None:
     """Raise for a checkpoint or an export whose `model_state.msgpack`
     holds non-parameter state (a BatchNorm's statistics, say). The JAX
     package writes that file only for a model with such state, and no
-    module of the port has any yet (ROADMAP item 10): reading the rest
+    module of the port has any yet (ROADMAP item 10(b)): reading the rest
     without it would train or serve another model than the one saved."""
     path = os.path.join(directory, "model_state.msgpack")
     if not os.path.exists(path):
@@ -294,4 +294,4 @@ def refuse_model_state(directory: str) -> None:
         if msgpack_restore(f.read()):
             raise NotImplementedError(
                 f"{path}: non-parameter model state (model_state.msgpack) "
-                f"is not ported yet (ROADMAP item 10)")
+                f"is not ported yet (ROADMAP item 10(b))")

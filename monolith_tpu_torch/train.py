@@ -6,6 +6,8 @@ rebuild's `local_train` binary), on the card unless `--cpu` is given:
     python -m monolith_tpu_torch.train --task movie_ranking \\
         --data movielens:examples/movielens/ratings.dat \\
         --mode train_and_eval --steps 800 --batch_size 512
+    python -m monolith_tpu_torch.train --task din \\
+        --task_args '{"seq_encoder": "dien"}' --steps 200
     python -m monolith_tpu_torch.train --task mypkg.mymod:MyTask \\
         --data 'files:/data/part-*.rec' --data_fmt pb_example_batch ...
 
@@ -31,20 +33,19 @@ from monolith_tpu_torch.estimator import Estimator, RunnerConfig
 ZOO = {
     "deepfm": ("monolith_tpu_torch.models.deepfm", "DeepFMTask"),
     "multislot": ("monolith_tpu_torch.models.multislot", "MultiSlotTask"),
+    "ffm": ("monolith_tpu_torch.models.ffm", "FFMTask"),
+    "din": ("monolith_tpu_torch.models.din", "DINTask"),
+    "mmoe": ("monolith_tpu_torch.models.multitask", "MMoETask"),
+    "dcn": ("monolith_tpu_torch.models.dcn", "DCNTask"),
+    "autoint": ("monolith_tpu_torch.models.autoint", "AutoIntTask"),
     "movie_ranking": ("monolith_tpu_torch.models.movie_ranking",
                       "MovieRankingTask"),
 }
-#: the JAX package's zoo tasks that the port does not have yet
-NOT_PORTED = ("ffm", "din", "mmoe", "dcn", "autoint")
 
 
 def build_task(name: str, task_args: dict):
     if name in ZOO:
         mod, cls = ZOO[name]
-    elif name in NOT_PORTED:
-        raise SystemExit(f"--task {name} is not ported yet (ROADMAP item 10); "
-                         f"the port's zoo has {sorted(ZOO)}, or pass "
-                         f"module:Class")
     elif ":" in name:
         mod, cls = name.split(":", 1)
     else:

@@ -301,7 +301,7 @@ class Trainer:
         self.tx.update_(named, gp, self.opt_state)
         loss, preds = loss.detach(), _detach(task.predictions(out))
         self._metrics_update(loss, preds, batch_t)
-        return loss, preds, aux, gu
+        return loss, preds, _detach(aux), gu
 
     def _step_core(self, inputs, batch_t, step: int):
         """One synchronous training step on decoded inputs, shared by
@@ -622,7 +622,8 @@ class Trainer:
 
 
 def _detach(preds):
-    """A task's predictions (a tensor or a dict of them), detached."""
+    """A task's predictions or auxiliary losses (a tensor or a dict of
+    them), detached."""
     if isinstance(preds, dict):
         return {k: v.detach() for k, v in preds.items()}
     return preds.detach()

@@ -12,9 +12,9 @@ demo, and the MovieRanking task that the CLI's real-data command trains.
   with losses to rtol 1e-5, then `train` and `evaluate` with the trainer's
   metrics, whose AUC takes a rating label as JAX's does.
 - `Estimator.predict` from carried state equals JAX's (rtol 1e-5).
-- What the port refuses: a zoo task not ported yet (ROADMAP item 10),
-  `num_shards=2` (item 11), `--realtime` (item 9b), and the card's default
-  where CUDA is missing.
+- What the port refuses: a task name outside the zoo (every task of the
+  JAX CLI's zoo is ported), `num_shards=2` (ROADMAP item 11), `--realtime`
+  (item 9b), and the card's default where CUDA is missing.
 """
 
 import io
@@ -159,12 +159,14 @@ def test_cli_movielens_command(tmp_path):
 
 
 def test_zoo_refuses_a_model_not_ported_yet():
-    assert set(jcli.ZOO) == set(pcli.ZOO) | set(pcli.NOT_PORTED)
-    for name in pcli.NOT_PORTED:
-        with pytest.raises(SystemExit, match="ROADMAP item 10"):
-            pcli.build_task(name, {})
-    with pytest.raises(SystemExit, match="ROADMAP item 10"):
-        pcli.main(["--task", "din", "--cpu"])
+    """Every task of the JAX CLI's zoo is ported; a name outside the zoo
+    (and not module:Class) is refused."""
+    assert set(jcli.ZOO) == set(pcli.ZOO)
+    assert not hasattr(pcli, "NOT_PORTED")
+    with pytest.raises(SystemExit, match="--task must be one of"):
+        pcli.build_task("nope", {})
+    with pytest.raises(SystemExit, match="--task must be one of"):
+        pcli.main(["--task", "nope", "--cpu"])
     assert isinstance(pcli.build_task(
         "monolith_tpu_torch.models.deepfm:DeepFMTask", {"hidden": [4]}),
         DeepFMTask)

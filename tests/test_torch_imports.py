@@ -113,5 +113,19 @@ def test_walk_covers_the_slice():
                  "monolith_tpu_torch/data/item_pool.py",
                  "monolith_tpu_torch/data/feature_list.py",
                  "monolith_tpu_torch/utils/tuning.py",
-                 "monolith_tpu_torch/utils/alerts.py"):
+                 "monolith_tpu_torch/utils/alerts.py",
+                 "monolith_tpu_torch/layers/__init__.py",
+                 "monolith_tpu_torch/layers/initializers.py",
+                 "monolith_tpu_torch/layers/activations.py",
+                 "monolith_tpu_torch/layers/agru.py",
+                 "monolith_tpu_torch/layers/cross.py",
+                 "monolith_tpu_torch/layers/feature_cross.py",
+                 "monolith_tpu_torch/layers/feature_trans.py",
+                 "monolith_tpu_torch/layers/multi_task.py",
+                 "monolith_tpu_torch/models/__init__.py",
+                 "monolith_tpu_torch/models/ffm.py",
+                 "monolith_tpu_torch/models/din.py",
+                 "monolith_tpu_torch/models/multitask.py",
+                 "monolith_tpu_torch/models/dcn.py",
+                 "monolith_tpu_torch/models/autoint.py"):
         assert must in files
