@@ -190,6 +190,38 @@ failures is caught:
        per-task losses in aux;
      14c. that small model on the card and on the CPU from one carried
        state, 3 steps on batches of admitted ids: losses rtol 1e-4.
+ 15. the rest of the model library, run after phase 14, on the deepfm_f32
+     configuration (DeepFMTask(embedding_dim=16, capacity_per_shard=2^21),
+     unique_cap = new_cap = 32768, batch 8192, the deepfm_f32 stream) with
+     DeepFM's module replaced by `library_task`'s: DCN(layer_num=2,
+     use_dropout=True, keep_prob=0.9) beside Dense(256, kernel norm) ->
+     BatchNorm -> relu -> LHUCTower((128, 64)) -> LayerNorm, Dense(1) on
+     both; every launch of 15a and 15d counted as path "library":
+     15a. for each dense optimizer (adagrad, adamom, adamom_v2, rmsprop_v2,
+       shampoo): 8 train_steps and a block of 4 (finite losses, BatchNorm's
+       running mean off zero); evaluate and two predicts leave the
+       parameters, the optimizer's tree and model_state bit for bit and
+       agree; checkpoint.save -> restore into a fresh trainer: pool,
+       parameters, optimizer tree and model_state bit for bit, the next
+       train_step of both equal bit for bit; export_model -> ServingModel
+       with the statistics, predictions = trainer.predict (rtol 1e-4);
+       ms/step (host clock, 4 steps), device busy ms/step and operations
+       per step under torch.profiler (4 more); two train-mode forwards of
+       one batch differ by step and repeat for the same step (dropout);
+       K1 28, K2 22 an optimizer;
+     15b. the module small (zero init, keep_prob 1.0) on the card and on
+       the CPU from one carried state, 3 steps per optimizer: losses and
+       batch_stats rtol 1e-4 (shampoo 1e-3); dropout drawn on the card:
+       the kept share of an [8192, 51] draw within 4 sigma of 0.9, kept
+       values exactly x / 0.9;
+     15c. inbatch_auc_loss, batch_softmax_loss, make_loss_fn over the 8
+       ranking losses ([1024, 8] lists with invalid labels),
+       feature_insight (both modes) and fid_counter at batch 8192 on the
+       card and on the CPU: values and input gradients rtol 1e-5 (atol 1e-5
+       of each tensor's largest magnitude: batch sums that cancel);
+     15d. tests/test_infra.py's compat task, built by compat.FeatureFactory
+       at capacity 2^21, 8 steps (K1 18, K2 16 with the graph dump's
+       lookup): dump_model is JSON, dump_graph text.
 
 TF32 is off for matrix products and convolutions (torch.backends), so the
 card's f32 dense towers run in full f32 like the CPU's. The second-to-last
@@ -2436,6 +2468,488 @@ def phase_zoo(device="cuda", device_args=()):
     return launches.total
 
 
+# ----------------------------------------------------------------------
+# phase 15: the rest of the model library at the deepfm_f32 configuration
+# ----------------------------------------------------------------------
+
+#: the dense optimizers, each with the JAX package's defaults (Adagrad:
+#: optax.adagrad(0.01), the task's default)
+LIB_OPTIMIZERS = ("adagrad", "adamom", "adamom_v2", "rmsprop_v2", "shampoo")
+LIB_FEATURES = ("user_id", "item_id", "hist_items")
+
+
+def dense_optimizer(name):
+    from monolith_tpu_torch import optimizers
+    return getattr(optimizers, "Adagrad" if name == "adagrad" else name)()
+
+
+def library_task(optimizer="adagrad", keep_prob=0.9, **deepfm_args):
+    """DeepFMTask with phase 15's module in place of DeepFM's, as the JAX
+    package's tests/test_infra.py subclasses a task with a BatchNorm
+    module, and `optimizer` (a name of LIB_OPTIMIZERS) as its dense
+    optimizer. The module: the pooled features concatenated (x); a cross
+    branch DCN(layer_num=2, use_dropout=True, keep_prob) on x; a deep
+    branch Dense(256, allow_kernel_norm=True) -> BatchNorm -> relu ->
+    LHUCTower((128, 64)) gated by x -> LayerNorm; Dense(1) on both. Its
+    flax twin is tests/test_torch_library.py's `JaxLibraryModule`."""
+    import dataclasses
+
+    import torch
+    from torch import nn
+
+    from monolith_tpu_torch import layers
+    from monolith_tpu_torch.layers import initializers
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+
+    class LibraryModule(nn.Module):
+        def __init__(self, width, generator=None):
+            super().__init__()
+            self.dcn = layers.DCN(width, layer_num=2, use_dropout=True,
+                                  keep_prob=keep_prob, generator=generator)
+            self.dense = layers.Dense(width, 256, allow_kernel_norm=True,
+                                      generator=generator)
+            self.bn = layers.BatchNorm(256)
+            self.lhuc = layers.LHUCTower(256, (128, 64), lhuc_dim=width,
+                                         generator=generator)
+            self.ln = layers.LayerNorm(64)
+            self.head = initializers.dense(width + 64, 1, generator)
+
+        def forward(self, pooled, batch=None):
+            x = torch.cat([pooled[f] for f in LIB_FEATURES], dim=1)
+            h = torch.relu(self.bn(self.dense(x)))
+            h = self.ln(self.lhuc(h, x))
+            logits = self.head(torch.cat([self.dcn(x), h], dim=1))[:, 0]
+            return {"logits": logits}
+
+    @dataclasses.dataclass
+    class LibraryTask(DeepFMTask):
+        name: str = "library"
+
+        def build_module(self, generator=None):
+            return LibraryModule(len(LIB_FEATURES) * (1 + self.embedding_dim),
+                                 generator)
+
+        def dense_optimizer(self):
+            return dense_optimizer(optimizer)
+
+    return LibraryTask(**deepfm_args)
+
+
+#: the deepfm_f32 cell: pool rows, unique_cap = new_cap, batch
+LIB_CAP, LIB_U, LIB_B = 1 << 21, 32768, 8192
+#: 15a: train steps one by one, then one block; the profiled window
+LIB_STEPS, LIB_BLOCK, LIB_WINDOW = 8, 4, 4
+#: 15b: the small size (card against CPU; zero init, no dropout)
+LIB_SMALL = dict(embedding_dim=8, capacity_per_shard=8192, init_scale=0.0)
+#: 15c: ranking lists [LTR_B, LTR_L]
+LTR_B, LTR_L = 1024, 8
+
+
+def _lib_trainer(optimizer, device, small=False, keep_prob=0.9):
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+    if small:
+        task = library_task(optimizer, keep_prob=keep_prob, **LIB_SMALL)
+        engine = EngineConfig(unique_cap=1024, new_cap=1024)
+    else:
+        task = library_task(optimizer, keep_prob=keep_prob, embedding_dim=16,
+                            capacity_per_shard=LIB_CAP)
+        engine = EngineConfig(unique_cap=LIB_U, new_cap=LIB_U)
+    return Trainer(task, TrainerConfig(engine=engine, log_every=0),
+                   device=device)
+
+
+def _flat_state(trainer):
+    """The dense side, numpy by flax path: parameters, the optimizer's
+    whole tree, model_state."""
+    from monolith_tpu_torch import convert
+    return {(tree,) + k: v for tree, t in (
+        ("params", convert.dense_tree(trainer.module.named_parameters())),
+        ("opt_state", trainer.tx.state_tree(trainer.opt_state)),
+        ("model_state", trainer.model_state))
+        for k, v in convert._flatten(t).items()}
+
+
+def _assert_flat_equal(a, b, what):
+    assert sorted(a) == sorted(b), what
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=f"{what} {k}")
+
+
+def _lib_window(trainer, batches):
+    """ms/step on the host clock over the first half of `batches` (one
+    synchronize at the end), then device busy ms/step and device operations
+    per step under torch.profiler over the second half."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from monolith_tpu_torch.profile_step import _device_intervals, _union_us
+    n = len(batches) // 2
+    t0 = time.perf_counter()
+    for fb, b in batches[:n]:
+        trainer.train_step(fb, b)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fb, b in batches[n:]:
+            trainer.train_step(fb, b)
+        torch.cuda.synchronize()
+    intervals = _device_intervals(prof)
+    return (secs / n * 1e3, _union_us(intervals) / 1e3 / n,
+            len(intervals) / n)
+
+
+def _lib_full_width(optimizer, work, launches, device):
+    """15a for one optimizer at the deepfm_f32 cell; returns its numbers.
+    Every launch of the trainer's own path is counted (path "library")."""
+    import torch
+
+    from monolith_tpu_torch import convert
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.serving import ServingModel, export_model
+    from monolith_tpu_torch.training import checkpoint
+    data = SyntheticCTR(num_users=1_000_000, num_items=200_000,
+                        batch_size=LIB_B, seed=0)
+    batches = [data.batch() for _ in range(
+        LIB_STEPS + LIB_BLOCK + 2 + 2 * LIB_WINDOW)]
+    trainer = _lib_trainer(optimizer, device)
+    counted = Launches()
+
+    def steps(pairs):
+        out = [trainer.train_step(fb, b)["loss"] for fb, b in pairs]
+        return torch.stack(out).cpu().numpy()
+
+    t0 = time.perf_counter()
+    losses = counted.run(lambda: steps(batches[:LIB_STEPS]))
+    first_s = time.perf_counter() - t0
+    blk = batches[LIB_STEPS:LIB_STEPS + LIB_BLOCK]
+    block = counted.run(lambda: trainer.train_step_block(blk))["loss"]
+    losses = np.concatenate([losses, block.cpu().numpy()])
+    assert np.isfinite(losses).all(), (optimizer, losses)
+    mean = trainer.model_state["batch_stats"]["bn"]["mean"]
+    assert np.abs(mean).sum() > 0, optimizer
+    # eval mode: the running averages stay as they are, eval is repeatable
+    before = _flat_state(trainer)
+    fb, b = batches[LIB_STEPS + LIB_BLOCK]
+    ev = counted.run(lambda: trainer.evaluate(iter([(fb, b)])))
+    p1 = counted.run(lambda: trainer.predict(fb, b))
+    p2 = counted.run(lambda: trainer.predict(fb, b))
+    assert torch.equal(p1, p2), optimizer
+    _assert_flat_equal(_flat_state(trainer), before, "evaluate")
+    # checkpoint -> restore into a fresh trainer: everything bit for bit
+    ckdir = os.path.join(work, optimizer, "ckpt")
+    (path, save_s) = _wall(lambda: checkpoint.save(trainer, ckdir))
+    fresh = _lib_trainer(optimizer, device)
+    (_, restore_s) = _wall(lambda: checkpoint.restore(fresh, ckdir))
+    _assert_flat_equal(_flat_state(fresh), before, "restore")
+    for t, st in trainer.table_states.items():
+        for k, v in st.items():
+            assert torch.equal(fresh.table_states[t][k], v), (optimizer, t)
+    nb = batches[LIB_STEPS + LIB_BLOCK + 1]
+    oa = counted.run(lambda: trainer.train_step(*nb))
+    ob = counted.run(lambda: fresh.train_step(*nb))
+    assert torch.equal(oa["loss"], ob["loss"]), optimizer
+    assert torch.equal(oa["preds"], ob["preds"]), optimizer
+    del fresh
+    # export -> ServingModel with the BatchNorm statistics
+    export = counted.run(lambda: export_model(
+        trainer, os.path.join(work, optimizer, "export")))
+    model = ServingModel(trainer.task, export, unique_cap=LIB_U,
+                         device=device)
+    _assert_flat_equal(
+        {k: v for k, v in convert._flatten(
+            convert.model_state_tree(model.module)).items()},
+        convert._flatten(trainer.model_state), "served statistics")
+    want = counted.run(lambda: trainer.predict(fb, b)).cpu().numpy()
+    got = counted.run(lambda: model.predict(fb, b))
+    assert got.shape == (LIB_B,) and np.isfinite(got).all(), optimizer
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    del model
+    win = batches[-2 * LIB_WINDOW:]
+    ms, busy, ops = counted.run(lambda: _lib_window(trainer, win))
+    # two train-mode forwards of one batch: the dropout draws differ by
+    # step and repeat for the same step
+    inputs, batch_t, _ = trainer._upload(fb, b, 0)
+    with torch.no_grad():
+        pooled, _ = counted.run(lambda: trainer.engine.embed(
+            trainer.table_states, inputs, step=trainer.step))
+        f1, f2, f3 = (trainer._forward(pooled, batch_t, s, training=True)[
+            "logits"] for s in (100, 101, 100))
+    assert not torch.equal(f1, f2) and torch.equal(f1, f3), optimizer
+    n_steps = LIB_STEPS + LIB_BLOCK + 2 + 2 * LIB_WINDOW
+    _expect_launches(counted.total, {
+        # the steps; evaluate, 2 predicts, the export, 1 more predict, the
+        # embed of the forwards
+        "gather_rows": n_steps + 1 + 2 + 1 + 1 + 1,
+        "scatter_rows": n_steps}, f"library {optimizer}")
+    launches.add(counted.total)
+    del trainer
+    return {"losses": losses, "first_steps_s": first_s, "save_s": save_s,
+            "restore_s": restore_s, "ms": ms, "busy": busy, "ops": ops,
+            "auc": ev["auc"], "ckpt_bytes": _tree_bytes(path),
+            "serve_err": float(np.max(np.abs(got - want)))}
+
+
+def _lib_card_vs_cpu(optimizer, device):
+    """15b: one state, carried from a CPU trainer after 3 steps, trains 3
+    more steps on the card and on the CPU on the same batches (whose ids
+    both have): losses and batch_stats to rtol 1e-4 (Shampoo 1e-3: the two
+    eigh differ)."""
+    from monolith_tpu_torch import convert
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    rtol = 1e-3 if optimizer == "shampoo" else 1e-4
+    data = SyntheticCTR(num_users=100, num_items=60, batch_size=256,
+                        seed=61)
+    pairs = [data.batch() for _ in range(3)]
+    cpu = _lib_trainer(optimizer, "cpu", small=True, keep_prob=1.0)
+    for i, p in enumerate(pairs):
+        cpu.train_step(*p, ts=500 + i)
+    card = _lib_trainer(optimizer, device, small=True, keep_prob=1.0)
+    convert.load_state(card, convert.export_state(cpu))
+    lc, lg = [], []
+    for i, (fb, b) in enumerate(pairs):
+        lc.append(cpu.train_step(fb, b, ts=600 + i)["loss"].item())
+        out = card.train_step(fb, b, ts=600 + i)
+        assert not any(out["stats"]["new"].values()), out["stats"]
+        lg.append(out["loss"].item())
+    np.testing.assert_allclose(lg, lc, rtol=rtol)
+    sc, sg = (convert._flatten(t.model_state) for t in (cpu, card))
+    for k in sc:
+        np.testing.assert_allclose(sg[k], sc[k], rtol=rtol, atol=1e-6,
+                                   err_msg=f"{optimizer} {k}")
+    return lg, lc
+
+
+def _lib_dropout_on_card(device):
+    """15b: dropout drawn on the card: the kept share of an [8192, 51] draw
+    within 4 sigma of keep_prob, kept values exactly x / keep_prob."""
+    import torch
+
+    from monolith_tpu_torch.layers.draws import dropout
+    keep = 0.9
+    x = torch.randn(LIB_B, 51, device=device) + 3.0
+    gen = torch.Generator(device=device).manual_seed(7)
+    out = dropout(x, keep, gen)
+    kept = out != 0
+    share = kept.float().mean().item()
+    sigma = float(np.sqrt(keep * (1 - keep) / x.numel()))
+    assert abs(share - keep) < 4 * sigma, (share, sigma)
+    assert torch.equal(out[kept], x[kept] / keep)
+    return share, sigma
+
+
+def _lib_losses_and_ops(device):
+    """15c: the losses and ops at batch 8192 on the card and on the CPU
+    from the same inputs: values and input gradients to rtol 1e-5, with an
+    absolute slack of 1e-5 of each tensor's largest magnitude (sums over
+    the batch that cancel). Returns each case's largest difference over
+    that magnitude."""
+    import torch
+
+    from monolith_tpu_torch import losses, ops
+    rng = np.random.default_rng(62)
+    f32 = np.float32
+    logits = rng.normal(size=LIB_B).astype(f32)
+    labels = (rng.random(LIB_B) < 0.3).astype(f32)
+    user, item = (rng.normal(size=(LIB_B, 16)).astype(f32) * 0.3
+                  for _ in range(2))
+    log_q = np.log(rng.random(LIB_B).astype(f32) + 0.01)
+    rl = rng.integers(0, 4, (LTR_B, LTR_L)).astype(f32)
+    rl[rng.random((LTR_B, LTR_L)) < 0.2] = -1.0   # invalid items
+    rs = rng.normal(size=(LTR_B, LTR_L)).astype(f32)
+    lw = (rng.random((LTR_B, 1)) + 0.5).astype(f32)
+    emb = rng.normal(size=(LIB_B, 51)).astype(f32)
+    w = rng.normal(size=(51, 8)).astype(f32) * 0.2
+    counter = rng.integers(0, 12, LIB_B).astype(f32)
+    keys = ["pairwise_hinge_loss", "pairwise_logistic_loss",
+            "pairwise_soft_zero_one_loss", "softmax_loss",
+            "sigmoid_cross_entropy_loss", "mean_squared_loss",
+            "list_mle_loss", "approx_ndcg_loss"]
+    ltr = losses.make_loss_fn(keys, [1.0 + 0.25 * i for i in range(8)],
+                              {"approx_ndcg_loss": {"alpha": 5.0}})
+    cases = {
+        "inbatch_auc_loss": ((logits,), lambda lg: losses.inbatch_auc_loss(
+            lg, torch.as_tensor(labels, device=lg.device))),
+        "batch_softmax_loss": ((user, item), lambda u, i: losses.
+                               batch_softmax_loss(u, i, torch.as_tensor(
+                                   log_q, device=u.device), 0.5)),
+        "make_loss_fn (8 keys)": ((rs,), lambda s: ltr(
+            torch.as_tensor(rl, device=s.device), s,
+            torch.as_tensor(lw, device=s.device))),
+        "feature_insight": ((emb, w), lambda e, ww: ops.feature_insight(
+            e, ww, (17, 17, 17))),
+        "feature_insight aggregate": ((emb, w), lambda e, ww: ops.
+                                      feature_insight(e, ww, (17, 17, 17),
+                                                      aggregate=True)),
+        "fid_counter": ((counter,), lambda c: ops.fid_counter(c, 10, 2.0)),
+    }
+    worst = {}
+    for name, (inputs, fn) in cases.items():
+        results = []
+        for dev in (device, "cpu"):
+            xs = [torch.tensor(a, device=dev, requires_grad=True)
+                  for a in inputs]
+            out = fn(*xs)
+            proj = torch.as_tensor(
+                np.random.default_rng(63).normal(size=out.shape).astype(f32),
+                device=dev)
+            grads = torch.autograd.grad(torch.sum(out * proj), xs)
+            results.append([out.detach().cpu().numpy()]
+                           + [g.cpu().numpy() for g in grads])
+        err = 0.0
+        for g, c in zip(*results):
+            assert np.isfinite(g).all(), name
+            # the weight gradients are sums over the batch's 8192 rows, some
+            # cancelling to near zero: rounding is held against the
+            # tensor's largest magnitude there, the other elements to rtol
+            scale = float(np.abs(c).max())
+            np.testing.assert_allclose(g, c, rtol=1e-5,
+                                       atol=max(1e-6, 1e-5 * scale),
+                                       err_msg=name)
+            err = max(err, float(np.max(np.abs(g - c))) / max(scale, 1e-30))
+        worst[name] = err
+    return worst
+
+
+def _compat_task(capacity):
+    """tests/test_infra.py's compat task (compat.FeatureFactory: a user
+    slot with a bias slice, an item slot shared by the history, a Dense
+    head) at `capacity` rows a slot."""
+    import torch
+
+    from monolith_tpu_torch import compat
+    from monolith_tpu_torch.layers import initializers
+    from monolith_tpu_torch.training.task import RecTask
+    fm = compat.FeatureFactory(default_capacity=capacity)
+    fc_user = fm.create_embedding_feature_column(
+        "user_id", occurrence_threshold=0, has_bias=True)
+    fc_item = fm.create_embedding_feature_column("item_id")
+    fc_hist = fm.create_embedding_feature_column(
+        "hist_items", shared_name="item_id", combiner="reduce_mean",
+        max_seq_length=10)
+    u_vec = fc_user.feature_slot.add_feature_slice(8)
+    u_bias = fc_user.feature_slot.get_bias_slice()
+    i_vec = fc_item.feature_slot.add_feature_slice(8)
+    tables, features = fm.build()
+
+    class CompatModule(torch.nn.Module):
+        def __init__(self, generator=None):
+            super().__init__()
+            self.head = initializers.dense(16, 1, generator)
+
+        def forward(self, pooled, batch=None):
+            uv = compat.lookup_embedding_slice(pooled, fc_user, u_vec)
+            ub = fc_user.embedding_lookup(pooled, u_bias)[:, 0]
+            iv = fc_item.embedding_lookup(pooled, i_vec)
+            hv = fc_hist.embedding_lookup(pooled, i_vec)
+            x = torch.cat([uv * iv, uv * hv], dim=-1)
+            return {"logits": self.head(x)[:, 0] + ub}
+
+    class CompatTask(RecTask):
+        def tables(self):
+            return tables
+
+        def features(self):
+            return features
+
+        def build_module(self, generator=None):
+            return CompatModule(generator)
+
+    return CompatTask()
+
+
+def _lib_compat(device):
+    """15d: the compat task at capacity 2^21 and unique_cap 32768 trains 8
+    steps on the deepfm_f32 stream; dump_model is JSON, dump_graph text.
+    Returns (losses, launches, seconds of the graph dump, its length)."""
+    import torch
+
+    from monolith_tpu_torch import model_dump
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+    trainer = Trainer(_compat_task(LIB_CAP), TrainerConfig(
+        engine=EngineConfig(unique_cap=LIB_U, new_cap=LIB_U), log_every=0),
+        device=device)
+    data = SyntheticCTR(num_users=1_000_000, num_items=200_000,
+                        batch_size=LIB_B, seed=0)
+    batches = [data.batch() for _ in range(9)]
+    counted = Launches()
+    losses = counted.run(lambda: torch.stack([
+        trainer.train_step(fb, b)["loss"] for fb, b in batches[:8]]
+    ).cpu().numpy())
+    assert np.isfinite(losses).all(), losses
+    dump = json.loads(json.dumps(model_dump.dump_model(trainer),
+                                 default=repr))
+    assert dump["step"] == 8 and dump["dense_param_count"] == 17, dump
+    assert sorted(dump["tables"]) == ["item_id", "user_id"], dump["tables"]
+    text, graph_s = _wall(lambda: counted.run(
+        lambda: model_dump.dump_graph(trainer, *batches[8])))
+    assert isinstance(text, str) and "sigmoid" in text, text[:500]
+    # two tables: a gather and a scatter each a step; the graph dump's
+    # eval lookup gathers once a table
+    _expect_launches(counted.total, {"gather_rows": 2 * 8 + 2,
+                                     "scatter_rows": 2 * 8}, "compat")
+    return losses, counted.total, graph_s, len(text)
+
+
+def phase_library(device="cuda"):
+    """Phase 15; returns the launches of 15a and 15d (path "library")."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    work = tempfile.mkdtemp(prefix="chip_smoke_library_")
+    launches = Launches()
+    t0 = time.time()
+    try:
+        for opt in LIB_OPTIMIZERS:
+            r = _lib_full_width(opt, work, launches, device)
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            log(f"15a {opt}: losses {np.round(r['losses'], 5).tolist()} "
+                f"(8 steps, then a block of 4), finite; BatchNorm's running "
+                f"mean off zero; evaluate left the dense state bit for bit "
+                f"(auc {r['auc']:.5f}), two eval forwards equal, two "
+                f"train-mode forwards differ; checkpoint ({r['ckpt_bytes']} "
+                f"bytes) saved in {r['save_s']:.3f} s, restored in "
+                f"{r['restore_s']:.3f} s: pool, parameters, optimizer tree "
+                f"and model_state bit for bit, the next step of both equal "
+                f"bit for bit; served = trainer.predict (max abs diff "
+                f"{r['serve_err']:.3g}) with the statistics; "
+                f"{r['ms']:.3f} ms/step, device busy {r['busy']:.4f} "
+                f"ms/step, {r['ops']:.1f} device operations/step "
+                f"(first 8 steps {r['first_steps_s']:.3f} s)")
+        t1 = time.time()
+        for opt in LIB_OPTIMIZERS:
+            lg, lc = _lib_card_vs_cpu(opt, device)
+            log(f"15b {opt}: card {lg} vs cpu {lc}")
+        share, sigma = _lib_dropout_on_card(device)
+        log(f"15b dropout on the card: kept share {share:.6f} (keep_prob "
+            f"0.9, sigma {sigma:.6f}), kept values x / keep_prob exactly")
+        t2 = time.time()
+        worst = _lib_losses_and_ops(device)
+        log(f"15c card vs cpu at batch {LIB_B} (values and input "
+            f"gradients, rtol 1e-5, atol 1e-5 of the largest magnitude): "
+            f"largest difference over the largest magnitude {worst}")
+        t3 = time.time()
+        losses, compat_launches, graph_s, graph_len = _lib_compat(device)
+        launches.add(compat_launches)   # its pools are [2^21, 128] f32 too
+        log(f"15d compat at capacity 2^21: losses "
+            f"{np.round(losses, 5).tolist()}; dump_model JSON; dump_graph "
+            f"{graph_len} characters in {graph_s:.3f} s; launches "
+            f"{compat_launches}")
+        log(f"phase 15: {time.time() - t0:.1f} s (15a {t1 - t0:.1f}, 15b "
+            f"{t2 - t1:.1f}, 15c {t3 - t2:.1f}, 15d {time.time() - t3:.1f}); "
+            f"library launches {launches.total}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches.total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2486,14 +3000,17 @@ def main():
     torch.cuda.empty_cache()
     zoo_launches = phase_zoo()
     torch.cuda.empty_cache()
+    library_launches = phase_library()
+    torch.cuda.empty_cache()
     for k in kernels:
         # each path was driven with the counts set to 0 just before it;
         # "serving" is the export and the trainer's eval predictions (both
         # paths) and the streaming push and the delta (deepfm_f32);
         # "expiry" the train steps, evictions and spills of phase 11,
         # "cli" phase 12's train.main, "realtime" phase 13's steps,
-        # exports and sync rounds and "zoo" phase 14's full-width runs
-        # (deepfm_f32: the zoo's pools are [2^21, 128] f32 too)
+        # exports and sync rounds, "zoo" phase 14's full-width runs and
+        # "library" phase 15a's (deepfm_f32: those pools are [2^21, 128]
+        # f32 too)
         k["launches_by_path"] = {
             "per_step": launches[k["path"]][k["name"]],
             "block": block_launches[k["path"]][k["name"]],
@@ -2503,6 +3020,7 @@ def main():
             k["launches_by_path"]["cli"] = cli_launches[k["name"]]
             k["launches_by_path"]["realtime"] = realtime_launches[k["name"]]
             k["launches_by_path"]["zoo"] = zoo_launches[k["name"]]
+            k["launches_by_path"]["library"] = library_launches[k["name"]]
         k["launches"] = sum(k["launches_by_path"].values())
     # "cli": 12d's train.main (MovieRanking, two tables)
     for k in mr_kernels:
@@ -2516,6 +3034,8 @@ def main():
     torch.cuda.empty_cache()
     phase_kernel_durations(kernels, {"movie_ranking": mr_case})
     log(f"total {time.time() - t0:.1f} s")
+    # the card again, within the end of the output that a caller keeps
+    log(smi[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

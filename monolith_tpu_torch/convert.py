@@ -5,7 +5,11 @@ The state format is the JAX trainer's, in numpy:
     {"params":         flax params tree, e.g. {"deep": {"dense_0":
                        {"kernel": [in, out], "bias": [out]}, ...}}
                        (DeepFM's tower; MovieRanking's is "ratings"),
-     "sum_of_squares": optax adagrad's accumulators, the same tree,
+     "opt_state":      the dense optimizer's state as flax writes it
+                       (`to_state_dict`; e.g. optax.adagrad's
+                       {"0": {"sum_of_squares": <params tree>}, "1": {}}),
+     "model_state":    the non-parameter collections, {"batch_stats":
+                       {...: {"mean", "var"}}} or {} for a model without,
      "tables":         {table: packed pool [1, cap, P] (or [cap, P]),
                        f32 whatever the pool's dtype},
      "stores":         {table: HostStore.save() -> (fids, rows, tss, counts)},
@@ -13,18 +17,20 @@ The state format is the JAX trainer's, in numpy:
 
 `load_state` writes such a state into a port `Trainer` (Dense kernels are
 transposed into `nn.Linear`'s [out, in]; every other leaf crosses by name
-as it is); `export_state` reads a port trainer back out in the same form,
-so a state also moves between two port trainers (the card and the CPU). An `Estimator`'s state is its `trainer`'s. `jax_trainer_state` reads the JAX
-package's trainer into the format with numpy alone, and
+as it is; the optimizer's tree goes through the optimizer's own
+`load_state_tree`); `export_state` reads a port trainer back out in the
+same form, so a state also moves between two port trainers (the card and
+the CPU). An `Estimator`'s state is its `trainer`'s. `jax_trainer_state`
+reads the JAX package's trainer into the format with numpy alone, and
 `port_trainer_config` reads its `TrainerConfig` into the port's with the
 same settings (clip_norm, steps_per_dispatch, per-table caps,
 async_optimize, record_touch, tiered, ...). `jax_archives` and
 `load_archives` carry a tiered trainer's host archives across, so that the
 two packages can start a tiered run from identical state.
 
-Optimizer slots travel inside the packed pool, at the offsets that
-`table._layout` gives them in both packages, so no optimizer needs code
-here.
+Row optimizer slots travel inside the packed pool, at the offsets that
+`table._layout` gives them in both packages, so no row optimizer needs
+code here.
 
 A bf16 pool travels as f32: widening it is exact, and `load_state` narrows
 it back exactly (it raises on a value that bf16 cannot hold, rather than
@@ -78,27 +84,29 @@ def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
 def _torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
     """flax leaf path -> (nn.Module parameter name, transpose?). A Dense
     `kernel` is `nn.Linear`'s `weight`, transposed; every other leaf
-    (`bias`, `allint_kernel`, `cin_w_0`, `pos_emb`, ...) keeps its name and
-    its layout. A flax leaf named `weight` would read back as a kernel, so
-    it has no counterpart."""
+    (`bias`, `allint_kernel`, `cin_w_0`, `pos_emb`, BatchNorm's `mean`,
+    ...) keeps its name and its layout. A flax leaf named `weight` would
+    read back as a kernel, so it has no counterpart."""
     leaf = path[-1]
     if leaf == "kernel":
-        return ".".join(path[:-1]) + ".weight", True
+        return ".".join(path[:-1] + ("weight",)), True
     if leaf == "weight":
         raise ValueError(f"no port counterpart for flax parameter "
                          f"{'/'.join(path)}")
     return ".".join(path), False
 
 
-def _to_module_tensors(tree) -> Dict[str, np.ndarray]:
+def _to_module_tensors(tree, transpose: bool = True
+                       ) -> Dict[str, np.ndarray]:
     out = {}
     for path, arr in _flatten(tree).items():
-        name, transpose = _torch_name(path)
-        out[name] = arr.T if transpose else arr
+        name, is_kernel = _torch_name(path)
+        out[name] = arr.T if is_kernel and transpose else arr
     return out
 
 
-def _to_flax_tree(named: Dict[str, np.ndarray]) -> Dict:
+def _to_flax_tree(named: Dict[str, np.ndarray], transpose: bool = True
+                  ) -> Dict:
     tree: Dict = {}
     for name, arr in named.items():
         *path, leaf = name.split(".")
@@ -106,7 +114,7 @@ def _to_flax_tree(named: Dict[str, np.ndarray]) -> Dict:
         for p in path:
             node = node.setdefault(p, {})
         if leaf == "weight":
-            node["kernel"] = arr.T
+            node["kernel"] = arr.T if transpose else arr
         else:
             node[leaf] = arr
     return tree
@@ -117,17 +125,22 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().copy()
 
 
-def dense_tree(named) -> Dict:
+def dense_tree(named, transpose: bool = True) -> Dict:
     """The flax-form tree (numpy, kernels [in, out]) of named tensors: a
-    module's `named_parameters()` or the optimizer's accumulators."""
-    return _to_flax_tree({n: _host_copy(t) for n, t in dict(named).items()})
+    module's `named_parameters()` or `named_buffers()`, or an optimizer's
+    accumulators. `transpose=False` renames a `weight` to `kernel` without
+    transposing it: for tensors already held in flax's orientation
+    (Shampoo's state)."""
+    return _to_flax_tree({n: _host_copy(t) for n, t in dict(named).items()},
+                         transpose)
 
 
 @torch.no_grad()
-def load_dense_tree(dst: Dict[str, torch.Tensor], tree: Dict) -> None:
+def load_dense_tree(dst: Dict[str, torch.Tensor], tree: Dict,
+                    transpose: bool = True) -> None:
     """Write a flax-form tree into named tensors in place; the names and
     shapes must match exactly."""
-    named = _to_module_tensors(tree)
+    named = _to_module_tensors(tree, transpose)
     if set(named) != set(dst):
         raise ValueError(f"parameter names differ: {sorted(named)} vs "
                          f"{sorted(dst)}")
@@ -138,11 +151,31 @@ def load_dense_tree(dst: Dict[str, torch.Tensor], tree: Dict) -> None:
         dst[name].copy_(torch.from_numpy(np.array(arr)))
 
 
+def model_state_tree(module) -> Dict:
+    """A module's non-parameter state as flax's collections: its buffers
+    (BatchNorm's `mean` / `var`) as {"batch_stats": tree}, or {} for a
+    module without."""
+    buffers = dict(module.named_buffers())
+    return {"batch_stats": dense_tree(buffers)} if buffers else {}
+
+
+def load_model_state(module, tree: Dict) -> None:
+    """Write a `model_state_tree` into the module's buffers in place; the
+    collections, names and shapes must match exactly."""
+    want = model_state_tree(module)
+    if set(tree) != set(want):
+        raise ValueError(f"model state collections differ: {sorted(tree)} "
+                         f"vs {sorted(want)}")
+    if tree:
+        load_dense_tree(dict(module.named_buffers()), tree["batch_stats"])
+
+
 @torch.no_grad()
 def load_state(trainer, state: Dict) -> None:
     """Write a numpy state (format above) into a port Trainer, in place."""
     load_dense_tree(dict(trainer.module.named_parameters()), state["params"])
-    load_dense_tree(trainer.opt_state, state["sum_of_squares"])
+    trainer.tx.load_state_tree(trainer.opt_state, state["opt_state"])
+    load_model_state(trainer.module, state["model_state"])
     for tname, pool in state["tables"].items():
         data = trainer.table_states[tname]["data"]
         src = torch.from_numpy(
@@ -162,7 +195,8 @@ def load_state(trainer, state: Dict) -> None:
 def export_state(trainer) -> Dict:
     """Read a port Trainer's state out in the numpy format above."""
     return {"params": dense_tree(trainer.module.named_parameters()),
-            "sum_of_squares": dense_tree(trainer.opt_state),
+            "opt_state": trainer.tx.state_tree(trainer.opt_state),
+            "model_state": model_state_tree(trainer.module),
             "tables": {t: _host_copy(st["data"].float())[None]
                        for t, st in trainer.table_states.items()},
             "stores": {t: s.save() for t, s in trainer.engine.stores.items()},
@@ -173,14 +207,27 @@ def jax_trainer_state(jax_trainer) -> Dict:
     """The JAX package's single-shard Trainer state in the numpy format
     (np.asarray on its arrays; nothing of JAX is imported here). A bf16
     pool reads as f32."""
-    sos = jax_trainer.opt_state[0].sum_of_squares  # scale_by_rss state
-    return {"params": _to_flax_tree(_to_module_tensors(jax_trainer.params)),
-            "sum_of_squares": _to_flax_tree(_to_module_tensors(sos)),
+    return {"params": _state_dict(jax_trainer.params),
+            "opt_state": _state_dict(jax_trainer.opt_state),
+            "model_state": _state_dict(jax_trainer.model_state),
             "tables": {t: np.asarray(st["data"]).astype(np.float32)
                        for t, st in jax_trainer.table_states.items()},
             "stores": {t: stores[0].save()
                        for t, stores in jax_trainer.engine.stores.items()},
             "step": int(jax_trainer.step)}
+
+
+def _state_dict(x):
+    """flax's `serialization.to_state_dict` of a JAX tree, in numpy: a
+    dict by its keys, a NamedTuple (optax's states) by its fields, a tuple
+    or list by position ("0", "1", ...), an array as numpy."""
+    if hasattr(x, "items"):
+        return {str(k): _state_dict(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return {f: _state_dict(getattr(x, f)) for f in x._fields}
+    if isinstance(x, (tuple, list)):
+        return {str(i): _state_dict(v) for i, v in enumerate(x)}
+    return np.asarray(x)
 
 
 def jax_archives(jax_trainer) -> Dict:

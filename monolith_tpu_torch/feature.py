@@ -8,6 +8,8 @@ and how its ids per example are pooled ("sum" / "mean": [B, dim];
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
+
 import torch
 
 
@@ -17,6 +19,10 @@ class FeatureConfig:
     table: str                 # TableSpec.name
     max_length: int            # ids per example (static pad length)
     combiner: str = "sum"      # sum | mean | firstn
+    slice_dims: Optional[Tuple[int, ...]] = None  # optional per-slice split view
+
+    def output_dim(self, table_dim: int) -> int:
+        return table_dim
 
 
 def combine(emb: torch.Tensor, valid: torch.Tensor, combiner: str) -> torch.Tensor:

@@ -12,6 +12,7 @@ from torch import nn
 
 from monolith_tpu_torch.layers import activations
 from monolith_tpu_torch.layers import initializers as init
+from monolith_tpu_torch.layers.draws import Drawing, dropout
 from monolith_tpu_torch.layers.mlp import MLP
 from monolith_tpu_torch.ops.interactions import ffm_interaction
 
@@ -138,30 +139,27 @@ class CAN(nn.Module):
         return x.sum(dim=1) if self.is_seq else x[:, 0, :]
 
 
-class DCN(nn.Module):
+class DCN(Drawing):
     """Deep & Cross v1/v2/mixed over [B, D] (ref :445, dcn_type vector |
     matrix | mixed), parameters glorot-normal, biases zero:
       vector: x' = x0 * (x.w) + b + x          (`kernel_{i}` [D, 1])
       matrix: x' = x0 * (W x + b) + x          (`kernel_{i}` [D, D])
       mixed:  low-rank experts `U_{i}_{j}`, `V_{i}_{j}` [D, low_rank] with
               softmax gates `gate_{i}` [D, num_experts] (DCN-V2 mixed).
-    Dropout (`use_dropout`, with the JAX layer's `keep_prob`) needs a
-    training flag, which the port's modules do not have yet: it raises."""
+    With `use_dropout`, each layer's output goes through flax's dropout
+    (keep `keep_prob`, scale 1 / keep_prob) in train mode only, drawn from
+    the layer's generator (layers/draws.py)."""
 
     def __init__(self, dim: int, layer_num: int = 1, dcn_type: str = "matrix",
                  num_experts: int = 1, low_rank: int = 0,
-                 use_dropout: bool = False,
+                 use_dropout: bool = False, keep_prob: float = 0.95,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if use_dropout:
-            raise NotImplementedError(
-                "DCN(use_dropout=True) drops out in training only, and the "
-                "port's modules have no training flag yet (ROADMAP item "
-                "10(a))")
         if dcn_type not in ("vector", "matrix", "mixed"):
             raise ValueError(f"unknown dcn_type {dcn_type}")
         self.layer_num, self.dcn_type = layer_num, dcn_type
         self.num_experts = num_experts
+        self.use_dropout, self.keep_prob = use_dropout, keep_prob
         g, gn = generator, init.glorot_normal
         for i in range(layer_num):
             if dcn_type == "mixed":
@@ -178,21 +176,25 @@ class DCN(nn.Module):
                 setattr(self, f"kernel_{i}", init.param(gn, (dim, width), g))
                 setattr(self, f"bias_{i}", init.param(init.zeros, (dim,)))
 
+    def _cross(self, i: int, x0: torch.Tensor, x: torch.Tensor
+               ) -> torch.Tensor:
+        if self.dcn_type == "mixed":
+            stacked = torch.stack(
+                [x0 * ((x @ getattr(self, f"V_{i}_{j}"))
+                       @ getattr(self, f"U_{i}_{j}").T)
+                 for j in range(self.num_experts)], dim=-1)  # [B, D, E]
+            gates = torch.softmax(x @ getattr(self, f"gate_{i}"),
+                                  dim=-1)                    # [B, E]
+            return torch.einsum("bde,be->bd", stacked, gates) + x
+        w, b = getattr(self, f"kernel_{i}"), getattr(self, f"bias_{i}")
+        if self.dcn_type == "vector":
+            return x0 * (x @ w) + b + x
+        return x0 * (x @ w + b) + x
+
     def forward(self, x0: torch.Tensor) -> torch.Tensor:
         x = x0
         for i in range(self.layer_num):
-            if self.dcn_type == "mixed":
-                stacked = torch.stack(
-                    [x0 * ((x @ getattr(self, f"V_{i}_{j}"))
-                           @ getattr(self, f"U_{i}_{j}").T)
-                     for j in range(self.num_experts)], dim=-1)  # [B, D, E]
-                gates = torch.softmax(x @ getattr(self, f"gate_{i}"),
-                                      dim=-1)                    # [B, E]
-                x = torch.einsum("bde,be->bd", stacked, gates) + x
-                continue
-            w, b = getattr(self, f"kernel_{i}"), getattr(self, f"bias_{i}")
-            if self.dcn_type == "vector":
-                x = x0 * (x @ w) + b + x
-            else:
-                x = x0 * (x @ w + b) + x
+            x = self._cross(i, x0, x)
+            if self.use_dropout and self.training:
+                x = dropout(x, self.keep_prob, self.draw_generator())
         return x

@@ -1,7 +1,5 @@
-"""Multi-task layers (ref layers/multi_task.py): MMoE (:34), the port of
-the JAX package's layers/multi_task.py. SNR (:308) is not ported: it draws
-from a random stream in training only, and the port's modules have no
-training flag yet (ROADMAP item 10(a))."""
+"""Multi-task layers (ref layers/multi_task.py): MMoE (:34) and SNR
+(:308), the port of the JAX package's layers/multi_task.py."""
 
 from __future__ import annotations
 
@@ -11,6 +9,7 @@ import torch
 from torch import nn
 
 from monolith_tpu_torch.layers import initializers as init
+from monolith_tpu_torch.layers.draws import Drawing, uniform
 from monolith_tpu_torch.layers.mlp import MLP
 
 
@@ -66,3 +65,66 @@ class MMoE(nn.Module):
                                                          + 1e-9)
             outs.append(torch.einsum("bde,be->bd", experts, gates))
         return outs, aux_loss
+
+
+class SNR(Drawing):
+    """Sub-Network Routing (ref :308): learned stochastic binary (hard
+    concrete) connections between `num_in_subnet` input sub-networks of
+    width `in_dim` and `num_out_subnet` outputs of width `out_subnet_dim`.
+    forward(list of [B, in_dim]) -> list of [B, out_subnet_dim].
+
+    The gate z = clip(s * (zeta - gamma) + gamma, 0, 1) of each (in, out)
+    pair, with log-alpha `snr_log_alpha` (zeros at init): s =
+    sigmoid((log u - log(1 - u) + log_alpha) / beta), u uniform in
+    [1e-6, 1 - 1e-6) drawn from the layer's generator, when it is
+    stochastic; s = sigmoid(log_alpha) otherwise. "trans" routes through
+    gated matrices `snr_weight` [n_in * n_out, in_dim, out_dim]
+    (glorot-normal); "aver" sums the gated inputs (in_dim == out_dim).
+
+    As in the JAX layer, whether the gate draws is the constructor's
+    `training` (default True), not the module's train / eval mode; it is
+    kept as `stochastic`, since `training` is nn.Module's mode."""
+
+    def __init__(self, num_in_subnet: int, in_dim: int, num_out_subnet: int,
+                 out_subnet_dim: int, snr_type: str = "trans",
+                 zeta: float = 1.1, gamma: float = -0.1, beta: float = 0.667,
+                 training: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if snr_type not in ("trans", "aver"):
+            raise ValueError(f"unknown snr_type {snr_type}")
+        if snr_type == "aver":
+            assert in_dim == out_subnet_dim
+        self.n_in, self.n_out = num_in_subnet, num_out_subnet
+        self.snr_type, self.stochastic = snr_type, training
+        self.zeta, self.gamma, self.beta = zeta, gamma, beta
+        n = num_in_subnet * num_out_subnet
+        self.snr_log_alpha = init.param(init.zeros, (n,))
+        if snr_type == "trans":
+            self.snr_weight = init.param(
+                init.glorot_normal, (n, in_dim, out_subnet_dim), generator)
+
+    def gate(self, device) -> torch.Tensor:
+        """z [n_in * n_out]."""
+        log_alpha = self.snr_log_alpha
+        if self.stochastic:
+            u = uniform(log_alpha.shape, self.draw_generator(), device,
+                        1e-6, 1 - 1e-6)
+            s = torch.sigmoid((torch.log(u) - torch.log(1 - u) + log_alpha)
+                              / self.beta)
+        else:
+            s = torch.sigmoid(log_alpha)
+        return torch.clamp(s * (self.zeta - self.gamma) + self.gamma,
+                           0.0, 1.0)
+
+    def forward(self, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
+        z = self.gate(inputs[0].device)
+        if self.snr_type == "aver":
+            zmat = z.reshape(self.n_in, self.n_out)
+            return [sum(zmat[i, j] * inputs[i] for i in range(self.n_in))
+                    for j in range(self.n_out)]
+        w = self.snr_weight * z[:, None, None]
+        x = torch.stack(inputs, dim=1)  # [B, n_in, in_dim]
+        w4 = w.reshape(self.n_in, self.n_out, *w.shape[1:])
+        out = torch.einsum("bni,niod->bod", x, w4.permute(0, 2, 1, 3))
+        return [out[:, j] for j in range(self.n_out)]

@@ -1,0 +1,3 @@
+from monolith_tpu_torch.optimizers.dense import (Adagrad, Adamom, RMSpropV2,
+                                                 Shampoo, adamom, adamom_v2,
+                                                 rmsprop_v2, shampoo)

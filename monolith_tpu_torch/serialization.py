@@ -7,7 +7,9 @@ without importing flax or msgpack. This module implements the subset of
 msgpack that such a file holds:
 
 - nested maps with `str` keys (written in sorted key order at every level,
-  the order a JAX tree of dicts has once it has passed through a tree map);
+  the order a JAX tree of dicts has once it has passed through a tree map;
+  a `Fields` map in its own order, the order of a NamedTuple's fields,
+  which flax writes for an optax state such as Adamom's (m, v, c));
 - ext type 1, an ndarray, whose payload is itself the msgpack array
   `(shape, dtype name, bytes)`; ext type 3, a numpy scalar, the same payload;
 - ints, floats, bools and nil.
@@ -21,6 +23,10 @@ no dense parameter is that large.
 `from_bytes(template, data)` is structural like flax's: the decoded tree
 must have exactly the template's keys, and (stricter than flax) every array
 the template's shape; otherwise it raises.
+
+`save_model_state` / `load_model_state` write and read the
+`model_state.msgpack` of a checkpoint or an export: a module's buffers as
+flax's `{"batch_stats": ...}`, written only for a module that has any.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ import struct
 from typing import Any, Dict
 
 import numpy as np
+
+from monolith_tpu_torch import convert
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 _CHUNKED = "__msgpack_chunked_array__"
@@ -126,10 +134,15 @@ def _ndarray_payload(arr: np.ndarray) -> bytes:
             + _pack_str(arr.dtype.name) + _pack_bin(arr.tobytes("C")))
 
 
+class Fields(dict):
+    """A map written in its insertion order, as flax writes the fields of a
+    NamedTuple; every other map is written in sorted key order."""
+
+
 def _pack(x: Any) -> bytes:
     if isinstance(x, dict):
         out = [_pack_map_head(len(x))]
-        for k in sorted(x):
+        for k in (x if isinstance(x, Fields) else sorted(x)):
             if not isinstance(k, str):
                 raise TypeError(f"map keys must be str (got {k!r})")
             out += [_pack_str(k), _pack(x[k])]
@@ -281,17 +294,21 @@ def from_bytes(template: Dict, data: bytes) -> Dict:
     return _restore_into(template, msgpack_restore(data), "")
 
 
-def refuse_model_state(directory: str) -> None:
-    """Raise for a checkpoint or an export whose `model_state.msgpack`
-    holds non-parameter state (a BatchNorm's statistics, say). The JAX
-    package writes that file only for a model with such state, and no
-    module of the port has any yet (ROADMAP item 10(b)): reading the rest
-    without it would train or serve another model than the one saved."""
+def save_model_state(directory: str, tree: Dict) -> None:
+    """Write `model_state.msgpack` for a model with non-parameter state (a
+    `convert.model_state_tree`), as the JAX package writes it only then."""
+    if tree:
+        with open(os.path.join(directory, "model_state.msgpack"), "wb") as f:
+            f.write(to_bytes(tree))
+
+
+def load_model_state(directory: str, module) -> None:
+    """Read `model_state.msgpack` from a checkpoint or an export into the
+    module's buffers, when both exist (a module without such state ignores
+    the file, as the JAX package does; a module with it keeps its initial
+    statistics when the file is missing)."""
     path = os.path.join(directory, "model_state.msgpack")
-    if not os.path.exists(path):
-        return
-    with open(path, "rb") as f:
-        if msgpack_restore(f.read()):
-            raise NotImplementedError(
-                f"{path}: non-parameter model state (model_state.msgpack) "
-                f"is not ported yet (ROADMAP item 10(b))")
+    template = convert.model_state_tree(module)
+    if template and os.path.exists(path):
+        with open(path, "rb") as f:
+            convert.load_model_state(module, from_bytes(template, f.read()))

@@ -12,12 +12,12 @@ for DeepFM), no whole number of 16-byte vectors, so the lookup is plain
 PyTorch (`index_select` on clamped rows and a mask) as it is plain XLA in
 the JAX package: serving launches none of the port's kernels.
 
-The forward is the task's `nn.Module` under `torch.inference_mode()`; there
-is nothing to trace or compile. The module owns its parameters from
-construction, so `dense.msgpack` is loaded into it when the model is
-constructed (the JAX package defers that to the first predict, when it can
-build a template). An export with non-parameter state (a non-empty
-`model_state.msgpack`) is refused: no ported module has such state yet.
+The forward is the task's `nn.Module` in eval mode under
+`torch.inference_mode()`; there is nothing to trace or compile. The module
+owns its parameters from construction, so `dense.msgpack` (and, for a
+module with non-parameter state, `model_state.msgpack`: BatchNorm's running
+statistics) is loaded into it when the model is constructed (the JAX
+package defers that to the first predict, when it can build a template).
 
 Concurrency. `predict` does its host prepare (dedup, id -> row lookup) and
 takes references to the pools and the module under the version lock, then
@@ -58,13 +58,18 @@ from monolith_tpu_torch.training.task import RecTask
 
 
 def load_module(task: RecTask, dense_bytes: bytes,
-                device: torch.device) -> torch.nn.Module:
+                device: torch.device,
+                model_state: Optional[Dict] = None) -> torch.nn.Module:
     """A new task module on `device` in eval mode with `dense_bytes` (a
-    dense.msgpack) as its parameters; names and shapes must match."""
+    dense.msgpack) as its parameters and `model_state` (a
+    `convert.model_state_tree`), if given, as its buffers; names and
+    shapes must match."""
     module = task.build_module()
     params = dict(module.named_parameters())
     convert.load_dense_tree(params, serialization.from_bytes(
         convert.dense_tree(params), dense_bytes))
+    if model_state is not None:
+        convert.load_model_state(module, model_state)
     return module.to(device).eval()
 
 
@@ -126,9 +131,9 @@ class ServingModel:
         with open(os.path.join(export_path, "meta.json")) as f:
             self.meta = json.load(f)
         self.step = self.meta["step"]
-        serialization.refuse_model_state(export_path)
         with open(os.path.join(export_path, "dense.msgpack"), "rb") as f:
             self.module = load_module(task, f.read(), self.device)
+        serialization.load_model_state(export_path, self.module)
 
         self.stores: Dict[str, HostStore] = {}
         self.pools: Dict[str, torch.Tensor] = {}
@@ -285,8 +290,10 @@ class ServingModel:
 
     def reload_dense(self, dense_bytes: bytes) -> None:
         """Hot-swap the dense params (the dense-only fast checkpoint
-        path): a new module is built and swapped in whole."""
-        module = load_module(self.task, dense_bytes, self.device)
+        path): a new module is built with the serving one's non-parameter
+        state and swapped in whole."""
+        module = load_module(self.task, dense_bytes, self.device,
+                             convert.model_state_tree(self.module))
         with self._lock:
             self.module = module
 

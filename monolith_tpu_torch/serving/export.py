@@ -11,6 +11,8 @@ Layout:
     <dir>/export-<step>/
         meta.json
         dense.msgpack
+        model_state.msgpack         BatchNorm's statistics, for a model
+                                    with non-parameter state
         tables/<table>-s0.npz       fids + per-segment compressed blobs
     <dir>/EXPORT                    latest step pointer
 
@@ -45,6 +47,7 @@ def export_model(trainer, directory: str, step: Optional[int] = None) -> str:
     with open(os.path.join(path, "dense.msgpack"), "wb") as f:
         f.write(serialization.to_bytes(
             convert.dense_tree(trainer.module.named_parameters())))
+    serialization.save_model_state(path, trainer.model_state)
 
     meta = {"step": step, "ts": int(time.time()), "tables": {}}
     for tname, spec in trainer.engine.tables.items():

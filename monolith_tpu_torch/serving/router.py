@@ -15,8 +15,8 @@ the single model's bit for bit.
 
 The JAX package's router jits its own forward and builds its parameters at
 the first predict. Here the task's module is built and `dense.msgpack`
-loaded into it at construction, as `ServingModel` does; an export with
-non-parameter state is refused.
+(and `model_state.msgpack`, for a module with BatchNorm statistics) loaded
+into it at construction, as `ServingModel` does.
 """
 
 from __future__ import annotations
@@ -72,9 +72,9 @@ class ShardedServingRouter:
         with open(os.path.join(export_path, "meta.json")) as f:
             self.meta = json.load(f)
         self.step = self.meta["step"]
-        serialization.refuse_model_state(export_path)
         with open(os.path.join(export_path, "dense.msgpack"), "rb") as f:
             self.module = load_module(task, f.read(), self.device)
+        serialization.load_model_state(export_path, self.module)
         self._batchers = {t: Batcher(expected_unique=unique_cap)
                           for t in self.tables}
         # remote lookups are independent per (table, shard): fan them out

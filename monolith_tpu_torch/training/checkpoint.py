@@ -6,6 +6,8 @@ Layout (one directory per step):
         meta.json                      step, ts, table inventory
         dense.msgpack                  dense params (flax tree, msgpack)
         opt_state.msgpack              dense optimizer state
+        model_state.msgpack            non-parameter state (BatchNorm's
+                                       batch_stats), for a model with any
         tables/<table>-s0.npz          pool params + optimizer slot arrays +
                                        host map dump (fids/rows/tss/counts)
         filters/<table>-s0.bin         admission-filter state
@@ -23,8 +25,12 @@ and only that is copied to the host; restore uploads only the prefix and
 makes the rows above it on the device (`table.state_from_np`), so neither
 direction moves or holds a full-capacity pool on the host.
 
-`opt_state.msgpack` is the tree flax writes for `optax.adagrad`'s state,
-`{"0": {"sum_of_squares": <params tree>}, "1": {}}`.
+`opt_state.msgpack` is the tree flax writes for the dense optimizer's
+optax state (the optimizer's `state_tree`: optax.adagrad's is
+`{"0": {"sum_of_squares": <params tree>}, "1": {}}`); `model_state.msgpack`
+is `Trainer.model_state`, `{"batch_stats": ...}`. Restore reads
+`model_state.msgpack` into a model that has such state, as the JAX package
+does (a model without ignores the file).
 
 Deltas (`save_delta` / `restore_delta`) carry only the rows touched since a
 timestamp, as (fids, tss, counts, values); `restore_delta` assigns rows
@@ -78,7 +84,9 @@ def save(trainer, directory: str, evict_before_save: bool = False,
         f.write(serialization.to_bytes(
             convert.dense_tree(trainer.module.named_parameters())))
     with open(os.path.join(path, "opt_state.msgpack"), "wb") as f:
-        f.write(serialization.to_bytes(_opt_state_tree(trainer)))
+        f.write(serialization.to_bytes(
+            trainer.tx.state_tree(trainer.opt_state)))
+    serialization.save_model_state(path, trainer.model_state)
 
     meta = {"step": step, "ts": int(time.time()), "dense_only": dense_only,
             "tables": {}}
@@ -137,13 +145,6 @@ def _restore_archives(trainer, path) -> None:
         p = os.path.join(adir, f"{tname}-s0.npz")
         if os.path.exists(p):
             arch.restore(p)
-
-
-def _opt_state_tree(trainer) -> Dict:
-    """The dense optimizer's state as flax writes optax.adagrad's: a tuple
-    of (scale_by_rss state, empty state) as a map with keys "0" and "1"."""
-    return {"0": {"sum_of_squares": convert.dense_tree(trainer.opt_state)},
-            "1": {}}
 
 
 def save_delta(trainer, directory: str, since_ts: int,
@@ -225,7 +226,6 @@ def restore(trainer, directory: str, step: Optional[int] = None) -> int:
     path = os.path.join(directory, f"ckpt-{step}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
-    serialization.refuse_model_state(path)
 
     dense_path = os.path.join(path, "dense.msgpack")
     if os.path.exists(dense_path):
@@ -233,10 +233,11 @@ def restore(trainer, directory: str, step: Optional[int] = None) -> int:
         with open(dense_path, "rb") as f:
             convert.load_dense_tree(params, serialization.from_bytes(
                 convert.dense_tree(params), f.read()))
+        tx = trainer.tx
         with open(os.path.join(path, "opt_state.msgpack"), "rb") as f:
-            opt = serialization.from_bytes(_opt_state_tree(trainer), f.read())
-        convert.load_dense_tree(trainer.opt_state,
-                                opt["0"]["sum_of_squares"])
+            tx.load_state_tree(trainer.opt_state, serialization.from_bytes(
+                tx.state_tree(trainer.opt_state), f.read()))
+        serialization.load_model_state(path, trainer.module)
 
     if not meta.get("dense_only"):
         for tname, tmeta in meta["tables"].items():

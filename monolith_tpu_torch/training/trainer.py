@@ -6,9 +6,21 @@ Per step:
           the batch arrays' raw 4-byte words and the step number into ONE
           pinned int32 buffer, sent to the card with one non_blocking copy
   device: decode -> fused_lookup (K1 gather + new-row init select) ->
-          pool -> dense fwd/bwd -> [global-norm clip] -> dense Adagrad
-          (optax form) -> fused_apply (per-row optimize, K3 stochastic
-          rounding for a bf16 pool that asks for it, K2 scatter)
+          pool -> dense fwd/bwd -> [global-norm clip] -> the task's dense
+          optimizer (optax form) -> fused_apply (per-row optimize, K3
+          stochastic rounding for a bf16 pool that asks for it, K2
+          scatter)
+
+The module runs in `train()` mode in every training step (per step and in
+blocks of either kind) and in `eval()` mode in `predict`, `evaluate` and
+every other forward-only pass, as the JAX trainer passes `training=True`
+or `False`. Its non-parameter state (BatchNorm's running statistics,
+buffers updated in place by the forward) is `model_state`, in flax's
+`{"batch_stats": ...}` form. Layers that draw (DCN's dropout, SNR's gate;
+layers/draws.py) draw from one generator on the trainer's device, seeded
+from (config.seed, step) before each forward, so a restored trainer's
+next step draws what the original's would have. (The JAX trainer passes
+no `rngs`, so such a layer cannot train there: ROADMAP fault R3.)
 
 Block dispatch (`TrainerConfig.steps_per_dispatch = K > 1`): `stage_block`
 packs K consecutive batches into one pinned [K, W] buffer and starts ONE
@@ -56,11 +68,14 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from monolith_tpu_torch import convert
 from monolith_tpu_torch.device import resolve_device
 from monolith_tpu_torch.embedding import table as table_lib
 from monolith_tpu_torch.embedding.engine import (EmbeddingEngine,
-                                                 EngineConfig, pad_rows)
+                                                 EngineConfig, _init_seed,
+                                                 pad_rows)
 from monolith_tpu_torch.embedding.tiered import state_width
+from monolith_tpu_torch.layers.draws import set_generator
 from monolith_tpu_torch.metrics import (StreamingAUC, StreamingMean,
                                         device_metrics_init,
                                         device_metrics_update)
@@ -132,6 +147,9 @@ class Trainer:
                                       device=self.device)
         generator = torch.Generator().manual_seed(config.seed)
         self.module = task.build_module(generator=generator).to(self.device)
+        self._draws = torch.Generator(device=self.device)
+        if not set_generator(self.module, self._draws):
+            self._draws = None
         self.tx = task.dense_optimizer()
         self.opt_state = self.tx.init(self.module.named_parameters())
         self.table_states = self.engine.create_states()
@@ -266,6 +284,23 @@ class Trainer:
 
     # ------------------------------------------------------------------
 
+    @property
+    def model_state(self) -> Dict:
+        """The module's non-parameter state in flax's form, numpy:
+        {"batch_stats": tree} ({} for a module without)."""
+        return convert.model_state_tree(self.module)
+
+    def _forward(self, pooled, batch_t, step: int, training: bool):
+        """The module in train or eval mode, its drawing layers' generator
+        seeded for `step`: the new-row init's seed domain at table index
+        len(tables), which no table's init uses."""
+        if self.module.training != training:
+            self.module.train(training)
+        if self._draws is not None:
+            self._draws.manual_seed(_init_seed(
+                self.config.seed, step, len(self.engine.tables)))
+        return self.module(pooled, batch_t)
+
     def _metrics_update(self, loss, preds, batch_t):
         """Accumulate the step's loss, and its AUC histograms when the
         batch has a "label" and the predictions are one tensor."""
@@ -289,7 +324,7 @@ class Trainer:
         leaves = {t: u.detach().requires_grad_() for t, u in unique.items()}
         pooled = engine.pool_features(engine.retrieve_unique(leaves, step),
                                       inputs)
-        out = self.module(pooled, batch_t)
+        out = self._forward(pooled, batch_t, step, training=True)
         loss, aux = task.loss(out, batch_t)
         named = list(self.module.named_parameters())
         grads = torch.autograd.grad(
@@ -482,7 +517,8 @@ class Trainer:
         inputs, batch_t, _ = self._upload(fid_batch, batch, 0)
         pooled, _ = self.engine.embed(self.table_states, inputs,
                                       step=self.step)
-        return self.module(pooled, batch_t), batch_t
+        return (self._forward(pooled, batch_t, self.step, training=False),
+                batch_t)
 
     def predict(self, fid_batch: Dict[str, np.ndarray],
                 batch: Dict[str, np.ndarray]) -> torch.Tensor:

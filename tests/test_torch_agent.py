@@ -523,16 +523,29 @@ class TestShardedServing:
         with pytest.raises(ValueError, match="exceeds unique_cap=16"):
             router.predict(*data.batch())
         router.close()
-        # an export with non-parameter state is refused, as ServingModel
-        # refuses it
-        import shutil
-        copy = str(tmp_path / "with_state")
-        shutil.copytree(path, copy)
-        with open(os.path.join(copy, "model_state.msgpack"), "wb") as f:
-            f.write(serialization.to_bytes(
-                {"batch_stats": {"mean": np.zeros(3, np.float32)}}))
-        with pytest.raises(NotImplementedError, match="model_state"):
-            ShardedServingRouter(make_task(), copy, shards, device="cpu")
+        # an export with non-parameter state (BatchNorm's statistics) loads
+        # in an agent and in a router, and serves what the trainer predicts
+        import chip_smoke
+        from test_torch_library import TASK as LIB_TASK
+        from test_torch_library import port_library_trainer
+        lt = port_library_trainer()
+        bn_data = train_some(lt, steps=4)
+        bn_path = export_model(lt, str(tmp_path / "with_state"))
+        assert os.path.exists(os.path.join(bn_path, "model_state.msgpack"))
+        bn_task = chip_smoke.library_task(keep_prob=1.0, **LIB_TASK)
+        model = serve(bn_path, task=bn_task, unique_cap=512)
+        fb, b = bn_data.batch()
+        want = lt.predict(fb, b).numpy()
+        agent = ServingAgent(model)
+        with running(agent) as (addr,):
+            client = ServingClient(addr, timeout_s=TIMEOUT)
+            np.testing.assert_allclose(client.predict(fb, b), want,
+                                       rtol=1e-5, atol=1e-6)
+        bn_router = ShardedServingRouter(bn_task, bn_path, {0: model},
+                                         unique_cap=512, device="cpu")
+        np.testing.assert_allclose(bn_router.predict(fb, b), want,
+                                   rtol=1e-5, atol=1e-6)
+        bn_router.close()
 
     def test_push_routed_lands_on_the_owning_shard(self, exported, tmp_path):
         _, _, path = exported

@@ -92,7 +92,7 @@ def _state_equal(a: Trainer, b: Trainer):
 def _assert_matches_jax(jt, pt, tables):
     """Dense parameters, accumulators and live pool rows against JAX."""
     jstate, pstate = convert.jax_trainer_state(jt), convert.export_state(pt)
-    for tree in ("params", "sum_of_squares"):
+    for tree in ("params", "opt_state"):
         ref = convert._to_module_tensors(jstate[tree])
         out = convert._to_module_tensors(pstate[tree])
         assert set(out) == set(ref)

@@ -84,7 +84,7 @@ def seen_again(pairs, seed):
 def assert_states_equal(a, b):
     """Two states in convert.py's numpy format, exactly; the stores'
     entries in fid order (a dump's order is the map's own)."""
-    for tree in ("params", "sum_of_squares"):
+    for tree in ("params", "opt_state"):
         x, y = (convert._to_module_tensors(s[tree]) for s in (a, b))
         assert sorted(x) == sorted(y)
         for name in x:
@@ -528,7 +528,7 @@ def test_dense_only_checkpoint(tmp_path, direction, jax_to_port):
         jckpt.restore(reader, str(tmp_path))
         got = convert.jax_trainer_state(reader)
     assert got["step"] == want["step"]
-    for tree in ("params", "sum_of_squares"):
+    for tree in ("params", "opt_state"):
         x, y = (convert._to_module_tensors(s[tree]) for s in (got, want))
         for name in y:
             np.testing.assert_array_equal(x[name], y[name])

@@ -127,5 +127,22 @@ def test_walk_covers_the_slice():
                  "monolith_tpu_torch/models/din.py",
                  "monolith_tpu_torch/models/multitask.py",
                  "monolith_tpu_torch/models/dcn.py",
-                 "monolith_tpu_torch/models/autoint.py"):
+                 "monolith_tpu_torch/models/autoint.py",
+                 "monolith_tpu_torch/layers/norms.py",
+                 "monolith_tpu_torch/layers/draws.py",
+                 "monolith_tpu_torch/layers/dense.py",
+                 "monolith_tpu_torch/layers/lhuc.py",
+                 "monolith_tpu_torch/layers/logit_correction.py",
+                 "monolith_tpu_torch/layers/pooling.py",
+                 "monolith_tpu_torch/optimizers/__init__.py",
+                 "monolith_tpu_torch/optimizers/dense.py",
+                 "monolith_tpu_torch/losses/__init__.py",
+                 "monolith_tpu_torch/losses/losses.py",
+                 "monolith_tpu_torch/losses/ltr.py",
+                 "monolith_tpu_torch/ops/__init__.py",
+                 "monolith_tpu_torch/ops/insight.py",
+                 "monolith_tpu_torch/ops/seq.py",
+                 "monolith_tpu_torch/feature.py",
+                 "monolith_tpu_torch/model_dump.py",
+                 "monolith_tpu_torch/compat.py"):
         assert must in files

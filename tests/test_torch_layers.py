@@ -324,8 +324,28 @@ def test_mmoe_softmax_gates_have_no_aux_loss():
 
 
 def test_dcn_dropout_is_refused_until_the_training_flag():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 10\(a\)"):
-        pl.DCN(16, use_dropout=True)
+    """DCN(use_dropout=True) is no longer refused: in eval mode it is the
+    cross network without dropout, equal to flax's training=False; in
+    train mode each layer keeps a value with probability keep_prob (within
+    4 sigma over 512 x 16 values) and scales it by 1 / keep_prob."""
+    from monolith_tpu_torch.layers.draws import set_generator
+    x = _normal(60, 512, 16)
+    jmod = jl.DCN(layer_num=2, use_dropout=True, keep_prob=0.7)
+    params = jmod.init(KEY, x)["params"]
+    pmod = _load(pl.DCN(16, layer_num=2, use_dropout=True, keep_prob=0.7),
+                 params).eval()
+    want = jmod.apply({"params": params}, x, training=False)
+    np.testing.assert_allclose(pmod(torch.from_numpy(x)).detach().numpy(),
+                               np.asarray(want), rtol=RTOL, atol=ATOL)
+    one = _load(pl.DCN(16, layer_num=1, use_dropout=True, keep_prob=0.7),
+                {k: v for k, v in params.items() if k.endswith("_0")})
+    full = one.eval()(torch.from_numpy(x)).detach()
+    set_generator(one, torch.Generator().manual_seed(0))
+    out = one.train()(torch.from_numpy(x)).detach()
+    kept = out != 0
+    sigma = np.sqrt(0.7 * 0.3 / out.numel())
+    assert abs(kept.float().mean().item() - 0.7) < 4 * sigma
+    assert torch.equal(out[kept], full[kept] / 0.7)
 
 
 # ----------------------------------------------------------------------

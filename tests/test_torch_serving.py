@@ -760,24 +760,46 @@ def test_serving_logits_equal_jax(tmp_path, kind):
 
 
 def test_non_parameter_model_state_is_refused(tmp_path):
-    """An export or checkpoint with a non-empty model_state.msgpack (a
-    BatchNorm's statistics in the JAX package) raises, naming ROADMAP item
-    10; an empty one loads."""
+    """Non-parameter model state is carried, no longer refused: a JAX
+    export of a BatchNorm model (chip_smoke.py's phase 15 module, dropout
+    off) serves in the port with its running statistics, equal to the JAX
+    ServingModel (rtol 1e-5 / atol 1e-6); the JAX checkpoint restores the
+    statistics into a port trainer exactly, and the port's export of that
+    state writes the JAX export's model_state.msgpack byte for byte."""
+    import chip_smoke
+    from monolith_tpu.training import checkpoint as jckpt
     from monolith_tpu_torch.training import checkpoint as pckpt
-    pt = make_trainer()
-    train_some(pt, steps=2)
-    path = export_model(pt, str(tmp_path / "export"))
-    ckpt = pckpt.save(pt, str(tmp_path / "ckpt"))
-    for d in (path, ckpt):
-        with open(os.path.join(d, "model_state.msgpack"), "wb") as f:
-            f.write(serialization.to_bytes({}))
-    serve(path, unique_cap=512)
-    assert pckpt.restore(make_trainer(), str(tmp_path / "ckpt")) == 2
-    state = {"batch_stats": {"bn": {"mean": np.zeros(4, np.float32)}}}
-    for d in (path, ckpt):
-        with open(os.path.join(d, "model_state.msgpack"), "wb") as f:
-            f.write(serialization.to_bytes(state))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        serve(path, unique_cap=512)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        pckpt.restore(make_trainer(), str(tmp_path / "ckpt"))
+    from test_torch_library import (TASK as LIB_TASK, jax_library_trainer,
+                                    port_library_trainer)
+    jt = jax_library_trainer()
+    data = SyntheticCTR(num_users=80, num_items=40, batch_size=64, seed=57)
+    for i in range(4):
+        jt.train_step(*data.batch(), ts=i)
+    path = jax_export_model(jt, str(tmp_path / "export"))
+    with open(os.path.join(path, "model_state.msgpack"), "rb") as f:
+        jbytes = f.read()
+    want = convert._flatten(convert.jax_trainer_state(jt)["model_state"])
+    assert sorted(want) == [("batch_stats", "bn", "mean"),
+                            ("batch_stats", "bn", "var")]
+    assert np.abs(want[("batch_stats", "bn", "mean")]).sum() > 0
+    pmodel = serve(path, task=chip_smoke.library_task(keep_prob=1.0,
+                                                      **LIB_TASK),
+                   unique_cap=512)
+    got = convert._flatten(convert.model_state_tree(pmodel.module))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    jmodel = JaxServingModel(jt.task, path, unique_cap=512)
+    for _ in range(2):
+        fb, b = data.batch()
+        np.testing.assert_allclose(pmodel.predict(fb, b),
+                                   jmodel.predict(fb, b), rtol=1e-5,
+                                   atol=1e-6)
+    jckpt.save(jt, str(tmp_path / "ckpt"))
+    pt = port_library_trainer()
+    assert pckpt.restore(pt, str(tmp_path / "ckpt")) == 4
+    got = convert._flatten(pt.model_state)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    ppath = export_model(pt, str(tmp_path / "port_export"))
+    with open(os.path.join(ppath, "model_state.msgpack"), "rb") as f:
+        assert f.read() == jbytes

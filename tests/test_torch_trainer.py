@@ -73,7 +73,7 @@ def test_dense_params_and_accumulators_match_jax(run):
     jt, pt, *_ = run
     jstate = convert.jax_trainer_state(jt)
     pstate = convert.export_state(pt)
-    for tree in ("params", "sum_of_squares"):
+    for tree in ("params", "opt_state"):
         ref = convert._to_module_tensors(jstate[tree])
         out = convert._to_module_tensors(pstate[tree])
         assert set(out) == set(ref)

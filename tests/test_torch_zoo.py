@@ -123,7 +123,7 @@ def seen_again(name, pairs, seed):
 
 def assert_states_close(got, want, rtol=RTOL, atol=ATOL):
     """Dense trees and the live rows of the pools (the stores' rows)."""
-    for tree in ("params", "sum_of_squares"):
+    for tree in ("params", "opt_state"):
         x, y = (convert._to_module_tensors(s[tree]) for s in (got, want))
         assert sorted(x) == sorted(y)
         for k in y:
@@ -140,7 +140,7 @@ def assert_states_close(got, want, rtol=RTOL, atol=ATOL):
 
 def assert_states_equal(got, want):
     """Two states in convert.py's format, exactly; stores in fid order."""
-    for tree in ("params", "sum_of_squares"):
+    for tree in ("params", "opt_state"):
         x, y = (convert._to_module_tensors(s[tree]) for s in (got, want))
         assert sorted(x) == sorted(y)
         for k in y:
