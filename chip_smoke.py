@@ -222,6 +222,32 @@ failures is caught:
      15d. tests/test_infra.py's compat task, built by compat.FeatureFactory
        at capacity 2^21, 8 steps (K1 18, K2 16 with the graph dump's
        lookup): dump_model is JSON, dump_graph text.
+ 16. the sharded trainer (parallel/sharded.py), run after phase 15; one
+     card holds one NCCL rank (a world of 1 on an in-process store,
+     cuda:0), so its collectives run at world 1 there:
+     16a. deepfm_f32 at full width (init_scale 0.0) through ShardedTrainer,
+       once for each exchange (allgather, a2a), beside the Trainer on the
+       same batches: 8 steps, a synchronous and an asynchronous block of 8
+       and 1 eval batch under torch's deterministic algorithms (index_add_
+       in a fixed order), losses, pools and dense params within 1e-6 of
+       the Trainer's (largest gap over the largest magnitude), eval equal;
+       then with the default algorithms 8 timed steps beside the
+       Trainer's, a timed block of 8, and 4 steps under torch.profiler:
+       ms/step, device busy ms/step, device operations/step and the NCCL
+       kernels' share of the busy time; K1/K2 bit for bit against their
+       plain versions on the trained pool and the last step's rows;
+     16b. multislot_bf16 at full width through ShardedTrainer (allgather),
+       8 steps beside the Trainer's: finite losses, the bf16 pool's live
+       rows by mean and standard deviation, K1/K2/K3 bit for bit on its
+       pool and rows;
+     16c. two gloo ranks on cuda:0 run each collective of the step on
+       CUDA tensors (the probe), then the deepfm_f32 a2a step over two
+       ranks sharing the card (capacity 2^20 a shard) for 8 steps, held
+       against the same two ranks on the CPU within 1e-5 (losses, dense
+       params, each shard's live rows by id); each rank a process of its
+       own (`rank_16c`), K1 = K2 = 8 a card rank, counted with the path.
+     Every launch of 16a and 16c is path "sharded" of the deepfm_f32
+     kernels, 16b's of the multislot_bf16 ones.
 
 TF32 is off for matrix products and convolutions (torch.backends), so the
 card's f32 dense towers run in full f32 like the CPU's. The second-to-last
@@ -2950,6 +2976,501 @@ def phase_library(device="cuda"):
     return launches.total
 
 
+# ----------------------------------------------------------------------
+# phase 16: the sharded trainer on one NCCL rank
+# ----------------------------------------------------------------------
+
+SHARD_STEPS, SHARD_K, SHARD_WINDOW = 8, 8, 4
+SHARD_RTOL = 1e-6        # 16a: the sharded trainer against the Trainer
+# 16a's deepfm_f32 cell: pool rows, unique_cap = new_cap, batch
+SHARD_CAP, SHARD_U, SHARD_B = 1 << 21, 32768, 8192
+#: 16c's probe: the four collectives of the exchanges and the dense mean
+GLOO_CUDA_PROBE = r"""
+import json, sys, torch, torch.distributed as dist
+port, rank = int(sys.argv[1]), int(sys.argv[2])
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=2)
+x = torch.arange(8, dtype=torch.float32, device="cuda:0") + 10 * rank
+calls = {
+    "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+        torch.empty(16, device="cuda:0"), x),
+    "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+        torch.empty(4, device="cuda:0"), x),
+    "all_to_all_single": lambda: dist.all_to_all_single(
+        torch.empty(8, device="cuda:0"), x),
+    "all_reduce": lambda: dist.all_reduce(x.clone()),
+}
+out = {}
+for name, call in calls.items():
+    try:
+        call()
+        torch.cuda.synchronize()
+        out[name] = "ok"
+    except Exception as e:
+        out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def _world_of_one(device):
+    """A world of one rank on an in-process store: NCCL on cuda:0 (gloo
+    on the CPU, for a rehearsal)."""
+    import torch.distributed as dist
+    from monolith_tpu_torch.parallel import make_mesh
+    backend = "nccl" if device == "cuda" else "gloo"
+    dist.init_process_group(backend, rank=0, world_size=1,
+                            store=dist.HashStore())
+    mesh = make_mesh(device=None if device == "cuda" else device)
+    assert mesh.backend == backend and mesh.device.type == device, mesh
+    return mesh
+
+
+def _gap(a, b):
+    """max |a - b| over max |b|: a relative gap that zeros do not blow
+    up."""
+    a, b = a.detach().float(), b.detach().float()
+    den = float(b.abs().max())
+    return float((a - b).abs().max()) / (den or 1.0)
+
+
+def _dense_gap(a, b):
+    return max(_gap(p, q) for p, q in zip(a.module.parameters(),
+                                          b.module.parameters()))
+
+
+def _set_async(trainer, on):
+    """Make the trainer's blocks 1-step-stale (or synchronous)."""
+    import dataclasses
+    cfg = trainer.config
+    trainer.config = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, async_optimize=on))
+
+
+def _profiled_steps(trainer, batches, ts0):
+    """Train steps under torch.profiler: (losses, device busy ms/step,
+    device operations/step, the NCCL kernels' share of the busy time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from monolith_tpu_torch.profile_step import _union_us
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        losses = [trainer.train_step(fb, b, ts=ts0 + i)["loss"]
+                  for i, (fb, b) in enumerate(batches)]
+        torch.cuda.synchronize()
+    spans, nccl = [], []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            span = (e.time_range.start, e.time_range.end)
+            spans.append(span)
+            if "nccl" in e.name.lower():
+                nccl.append(span)
+    busy = _union_us(sorted(spans))
+    share = _union_us(sorted(nccl)) / busy if busy else 0.0
+    n = len(batches)
+    return (torch.stack(losses).cpu().numpy(), busy / 1e3 / n,
+            len(spans) / n, share)
+
+
+def _hold_kernels_on(trainer, seen, rounding_seed=None):
+    """K1 and K2 (and K3 when a seed is given) bit for bit against their
+    plain versions on the trainer's pool and the last recorded step's
+    rows; uncounted."""
+    import torch
+    from monolith_tpu_torch.ops import rounding
+    from monolith_tpu_torch.ops import scatter as ops
+    states, inputs = seen[-1]
+    tname = sorted(inputs)[0]
+    pool, rows = states[tname]["data"], inputs[tname]["rows"]
+    out = ops.gather_rows(pool, rows)
+    assert torch.equal(out, ops.gather_rows_plain(pool, rows)), "K1"
+    values = out + 1
+    pool_k, pool_p = pool.clone(), pool.clone()
+    ops.scatter_rows(pool_k, rows, values)
+    ops.scatter_rows_plain(pool_p, rows, values)
+    assert torch.equal(pool_k, pool_p), "K2"
+    if rounding_seed is not None:
+        x = out.float()
+        got = rounding.stochastic_round_bf16(x, rounding_seed)
+        want = rounding.stochastic_round_bf16_plain(x, rounding_seed)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), \
+            "K3"
+    valid = int((rows >= 0).sum())
+    del pool_k, pool_p, out, values
+    return valid
+
+
+def _record_lookups(trainer):
+    """Record (states, inputs) at every fused_lookup of the trainer."""
+    seen = []
+    real = trainer.engine.fused_lookup
+
+    def spy(states, inputs, seed, step):
+        seen.append((states, inputs))
+        return real(states, inputs, seed, step)
+    trainer.engine.fused_lookup = spy
+    return seen
+
+
+class _Deterministic:
+    """torch's deterministic algorithms for the block: index_add_ (the
+    pooling's backward, the a2a's transpose) sums in a fixed order instead
+    of by atomics, so that two trainers on the same batches stay equal
+    beyond f32 rounding. Not for timing."""
+
+    def __enter__(self):
+        import torch
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        import torch
+        torch.use_deterministic_algorithms(False)
+
+
+def _sharded_deepfm(exchange, mesh, launches):
+    """16a for one exchange: the sharded trainer beside the Trainer on the
+    same batches, both at init_scale 0.0, first held equal (deterministic
+    algorithms), then timed (the default ones); returns the numbers
+    logged."""
+    import torch
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    from monolith_tpu_torch.parallel import ShardedTrainer
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    def task():
+        return DeepFMTask(embedding_dim=16, capacity_per_shard=SHARD_CAP,
+                          hidden=(256, 128, 64), init_scale=0.0)
+
+    def config(**engine):
+        return TrainerConfig(engine=EngineConfig(
+            num_shards=1, unique_cap=SHARD_U, new_cap=SHARD_U, **engine),
+            log_every=0)
+
+    sharded = ShardedTrainer(task(), config(exchange=exchange), mesh)
+    single = Trainer(task(), config(), device=mesh.device)
+    data = SyntheticCTR(num_users=1_000_000, num_items=200_000,
+                        batch_size=SHARD_B, seed=0)
+
+    def take(n):
+        return [data.batch() for _ in range(n)]
+    steps, sync_block, async_block, evals = (
+        take(SHARD_STEPS), take(SHARD_K), take(SHARD_K), take(1))
+    timed, timed_block, window = (take(SHARD_STEPS), take(SHARD_K),
+                                  take(SHARD_WINDOW))
+    r = {}
+    seen = _record_lookups(sharded)
+
+    def gap():
+        return max(_gap(sharded.table_states["sparse"]["data"],
+                        single.table_states["sparse"]["data"]),
+                   _dense_gap(sharded, single))
+
+    def block(t, pairs, ts):
+        t0 = time.perf_counter()
+        out = t.train_step_block(pairs, ts=ts)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / len(pairs)
+
+    with _Deterministic():
+        # per-step: the sharded trainer counted, the Trainer not
+        got, _ = _steps(sharded, steps, 0, launches)
+        want, _ = _steps(single, steps, 0, Launches())
+        np.testing.assert_allclose(got, want, rtol=SHARD_RTOL)
+        r["steps_gap"] = gap()
+        assert r["steps_gap"] <= SHARD_RTOL, r["steps_gap"]
+        # a synchronous and an asynchronous block of K
+        for pairs, on, ts in ((sync_block, False, SHARD_STEPS),
+                              (async_block, True, SHARD_STEPS + 1)):
+            for t in (sharded, single):
+                _set_async(t, on)
+            out, _ = launches.run(lambda: block(sharded, pairs, ts))
+            ref, _ = block(single, pairs, ts)
+            got = out["loss"].cpu().numpy()
+            assert np.isfinite(got).all(), got
+            np.testing.assert_allclose(got, ref["loss"].cpu().numpy(),
+                                       rtol=SHARD_RTOL)
+            assert tuple(out["preds"].shape) == (SHARD_K, SHARD_B)
+            r["losses"] = got
+        for t in (sharded, single):
+            _set_async(t, False)
+        r["blocks_gap"] = gap()
+        assert r["blocks_gap"] <= SHARD_RTOL, r["blocks_gap"]
+        r["eval"] = launches.run(lambda: sharded.evaluate(iter(evals)))
+        ev = single.evaluate(iter(evals))
+        assert abs(r["eval"]["loss"] - ev["loss"]) <= \
+            SHARD_RTOL * ev["loss"], (r["eval"], ev)
+        assert abs(r["eval"]["auc"] - ev["auc"]) <= SHARD_RTOL, (r["eval"], ev)
+    # timed with the default algorithms: steps beside the Trainer's, a
+    # block, then the window under the profiler
+    _, r["ms"] = _steps(sharded, timed, 200, launches)
+    _, r["single_ms"] = _steps(single, timed, 200, Launches())
+    out, r["block_ms"] = launches.run(lambda: block(sharded, timed_block,
+                                                    300))
+    assert np.isfinite(out["loss"].cpu().numpy()).all()
+    losses, r["busy"], r["ops"], r["nccl"] = launches.run(
+        lambda: _profiled_steps(sharded, window, 400))
+    assert np.isfinite(losses).all(), losses
+    r["valid_rows"] = _hold_kernels_on(sharded, seen)
+    del sharded, single, seen
+    return r
+
+
+def _sharded_multislot(mesh, launches):
+    """16b: multislot_bf16 through the sharded trainer (allgather) beside
+    the Trainer, 8 steps each; K1, K3, K2 per step."""
+    import torch
+    from monolith_tpu_torch.embedding.engine import _round_seed
+    from monolith_tpu_torch.parallel import ShardedTrainer
+    from monolith_tpu_torch.profile_step import CONFIGS
+    from monolith_tpu_torch.training.trainer import Trainer
+    single, data = CONFIGS["multislot_bf16"]()
+    sharded = ShardedTrainer(single.task, single.config, mesh)
+    batches = [data.batch() for _ in range(SHARD_STEPS)]
+    seen = _record_lookups(sharded)
+    got, ms = _steps(sharded, batches, 0, launches)
+    want, single_ms = _steps(single, batches, 0, Launches())
+    assert isinstance(single, Trainer) and np.isfinite(got).all(), got
+    pools = [t.table_states["table_all"]["data"] for t in (sharded, single)]
+    assert all(p.dtype == torch.bfloat16 for p in pools)
+    # the rows the steps touched (the host stores are the same), by
+    # distribution
+    live = sharded.engine.shard_stores["table_all"][0].size()
+    stats = []
+    for p in pools:
+        x = p[:live, :16].float()
+        stats.append((float(x.mean()), float(x.std())))
+    (m0, s0), (m1, s1) = stats
+    assert abs(m0 - m1) <= 1e-2 * s1 and abs(s0 / s1 - 1) <= 1e-2, stats
+    loss_gap = float(np.max(np.abs(np.asarray(got) - np.asarray(want))
+                            / np.abs(want)))
+    assert loss_gap <= 1e-2, (got, want)
+    valid = _hold_kernels_on(sharded, seen,
+                             rounding_seed=_round_seed(0, SHARD_STEPS - 1, 0))
+    out = {"losses": got, "ms": ms, "single_ms": single_ms, "live": live,
+           "stats": stats, "loss_gap": loss_gap, "valid_rows": valid,
+           "pool_gap": _gap(pools[0], pools[1])}
+    del sharded, single, seen, pools
+    return out
+
+
+def _gloo_cuda_probe():
+    """16c's probe: two ranks on cuda:0 over gloo, each collective of the
+    sharded step on CUDA tensors. Returns {collective: "ok" | error}."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", GLOO_CUDA_PROBE, str(port), str(r)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            if p.returncode != 0:
+                return {"process": f"exit {p.returncode}: "
+                                   f"{err.strip().splitlines()[-1:]}"}
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {k: outs[0][k] if outs[0][k] != "ok" else outs[1][k]
+            for k in outs[0]}
+
+
+# 16c: two ranks sharing the card over gloo against two CPU ranks
+SHARD2_CAP, SHARD2_STEPS, SHARD2_RTOL = 1 << 20, 8, 1e-5
+
+
+def rank_16c(rank, port, device, out):
+    """One rank of 16c (run in a process of its own by `_run_16c`): the
+    deepfm_f32 cell's a2a step over two gloo ranks, 8 steps from the
+    seed's state (init_scale 0.0); writes the losses, ms/step, launches,
+    dense params and the rank's shard of the pool by id into `out`
+    (.npz)."""
+    import torch
+    import torch.distributed as dist
+    from monolith_tpu_torch import ops
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    from monolith_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from monolith_tpu_torch.training.trainer import TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(4)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    mesh = make_mesh(device=device)
+    tr = ShardedTrainer(
+        DeepFMTask(embedding_dim=16, capacity_per_shard=SHARD2_CAP,
+                   hidden=(256, 128, 64), init_scale=0.0),
+        TrainerConfig(engine=EngineConfig(num_shards=2, unique_cap=SHARD_U,
+                                          new_cap=SHARD_U, exchange="a2a"),
+                      log_every=0), mesh)
+    data = SyntheticCTR(num_users=1_000_000, num_items=200_000,
+                        batch_size=SHARD_B, seed=0)
+    batches = [data.batch() for _ in range(SHARD2_STEPS)]
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for i, (fb, b) in enumerate(batches):
+        t0 = time.perf_counter()
+        losses.append(float(tr.train_step(fb, b, ts=i)["loss"]))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    fids, rows = tr.engine.shard_stores["sparse"][rank].save()[:2]
+    order = np.argsort(fids)
+    pool = tr.table_states["sparse"]["data"]
+    live = pool[torch.from_numpy(rows[order]).long().to(pool.device)]
+    dense = {f"dense/{k}": p.detach().cpu().numpy()
+             for k, p in tr.module.named_parameters()}
+    np.savez(out, losses=np.asarray(losses), ms=np.asarray(times),
+             fids=fids[order], live=live.cpu().numpy(),
+             launches=np.asarray([counts["gather_rows"],
+                                  counts["scatter_rows"]]), **dense)
+    dist.destroy_process_group()
+
+
+def _run_16c(device):
+    """Both ranks of 16c on `device` (cuda:0 shared, or the CPU); returns
+    each rank's results."""
+    import shutil
+    import socket
+    import tempfile
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    work = tempfile.mkdtemp(prefix="chip_smoke_16c_")
+    outs = [os.path.join(work, f"rank{r}.npz") for r in range(2)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as cs; cs.rank_16c("
+         f"{r}, {port}, {device!r}, {outs[r]!r})"], cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            log_text, _ = p.communicate(timeout=600)
+            assert p.returncode == 0, (device, r, log_text[-4000:])
+        return [dict(np.load(o)) for o in outs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_16c(device="cuda:0"):
+    """16c: the a2a step over two gloo ranks sharing the card against the
+    same ranks on the CPU (losses, dense params and each shard's live rows
+    within SHARD2_RTOL); returns the card ranks' launches."""
+    t0 = time.time()
+    card = _run_16c(device)
+    t1 = time.time()
+    cpu = _run_16c("cpu")
+    gaps = []
+    for r, (g, c) in enumerate(zip(card, cpu)):
+        np.testing.assert_allclose(g["losses"], c["losses"],
+                                   rtol=SHARD2_RTOL)
+        np.testing.assert_array_equal(g["fids"], c["fids"])
+        for k in g:
+            if k == "live" or k.startswith("dense/"):
+                den = float(np.abs(c[k]).max()) or 1.0
+                gaps.append(float(np.abs(g[k] - c[k]).max()) / den)
+        if device != "cpu":
+            assert g["launches"].tolist() == [SHARD2_STEPS] * 2, \
+                g["launches"]
+    assert max(gaps) <= SHARD2_RTOL, max(gaps)
+    log(f"16c deepfm_f32 a2a, two gloo ranks sharing {device} (capacity "
+        f"2^20 a shard), {SHARD2_STEPS} steps: losses "
+        f"{np.round(card[0]['losses'], 5).tolist()} equal to two CPU "
+        f"ranks' within {SHARD2_RTOL}; dense params and both shards' "
+        f"{[len(c['fids']) for c in cpu]} live rows: largest gap over the "
+        f"largest magnitude {max(gaps):.3g}; ms/step on the card (median "
+        f"of steps 3-8) {[round(float(np.median(g['ms'][2:])), 3) for g in card]}"
+        f", on the CPU {[round(float(np.median(c['ms'][2:])), 3) for c in cpu]}"
+        f"; K1/K2 a rank {card[0]['launches'].tolist()}; "
+        f"{t1 - t0:.1f} s on the card, {time.time() - t1:.1f} s on the CPU")
+    return {"gather_rows": int(sum(g["launches"][0] for g in card)),
+            "scatter_rows": int(sum(g["launches"][1] for g in card)),
+            "stochastic_round_bf16": 0}
+
+
+def phase_sharded(device="cuda"):
+    """Phase 16; returns the launches of 16a (path "sharded" of the
+    deepfm_f32 kernels) and of 16b (of the multislot_bf16 ones)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    t0 = time.time()
+    mesh = _world_of_one(device)
+    deepfm = Launches()
+    for exchange in ("allgather", "a2a"):
+        r = _sharded_deepfm(exchange, mesh, deepfm)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"16a deepfm_f32 {exchange} (one {mesh.backend} rank, "
+            f"{mesh.device}): losses "
+            f"{np.round(r['losses'], 5).tolist()} (the asynchronous "
+            f"block); with deterministic algorithms equal to the Trainer's "
+            f"within {SHARD_RTOL} (losses; pools and dense params: largest "
+            f"gap over the largest magnitude {r['steps_gap']:.3g} after 8 "
+            f"steps, {r['blocks_gap']:.3g} after a synchronous and an "
+            f"asynchronous block of 8; eval {r['eval']} equal); timed: "
+            f"{r['ms']:.3f} ms/step (the Trainer {r['single_ms']:.3f}), a "
+            f"block of 8 {r['block_ms']:.3f} ms/step; device busy "
+            f"{r['busy']:.4f} "
+            f"ms/step, {r['ops']:.1f} device operations/step, NCCL "
+            f"{100 * r['nccl']:.2f}% of the busy time; K1/K2 bit for bit "
+            f"on its pool ({r['valid_rows']} valid rows)")
+    # per exchange: held 8 steps, 8 + 8 block steps (two K1 a step in the
+    # asynchronous one), 1 eval batch; timed 8 steps, 8 block steps, 4
+    want = {"gather_rows": 2 * (2 * SHARD_STEPS + 4 * SHARD_K + 1
+                                + SHARD_WINDOW),
+            "scatter_rows": 2 * (2 * SHARD_STEPS + 3 * SHARD_K
+                                 + SHARD_WINDOW),
+            "stochastic_round_bf16": 0}
+    _expect_launches(deepfm.total, want, "16a")
+    multislot = Launches()
+    r = _sharded_multislot(mesh, multislot)
+    _expect_launches(multislot.total, {"gather_rows": SHARD_STEPS,
+                                       "scatter_rows": SHARD_STEPS,
+                                       "stochastic_round_bf16": SHARD_STEPS},
+                     "16b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"16b multislot_bf16 allgather (one {mesh.backend} rank): losses "
+        f"{np.round(r['losses'], 5).tolist()}, finite, within "
+        f"{r['loss_gap']:.3g} of the Trainer's; bf16 pool, K3 bf16 and bit "
+        f"for bit; {r['live']} live rows: mean / std of their params "
+        f"{r['stats'][0]} vs the Trainer's {r['stats'][1]} (largest pool "
+        f"gap {r['pool_gap']:.3g}); {r['ms']:.3f} ms/step (the Trainer "
+        f"{r['single_ms']:.3f}); K1/K2/K3 bit for bit on its pool "
+        f"({r['valid_rows']} valid rows)")
+    dist.destroy_process_group()
+    if device == "cuda":
+        probe = _gloo_cuda_probe()
+        log(f"16c probe, two gloo ranks on cuda:0: {json.dumps(probe)}")
+        assert set(probe.values()) == {"ok"}, probe
+    # the two card ranks' launches count with the path (their processes
+    # count from 0 and end with the run)
+    deepfm.add(phase_16c("cuda:0" if device == "cuda" else "cpu"))
+    log(f"phase 16: {time.time() - t0:.1f} s; sharded launches "
+        f"deepfm_f32 {deepfm.total}, multislot_bf16 {multislot.total}")
+    return {"deepfm_f32": deepfm.total, "multislot_bf16": multislot.total}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3002,6 +3523,8 @@ def main():
     torch.cuda.empty_cache()
     library_launches = phase_library()
     torch.cuda.empty_cache()
+    sharded_launches = phase_sharded()
+    torch.cuda.empty_cache()
     for k in kernels:
         # each path was driven with the counts set to 0 just before it;
         # "serving" is the export and the trainer's eval predictions (both
@@ -3014,7 +3537,8 @@ def main():
         k["launches_by_path"] = {
             "per_step": launches[k["path"]][k["name"]],
             "block": block_launches[k["path"]][k["name"]],
-            "serving": serving_launches[k["path"]][k["name"]]}
+            "serving": serving_launches[k["path"]][k["name"]],
+            "sharded": sharded_launches[k["path"]][k["name"]]}
         if k["path"] == "deepfm_f32":
             k["launches_by_path"]["expiry"] = expiry_launches[k["name"]]
             k["launches_by_path"]["cli"] = cli_launches[k["name"]]

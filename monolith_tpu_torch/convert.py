@@ -10,10 +10,16 @@ The state format is the JAX trainer's, in numpy:
                        {"0": {"sum_of_squares": <params tree>}, "1": {}}),
      "model_state":    the non-parameter collections, {"batch_stats":
                        {...: {"mean", "var"}}} or {} for a model without,
-     "tables":         {table: packed pool [1, cap, P] (or [cap, P]),
-                       f32 whatever the pool's dtype},
-     "stores":         {table: HostStore.save() -> (fids, rows, tss, counts)},
+     "tables":         {table: packed pools [S, cap, P] (or [cap, P] for
+                       one shard), f32 whatever the pool's dtype},
+     "stores":         {table: HostStore.save() -> (fids, rows, tss, counts)}
+                       for one shard; {table: [save of shard s, ...]} for
+                       S > 1,
      "step":           int}
+
+A sharded state carries all S shards' pools and host stores: a
+`ShardedTrainer` on rank r loads pool r and every host store (each rank
+holds all S), and exports its own pool as [1, cap, P] beside all S stores.
 
 `load_state` writes such a state into a port `Trainer` (Dense kernels are
 transposed into `nn.Linear`'s [out, in]; every other leaf crosses by name
@@ -52,19 +58,19 @@ def port_trainer_config(jax_config):
     from monolith_tpu_torch.embedding.engine import EngineConfig
     from monolith_tpu_torch.training.trainer import TrainerConfig
     je = jax_config.engine
-    unported = {"num_shards": je.num_shards != 1,
-                "packed='off'": je.packed == "off",
+    unported = {"packed='off'": je.packed == "off",
                 "compact_wire=False": not je.compact_wire}
     bad = sorted(k for k, v in unported.items() if v)
     if bad:
         raise ValueError(f"the port does not run an engine with {bad}")
     return TrainerConfig(
         engine=EngineConfig(
-            num_shards=1, unique_cap=je.unique_cap, new_cap=je.new_cap,
-            unique_caps=je.unique_caps, new_caps=je.new_caps,
-            async_optimize=je.async_optimize,
+            num_shards=je.num_shards, unique_cap=je.unique_cap,
+            new_cap=je.new_cap, unique_caps=je.unique_caps,
+            new_caps=je.new_caps, async_optimize=je.async_optimize,
             record_touch=je.record_touch, tiered=je.tiered,
-            archive_capacity=je.archive_capacity),
+            archive_capacity=je.archive_capacity, exchange=je.exchange,
+            bucket_cap=je.bucket_cap, local_shards=je.local_shards),
         clip_norm=jax_config.clip_norm, seed=jax_config.seed,
         log_every=jax_config.log_every,
         metrics_enabled=jax_config.metrics_enabled,
@@ -176,8 +182,12 @@ def load_state(trainer, state: Dict) -> None:
     load_dense_tree(dict(trainer.module.named_parameters()), state["params"])
     trainer.tx.load_state_tree(trainer.opt_state, state["opt_state"])
     load_model_state(trainer.module, state["model_state"])
+    S = trainer.engine.config.num_shards
     for tname, pool in state["tables"].items():
         data = trainer.table_states[tname]["data"]
+        pool = np.asarray(pool)
+        if S > 1 and pool.ndim == 3 and pool.shape[0] == S:
+            pool = pool[trainer.engine.shard]  # every shard's: take ours
         src = torch.from_numpy(
             np.array(pool, dtype=np.float32).reshape(data.shape))
         if data.dtype != torch.float32:
@@ -188,7 +198,9 @@ def load_state(trainer, state: Dict) -> None:
             src = narrowed
         data.copy_(src)
     for tname, saved in state["stores"].items():
-        trainer.engine.stores[tname].restore(*saved)
+        shards = trainer.engine.shard_stores[tname]
+        for store, one in zip(shards, saved if S > 1 else [saved]):
+            store.restore(*one)
     trainer.step = int(state["step"])
 
 
@@ -199,21 +211,28 @@ def export_state(trainer) -> Dict:
             "model_state": model_state_tree(trainer.module),
             "tables": {t: _host_copy(st["data"].float())[None]
                        for t, st in trainer.table_states.items()},
-            "stores": {t: s.save() for t, s in trainer.engine.stores.items()},
+            "stores": _saved_stores(trainer.engine.shard_stores),
             "step": trainer.step}
 
 
+def _saved_stores(shard_stores) -> Dict:
+    """{table: save()} of one shard's stores, {table: [save(), ...]} of
+    S > 1 shards'."""
+    return {t: shards[0].save() if len(shards) == 1
+            else [s.save() for s in shards]
+            for t, shards in shard_stores.items()}
+
+
 def jax_trainer_state(jax_trainer) -> Dict:
-    """The JAX package's single-shard Trainer state in the numpy format
-    (np.asarray on its arrays; nothing of JAX is imported here). A bf16
-    pool reads as f32."""
+    """The JAX package's Trainer state in the numpy format (np.asarray on
+    its arrays; nothing of JAX is imported here): a ShardedTrainer's with
+    all S shards' pools and stores. A bf16 pool reads as f32."""
     return {"params": _state_dict(jax_trainer.params),
             "opt_state": _state_dict(jax_trainer.opt_state),
             "model_state": _state_dict(jax_trainer.model_state),
             "tables": {t: np.asarray(st["data"]).astype(np.float32)
                        for t, st in jax_trainer.table_states.items()},
-            "stores": {t: stores[0].save()
-                       for t, stores in jax_trainer.engine.stores.items()},
+            "stores": _saved_stores(jax_trainer.engine.stores),
             "step": int(jax_trainer.step)}
 
 

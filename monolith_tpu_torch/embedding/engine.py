@@ -36,9 +36,20 @@ rows travel beside it: only the n revived rows, padded to a power of two
 with position -1. `fused_lookup` lays them over the gathered rows. As in
 the JAX package, a tiered trainer steps one by one (no blocks).
 
-Single-shard only: decoded inputs and table states carry no shard axis
-(the JAX package's carry a leading axis of 1). Table pools are updated in
-place by fused_apply, scatter_rows and zero_rows.
+Sharded tables (`num_shards = S > 1`, driven by parallel/sharded.py, one
+rank a shard): every rank holds all S host stores and runs the same host
+prepare over the whole global batch, as the JAX package's one host engine
+does for its S devices. `prepare_shards` (allgather exchange) and
+`prepare_batch_a2a` (bucketed all-to-all) return the JAX package's arrays
+with their leading shard axis; the sharded step does not take the 16-bit
+wire, so its caps are not held to 65535. A rank's table state is its own
+shard's pool, and the engine's device functions serve shard `self.shard`
+(the rank; 0 by default), which keys their new-row init and K3 draws
+apart from the other shards'.
+
+Decoded inputs and table states carry no shard axis (the JAX package's
+carry a leading one). Table pools are updated in place by fused_apply,
+scatter_rows and zero_rows.
 """
 
 from __future__ import annotations
@@ -52,7 +63,8 @@ import torch
 from monolith_tpu_torch.device import resolve_device
 from monolith_tpu_torch.embedding import host_store
 from monolith_tpu_torch.embedding import table as table_lib
-from monolith_tpu_torch.embedding.host_store import Batcher, FilterKind, HostStore
+from monolith_tpu_torch.embedding.host_store import (Batcher, Batcher2D,
+                                                      FilterKind, HostStore)
 from monolith_tpu_torch.embedding.spec import TableSpec
 from monolith_tpu_torch.embedding.tiered import RowArchive, state_width
 from monolith_tpu_torch.feature import FeatureConfig, combine
@@ -68,9 +80,9 @@ _FILTER_KINDS = {
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    num_shards: int = 1      # the port runs single-shard tables only
-    unique_cap: int = 4096   # unique ids per table per step (<= 65535)
-    new_cap: int = 1024      # admissions per table per step
+    num_shards: int = 1      # table shards: one per rank (parallel/sharded.py)
+    unique_cap: int = 4096   # unique ids per table shard per step
+    new_cap: int = 1024      # admissions per table shard per step
     # per-table overrides of unique_cap/new_cap as ((table, cap), ...): a
     # history table needs a far larger per-step budget than scalar slots
     # (over-capping pads every gather and scatter, under-capping drops ids
@@ -93,6 +105,17 @@ class EngineConfig:
     # archive and revive on re-admission (Trainer.spill_expired)
     tiered: bool = False
     archive_capacity: int = 0  # rows an archive holds; 0 = 4x the table's
+    # the sharded trainer's embedding exchange: "allgather" sends every
+    # shard's unique rows to every rank (S*U rows each way a step); "a2a"
+    # sends each rank only the rows its batch slice reads, in buckets of
+    # `effective_bucket_cap` rows a (table shard, batch shard) pair; ids
+    # that overflow a bucket read zeros and are counted as overflow
+    exchange: str = "allgather"
+    bucket_cap: int = 0      # 0 = max(128, 2 * unique_cap / num_shards)
+    # the shards whose host stores this process holds (None = all); a
+    # process that holds only its own is the multi-host trainer, not yet
+    # ported: the engine refuses any other value than None
+    local_shards: Optional[Tuple[int, ...]] = None
 
     def ucap(self, table: str) -> int:
         if self.unique_caps:
@@ -111,6 +134,24 @@ class EngineConfig:
             caps += [c for _, c in self.unique_caps]
         return max(caps)
 
+    @property
+    def effective_bucket_cap(self) -> int:
+        if self.bucket_cap > 0:
+            return self.bucket_cap
+        return max(128, 2 * self.unique_cap // max(self.num_shards, 1))
+
+    @property
+    def index_dtype(self):
+        """dtype of prepare_shards' index matrices (values < S * U): 16-bit
+        where they fit, as the JAX package's compact wire."""
+        return np.int16 if self.num_shards * self.unique_cap <= 32768 \
+            else np.int32
+
+    @property
+    def pos_dtype(self):
+        """dtype of positions into one shard's unique list (< U)."""
+        return np.int16 if self.unique_cap <= 32768 else np.int32
+
 
 # Three seed domains, one for each stream of random numbers of a step, told
 # apart by the top two bits of the 64-bit seed so that no two can collide:
@@ -120,27 +161,33 @@ class EngineConfig:
 #   bits 63, 62 = 1, 1  scatter_rows' K3     (JAX: PRNGKey(2))
 #
 # Below the domain bits each is the same mix of (seed, step, table index),
-# as the JAX package folds step and table index into each of its keys.
+# as the JAX package folds step and table index into each of its keys; a
+# table shard s > 0 (the sharded trainer's rank) XORs in s times an odd
+# 64-bit constant, as the JAX package folds in the device's index; shard 0
+# keeps the single-shard seeds.
 
-def _seed_mix(seed: int, step: int, table_index: int) -> int:
-    return (seed * 1_000_003 + step) * 1_009 + table_index
+def _seed_mix(seed: int, step: int, table_index: int, shard: int = 0) -> int:
+    mix = (seed * 1_000_003 + step) * 1_009 + table_index
+    return mix ^ (shard * 0x9E3779B97F4A7C15) % (1 << 64)
 
 
-def _init_seed(seed: int, step: int, table_index: int) -> int:
-    """Philox seed of one table's new-row init at one step."""
-    return _seed_mix(seed, step, table_index) % (1 << 63)
+def _init_seed(seed: int, step: int, table_index: int, shard: int = 0) -> int:
+    """Philox seed of one table shard's new-row init at one step."""
+    return _seed_mix(seed, step, table_index, shard) % (1 << 63)
 
 
-def _round_seed(seed: int, step: int, table_index: int) -> int:
-    """Philox key of one table's stochastic bf16 write-back (K3) in
+def _round_seed(seed: int, step: int, table_index: int,
+                shard: int = 0) -> int:
+    """Philox key of one table shard's stochastic bf16 write-back (K3) in
     fused_apply at one step."""
-    return _seed_mix(seed, step, table_index) % (1 << 62) | (1 << 63)
+    return _seed_mix(seed, step, table_index, shard) % (1 << 62) | (1 << 63)
 
 
-def _defer_seed(seed: int, step: int, table_index: int) -> int:
-    """Philox key of one table's stochastic bf16 write-back (K3) in
+def _defer_seed(seed: int, step: int, table_index: int,
+                shard: int = 0) -> int:
+    """Philox key of one table shard's stochastic bf16 write-back (K3) in
     scatter_rows, the asynchronous block's deferred write-back."""
-    return _seed_mix(seed, step, table_index) % (1 << 62) | (3 << 62)
+    return _seed_mix(seed, step, table_index, shard) % (1 << 62) | (3 << 62)
 
 
 def pad_rows(rows: np.ndarray) -> np.ndarray:
@@ -175,12 +222,28 @@ class EmbeddingEngine:
                  features: Sequence[FeatureConfig],
                  config: EngineConfig = EngineConfig(),
                  seed: int = 0, device=None):
-        if config.num_shards != 1:
-            raise ValueError("the port's engine runs single-shard tables "
-                             f"(num_shards=1, got {config.num_shards})")
-        if config.max_ucap > 65535:
-            # 16-bit feature indices (decoded unsigned, 0xFFFF sentinel) can
-            # only address 65535 unique rows; a larger cap would alias rows
+        S = config.num_shards
+        if S < 1:
+            raise ValueError(f"num_shards must be >= 1 (got {S})")
+        if config.exchange not in ("allgather", "a2a"):
+            raise ValueError(f"exchange must be 'allgather' or 'a2a' (got "
+                             f"{config.exchange!r})")
+        if config.local_shards is not None:
+            raise ValueError("local_shards (a process holding only its own "
+                             "shards' host stores) is the multi-host "
+                             "trainer, ROADMAP item 11 (b), not yet ported")
+        if S > 1 and config.tiered:
+            raise ValueError("tiered storage with num_shards > 1 (an archive "
+                             "a shard) is ROADMAP item 11 (b), not yet "
+                             "ported")
+        if S > 1 and (config.unique_caps or config.new_caps):
+            raise ValueError("per-table unique_caps/new_caps require "
+                             "num_shards == 1 (sharded paths use the "
+                             "global caps)")
+        if S == 1 and config.max_ucap > 65535:
+            # a single-shard trainer steps through the wire, whose 16-bit
+            # feature indices (decoded unsigned, 0xFFFF sentinel) can only
+            # address 65535 unique rows; a larger cap would alias rows
             raise ValueError(f"unique caps must be <= 65535 (got "
                              f"{config.max_ucap})")
         self.config = config
@@ -192,17 +255,29 @@ class EmbeddingEngine:
                 raise ValueError(f"feature {f.name} references unknown table {f.table}")
         self.table_features: Dict[str, List[FeatureConfig]] = {
             t: [f for f in features if f.table == t] for t in self.tables}
-        self.stores: Dict[str, HostStore] = {}
+        # one host store a table shard, seeded as the JAX package seeds
+        # shard s's; `stores` is the single-shard view that checkpoints,
+        # exports and the streaming push read, left empty when S > 1 (those
+        # do not yet run per shard: ROADMAP item 11 (c))
+        self.shard_stores: Dict[str, List[HostStore]] = {}
         self.batchers: Dict[str, Batcher] = {}
+        self.batchers2d: Dict[str, Batcher2D] = {}
         for name, t in self.tables.items():
-            self.stores[name] = HostStore(
-                row_capacity=t.capacity_per_shard,
-                filter_kind=_FILTER_KINDS[t.admission.kind],
-                admit_threshold=t.admission.threshold,
-                filter_capacity=t.admission.filter_capacity,
-                filter_splits=t.admission.filter_splits,
-                seed=seed * 1000003)
-            self.batchers[name] = Batcher(expected_unique=config.ucap(name))
+            self.shard_stores[name] = [
+                HostStore(row_capacity=t.capacity_per_shard,
+                          filter_kind=_FILTER_KINDS[t.admission.kind],
+                          admit_threshold=t.admission.threshold,
+                          filter_capacity=t.admission.filter_capacity,
+                          filter_splits=t.admission.filter_splits,
+                          seed=seed * 1000003 + s)
+                for s in range(S)]
+            self.batchers[name] = Batcher(expected_unique=config.ucap(name) * S)
+            self.batchers2d[name] = Batcher2D(
+                expected_unique=config.ucap(name) * S)
+        self.stores: Dict[str, HostStore] = (
+            {name: st[0] for name, st in self.shard_stores.items()}
+            if S == 1 else {})
+        self.shard = 0   # the table shard the device functions serve
         # the JAX package seeds shard s's archive with seed + s; this is
         # shard 0
         self.archives: Dict[str, RowArchive] = (
@@ -239,6 +314,10 @@ class EmbeddingEngine:
         batch. Pass `out` (contiguous int32, exactly the engine wire length)
         to write into a larger caller-owned transfer buffer."""
         cfg = self.config
+        if cfg.num_shards != 1:
+            raise ValueError("prepare_wire packs one shard's wire; a sharded "
+                             "engine prepares with prepare_shards or "
+                             "prepare_batch_a2a")
         names, streams_per_table = [], []
         offsets = [0]
         for tname in sorted(self.table_features):
@@ -282,7 +361,8 @@ class EmbeddingEngine:
         prepare_wire: per table, dedup (with each id's occurrences when the
         table has admission), the id map (`map_train_pos`) and, when
         tiered, the archive's revive of newly admitted ids. Returns
-        (inputs, stats); inputs per table:
+        (inputs, stats). A sharded engine's inputs are prepare_shards'.
+        A single-shard engine's carry no shard axis; per table:
 
           {"rows": [U] int32 (-1 invalid), "new_mask": [U] uint8,
            "index": {feature: [B, L] int32 (-1 invalid)}}
@@ -292,7 +372,28 @@ class EmbeddingEngine:
         m = the next power of two with position -1 (m = 0 when none). The
         JAX package ships [S, new_cap, width] with -1 tails; the values are
         the same. `pack_wire` turns the rest into prepare_wire's bytes."""
+        inputs, stats = self.prepare_shards(fid_batch, ts)
+        if self.config.num_shards == 1:
+            for tin in inputs.values():
+                tin["rows"], tin["new_mask"] = tin["rows"][0], tin["new_mask"][0]
+                tin["index"] = {f: i.astype(np.int32)
+                                for f, i in tin["index"].items()}
+        return inputs, stats
+
+    def prepare_shards(self, fid_batch: Dict[str, np.ndarray], ts: int
+                       ) -> Tuple[Dict, Dict]:
+        """The JAX package's prepare_batch, array for array: per table
+
+          {"rows": [S, U] int32 (-1 invalid), "new_mask": [S, U] uint8,
+           "index": {feature: [B, L] into the flat [S*U] buffer of every
+                     shard's unique rows, -1 invalid; int16 when
+                     S*U <= 32768, else int32 (index_dtype)}}
+
+        (and a tiered single-shard table's revives, as prepare_batch
+        describes them). Ids route to shards by `shard_of`; each shard's
+        host store maps its own."""
         cfg = self.config
+        S = cfg.num_shards
         inputs = {}
         stats = {"overflow": {}, "new": {}, "unique": {}, "filtered": {},
                  "new_rejected": {}}
@@ -306,50 +407,134 @@ class EmbeddingEngine:
             occ = None
             if self.tables[tname].admission.kind != "none":
                 unique, index, counts, occ, overflow = \
-                    self.batchers[tname].dedup_counts(flat, 1, U)
+                    self.batchers[tname].dedup_counts(flat, S, U)
             else:
                 unique, index, counts, overflow = self.batchers[tname].dedup(
-                    flat, 1, U)
-            rows = np.full(U, -1, dtype=np.int32)
-            new_mask = np.zeros(U, dtype=np.uint8)
-            tin = {"rows": rows, "new_mask": new_mask}
+                    flat, S, U)
+            tin = {"rows": np.full((S, U), -1, dtype=np.int32),
+                   "new_mask": np.zeros((S, U), dtype=np.uint8)}
             if cfg.tiered:
                 width = state_width(self.tables[tname])
                 tin["revive_pos"] = np.empty(0, np.int32)
                 tin["revive_values"] = np.zeros((0, width), np.float32)
-            c = int(counts[0])
-            n_new = n_rej = n_filtered = 0
-            if c:
-                store = self.stores[tname]
-                r, nr, nf, npos = store.map_train_pos(
-                    unique[0, :c], ts=ts, new_cap=K,
-                    record_touch=cfg.record_touch,
-                    counts=None if occ is None else occ[0, :c])
-                new_mask[npos] = 1
-                rows[:c] = r
-                n_new, n_rej = len(nr), store.last_rejected
-                # -1 rows are admission-filtered or budget-rejected ids;
-                # the rejected ones are counted in new_rejected already
-                n_filtered = int((r == -1).sum()) - n_rej
-                if cfg.tiered and len(nf):
-                    ok, vals = self.archives[tname].revive(nf)
-                    if ok.any():
-                        pos = pad_rows(npos[ok])
-                        values = np.zeros((len(pos), vals.shape[1]),
-                                          np.float32)
-                        values[:ok.sum()] = vals[ok]
-                        tin["revive_pos"], tin["revive_values"] = pos, values
+            n_new, n_rej, n_filtered = self._map_shards(
+                tname, unique, counts, occ, ts, K, tin)
+            idt = cfg.index_dtype
             tin["index"] = {}
             off = 0
             for f, stream in zip(feats, streams):
                 tin["index"][f.name] = index[off:off + stream.size].reshape(
-                    stream.shape)
+                    stream.shape).astype(idt, copy=False)
                 off += stream.size
             inputs[tname] = tin
             stats["overflow"][tname] = overflow
             stats["new"][tname] = n_new
-            stats["unique"][tname] = c
+            stats["unique"][tname] = int(counts.sum())
             stats["filtered"][tname] = n_filtered
+            stats["new_rejected"][tname] = n_rej
+        return inputs, stats
+
+    def _map_shards(self, tname: str, unique: np.ndarray, counts: np.ndarray,
+                    occ: Optional[np.ndarray], ts: int, K: int, tin: Dict
+                    ) -> Tuple[int, int, int]:
+        """Map each shard's unique ids in its host store (`map_train_pos`),
+        into tin["rows"] / tin["new_mask"] [S, U]; a tiered table's revives
+        into tin["revive_pos"] / ["revive_values"]. Returns (new,
+        budget-rejected, admission-filtered) summed over the shards."""
+        cfg = self.config
+        n_new = n_rej = n_filtered = 0
+        for s, store in enumerate(self.shard_stores[tname]):
+            c = int(counts[s])
+            if c == 0:
+                continue
+            r, nr, nf, npos = store.map_train_pos(
+                unique[s, :c], ts=ts, new_cap=K,
+                record_touch=cfg.record_touch,
+                counts=None if occ is None else occ[s, :c])
+            tin["new_mask"][s, npos] = 1
+            tin["rows"][s, :c] = r
+            n_new += len(nr)
+            n_rej += store.last_rejected
+            # -1 rows are admission-filtered or budget-rejected ids; the
+            # rejected ones are counted in new_rejected already
+            n_filtered += int((r == -1).sum()) - store.last_rejected
+            if cfg.tiered and len(nf):
+                ok, vals = self.archives[tname].revive(nf)
+                if ok.any():
+                    pos = pad_rows(npos[ok])
+                    values = np.zeros((len(pos), vals.shape[1]), np.float32)
+                    values[:ok.sum()] = vals[ok]
+                    tin["revive_pos"], tin["revive_values"] = pos, values
+        return n_new, n_rej, n_filtered
+
+    def prepare_batch_a2a(self, fid_batch: Dict[str, np.ndarray], ts: int
+                          ) -> Tuple[Dict, Dict]:
+        """The bucketed all-to-all's host prepare, the JAX package's
+        prepare_batch_a2a array for array. Per table:
+
+          {"rows": [S, U] int32, "new_mask": [S, U] uint8,
+           "bucket_idx": [S, D, cap] (pos_dtype): for table shard s and
+                         batch shard d, positions into shard s's unique
+                         list of the rows batch shard d reads, -1 padded,
+           "index": {feature: [B, L] into batch shard d's receive buffer
+                     [S*cap] (rows d*B/D .. (d+1)*B/D), -1 invalid or
+                     overflowed; int16 when S*cap <= 32768, else int32}}
+
+        with D = S batch shards (the batch must divide by S) and cap =
+        effective_bucket_cap; stats as prepare_batch's without
+        "filtered"."""
+        cfg = self.config
+        if cfg.tiered:
+            raise ValueError("prepare_batch_a2a: a tiered engine prepares "
+                             "with prepare_batch")
+        S, U, K = cfg.num_shards, cfg.unique_cap, cfg.new_cap
+        D = S
+        cap = cfg.effective_bucket_cap
+        inputs = {}
+        stats = {"overflow": {}, "new": {}, "unique": {}, "new_rejected": {}}
+        for tname, feats in self.table_features.items():
+            if not feats:
+                continue
+            streams = [np.ascontiguousarray(fid_batch[f.name], dtype=np.int64)
+                       for f in feats]
+            B = streams[0].shape[0]
+            if B % D:
+                raise ValueError(f"batch {B} does not divide into {D} shards")
+            rows_per = B // D
+            # batch-shard-major: for each batch shard, every feature's fids
+            flat = np.concatenate(
+                [st[d * rows_per:(d + 1) * rows_per].ravel()
+                 for d in range(D) for st in streams])
+            occ = None
+            if self.tables[tname].admission.kind != "none":
+                (unique, counts, bucket_idx, _, index, occ,
+                 overflow) = self.batchers2d[tname].dedup2(
+                    flat, num_batch_shards=D, num_shards=S, global_cap=U,
+                    bucket_cap=cap)
+            else:
+                unique, counts, bucket_idx, _, index, overflow = \
+                    self.batchers2d[tname].dedup(
+                        flat, num_batch_shards=D, num_shards=S,
+                        global_cap=U, bucket_cap=cap)
+            tin = {"rows": np.full((S, U), -1, dtype=np.int32),
+                   "new_mask": np.zeros((S, U), dtype=np.uint8)}
+            n_new, n_rej, _ = self._map_shards(tname, unique, counts, occ,
+                                               ts, K, tin)
+            idt = np.int16 if S * cap <= 32768 else np.int32
+            tin["index"] = {f.name: np.empty(st.shape, dtype=idt)
+                            for f, st in zip(feats, streams)}
+            pos = 0
+            for d in range(D):
+                for f, st in zip(feats, streams):
+                    n = rows_per * st.shape[1]
+                    tin["index"][f.name][d * rows_per:(d + 1) * rows_per] = \
+                        index[pos:pos + n].reshape(rows_per, st.shape[1])
+                    pos += n
+            tin["bucket_idx"] = bucket_idx.astype(cfg.pos_dtype, copy=False)
+            inputs[tname] = tin
+            stats["overflow"][tname] = overflow
+            stats["new"][tname] = n_new
+            stats["unique"][tname] = int(counts.sum())
             stats["new_rejected"][tname] = n_rej
         return inputs, stats
 
@@ -374,11 +559,18 @@ class EmbeddingEngine:
     def evict_expired(self, expire_before: int) -> Dict[str, np.ndarray]:
         """Expiry on the host stores of every table with a ttl: ids whose
         last update is older than `expire_before` leave the id map. Returns
-        the freed rows {table: int64 [n]}, for zero_rows."""
-        return {tname: self.stores[tname].evict_expired(expire_before
-                                                        ).astype(np.int64)
-                for tname, t in self.tables.items()
-                if t.eviction.ttl_seconds > 0}
+        the freed rows {table: int64 [n]}, for zero_rows; shard s's rows
+        read s * capacity_per_shard + row."""
+        out = {}
+        for tname, t in self.tables.items():
+            if t.eviction.ttl_seconds <= 0:
+                continue
+            # shard s's rows as s * capacity + row, as the JAX package's
+            out[tname] = np.concatenate(
+                [st.evict_expired(expire_before).astype(np.int64)
+                 + s * t.capacity_per_shard
+                 for s, st in enumerate(self.shard_stores[tname])])
+        return out
 
     @torch.no_grad()
     def zero_rows(self, states: Dict, freed: Dict[str, np.ndarray]) -> Dict:
@@ -443,7 +635,8 @@ class EmbeddingEngine:
         """Gather each table's packed rows (K1) and select init values for
         newly admitted ids. New-row init draws from Philox through a
         generator seeded from (seed, step, table index) — not the JAX
-        package's threefry draws. A tiered table's revived rows
+        package's threefry draws; `self.shard` keys each shard's draws
+        apart. A tiered table's revived rows
         (`revive_pos`, `revive_values` in its inputs) are laid over the
         init: their archived state replaces the first `state_width`
         columns and the columns after them read zero.
@@ -455,7 +648,7 @@ class EmbeddingEngine:
             spec = self.tables[tname]
             rows = tin["rows"]
             p = table_lib.gather_packed(spec, states[tname], rows)
-            self._generator.manual_seed(_init_seed(seed, step, i))
+            self._generator.manual_seed(_init_seed(seed, step, i, self.shard))
             init = table_lib.init_packed(spec, self._generator, rows.shape[0],
                                          self.device)
             p = torch.where((tin["new_mask"] > 0)[:, None], init, p)
@@ -471,13 +664,14 @@ class EmbeddingEngine:
         """Optimize the gathered packed rows and write them back in place
         with ONE scatter (K2) per table; a bf16 pool with stochastic
         rounding narrows them first with K3, keyed by (seed, step, table
-        index)."""
+        index, shard)."""
         for i, (tname, tin) in enumerate(sorted(inputs.items())):
             spec = self.tables[tname]
             new_p = table_lib.optimize_packed(spec, prows[tname],
                                               unique_grads[tname], step)
             table_lib.scatter_packed(spec, states[tname], tin["rows"], new_p,
-                                     seed=_round_seed(seed, step, i))
+                                     seed=_round_seed(seed, step, i,
+                                                     self.shard))
         return states
 
     def optimize_rows(self, inputs: Dict, prows_latest: Dict,
@@ -499,12 +693,13 @@ class EmbeddingEngine:
         """ONE scatter (K2) per table of full packed rows, in place; -1 rows
         drop: the deferred write-back of the asynchronous block. A bf16
         pool with stochastic rounding narrows the rows first with K3, keyed
-        by (seed, step, table index) in a domain of its own
+        by (seed, step, table index, shard) in a domain of its own
         (_defer_seed)."""
         for i, tname in enumerate(sorted(rows)):
             table_lib.scatter_packed(self.tables[tname], states[tname],
                                      rows[tname], values[tname],
-                                     seed=_defer_seed(seed, step, i))
+                                     seed=_defer_seed(seed, step, i,
+                                                     self.shard))
         return states
 
     def lookup_unique(self, states: Dict, inputs: Dict) -> Dict[str, torch.Tensor]:

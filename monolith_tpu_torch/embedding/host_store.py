@@ -4,7 +4,9 @@
 filtering and expiry eviction; it holds no float data, only row indices into
 the device pool. It also records the fids touched since the last drain (the streaming push
 reads them) and saves and restores its admission filter (checkpoints).
-`Batcher` owns the dedup scratch of one table. `prepare_wire_multi` is the
+`Batcher` owns the dedup scratch of one table; `Batcher2D` the two-level
+dedup of the sharded trainer's bucketed all-to-all exchange (per table
+shard, then per batch shard). `prepare_wire_multi` is the
 fused per-step host prepare (dedup + map + wire pack for every table in one
 native call). `shard_of` / `shard_of_batch` are the hash that routes a fid
 to a shard (checkpoint resharding, row-sharded serving). Same C++ and the
@@ -208,6 +210,11 @@ class HostStore:
 
     # --- filter state ---
 
+    def filter_estimate(self, fid: int) -> int:
+        """Estimated occurrence count of `fid` in the admission filter's
+        sliding window (-1 for a store without a filter)."""
+        return int(self._lib.mt_store_filter_estimate(self._h, int(fid)))
+
     def filter_save(self) -> bytes:
         """The admission filter's state (b"" for a store without one)."""
         n = self._lib.mt_store_filter_byte_size(self._h)
@@ -276,6 +283,76 @@ class Batcher:
             _ptr(index, ctypes.c_int32), _ptr(counts, ctypes.c_int32),
             _ptr(occ, ctypes.c_int32))
         return unique, index, counts, occ, int(overflow)
+
+
+class Batcher2D:
+    """Two-level dedup for the bucketed all-to-all exchange: the unique ids
+    of each table shard (for the host map and the shard's local gather),
+    and per (table shard, batch shard) a bucket of positions into that
+    shard's unique list: the rows that batch shard reads from it."""
+
+    def __init__(self, expected_unique: int = 4096):
+        self._lib = native.get_lib()
+        self._h = self._lib.mt_batcher2d_new(int(expected_unique))
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.mt_batcher2d_free(h)
+            self._h = None
+
+    def _run(self, values, num_batch_shards, num_shards, global_cap,
+             bucket_cap, with_occurrences):
+        values = np.ascontiguousarray(values, dtype=np.int64).ravel()
+        n, S, D = values.size, num_shards, num_batch_shards
+        if n % D:
+            raise ValueError(f"{n} values do not split into {D} batch "
+                             f"shards")
+        unique = np.empty((S, global_cap), dtype=np.int64)
+        counts = np.empty(S, dtype=np.int32)
+        bucket_idx = np.empty((S, D, bucket_cap), dtype=np.int32)
+        bucket_counts = np.empty((S, D), dtype=np.int32)
+        index = np.empty(n, dtype=np.int32)
+        args = [self._h, _ptr(values, ctypes.c_int64), n, D, S, global_cap,
+                bucket_cap, _ptr(unique, ctypes.c_int64),
+                _ptr(counts, ctypes.c_int32),
+                _ptr(bucket_idx, ctypes.c_int32),
+                _ptr(bucket_counts, ctypes.c_int32),
+                _ptr(index, ctypes.c_int32)]
+        if with_occurrences:
+            occ = np.empty((S, global_cap), dtype=np.int32)
+            overflow = self._lib.mt_batcher2d_dedup2(
+                *args, _ptr(occ, ctypes.c_int32))
+            return (unique, counts, bucket_idx, bucket_counts, index, occ,
+                    int(overflow))
+        overflow = self._lib.mt_batcher2d_dedup(*args)
+        return unique, counts, bucket_idx, bucket_counts, index, int(overflow)
+
+    def dedup(self, values: np.ndarray, num_batch_shards: int,
+              num_shards: int, global_cap: int, bucket_cap: int):
+        """values: flat int64, batch-shard-major (length divisible by
+        num_batch_shards), padding fid == -1.
+
+        Returns (unique [S, global_cap] int64 padded with -1,
+                 counts [S] int32,
+                 bucket_idx [S, D, bucket_cap] int32 padded with -1:
+                   positions into shard s's unique list,
+                 bucket_counts [S, D] int32,
+                 index [n] int32: per value, its row of its batch shard's
+                   receive buffer [S * bucket_cap]; -1 for padding and for
+                   ids that overflowed a bucket or a shard,
+                 overflow count)."""
+        return self._run(values, num_batch_shards, num_shards, global_cap,
+                         bucket_cap, False)
+
+    def dedup2(self, values: np.ndarray, num_batch_shards: int,
+               num_shards: int, global_cap: int, bucket_cap: int):
+        """dedup that also returns each unique id's occurrences in the
+        batch ([S, global_cap] int32, the layout of `unique`), which the
+        admission filters consume. Returns (unique, counts, bucket_idx,
+        bucket_counts, index, occurrences, overflow)."""
+        return self._run(values, num_batch_shards, num_shards, global_cap,
+                         bucket_cap, True)
 
 
 def prepare_wire_multi(batchers, stores, table_streams, ts: int,

@@ -26,6 +26,15 @@ class Zeros(Initializer):
 
 
 @dataclasses.dataclass(frozen=True)
+class Constants(Initializer):
+    value: float = 0.0
+
+    def init(self, generator, shape, device):
+        return torch.full(shape, self.value, dtype=torch.float32,
+                          device=device)
+
+
+@dataclasses.dataclass(frozen=True)
 class RandomUniform(Initializer):
     minval: float = -0.05
     maxval: float = 0.05
@@ -34,3 +43,21 @@ class RandomUniform(Initializer):
         u = torch.rand(shape, generator=generator, dtype=torch.float32,
                        device=device)
         return u * (self.maxval - self.minval) + self.minval
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomNormal(Initializer):
+    mean: float = 0.0
+    stddev: float = 0.05
+
+    def init(self, generator, shape, device):
+        return self.mean + self.stddev * torch.randn(
+            shape, generator=generator, dtype=torch.float32, device=device)
+
+
+NAMED_INITIALIZERS = {
+    "zeros": Zeros,
+    "constants": Constants,
+    "random_uniform": RandomUniform,
+    "random_normal": RandomNormal,
+}

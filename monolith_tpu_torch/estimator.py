@@ -6,7 +6,8 @@ collapsed to the knobs that apply.
 `RunnerConfig` keeps the JAX package's fields and defaults, so that
 `config.extract_flags` gives both packages' CLIs the same flags. The port
 builds the single-device `Trainer`, on the card unless the caller passes
-`device="cpu"`; a sharded run (`num_shards != 1`) is refused.
+`device="cpu"`; a sharded run (`num_shards != 1`) is refused until
+checkpoints run per shard (ROADMAP item 11 (c)).
 
 A restore is decided at construction (a checkpoint under `model_dir`) and
 made when the first batch arrives, as in the JAX package. The port's
@@ -29,7 +30,7 @@ from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
 class RunnerConfig:
     """ref runner_utils.py:148 RunnerConfig (subset that applies)."""
     model_dir: str = ""
-    num_shards: int = 1            # table shards; the port runs 1
+    num_shards: int = 1            # table shards; the Estimator runs 1
     unique_cap: int = 8192
     new_cap: int = 8192
     clip_norm: float = 0.0
@@ -48,9 +49,10 @@ class Estimator:
                  device=None):
         if config.num_shards != 1:
             raise ValueError(
-                f"num_shards={config.num_shards}: the port trains one shard "
-                f"on one device; sharded training is ROADMAP item 11 "
-                f"(multi-GPU)")
+                f"num_shards={config.num_shards}: the Estimator saves, "
+                f"restores and exports one shard; the sharded trainer "
+                f"(parallel.ShardedTrainer) has no checkpoints per shard "
+                f"until ROADMAP item 11 (c)")
         self.task = task
         self.config = config
         tc = TrainerConfig(

@@ -65,6 +65,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     d.mt_store_filter_save.argtypes = [ctypes.c_void_p, c_u8_p]
     d.mt_store_filter_restore.restype = ctypes.c_int32
     d.mt_store_filter_restore.argtypes = [ctypes.c_void_p, c_u8_p, ctypes.c_int64]
+    d.mt_store_filter_estimate.restype = ctypes.c_int64
+    d.mt_store_filter_estimate.argtypes = [ctypes.c_void_p, ctypes.c_int64]
 
     d.mt_batcher_new.restype = ctypes.c_void_p
     d.mt_batcher_new.argtypes = [ctypes.c_int64]
@@ -87,6 +89,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.c_int32, c_i32_p, c_i64_p]
     d.mt_host_threads.restype = ctypes.c_int32
     d.mt_host_threads.argtypes = []
+
+    d.mt_batcher2d_new.restype = ctypes.c_void_p
+    d.mt_batcher2d_new.argtypes = [ctypes.c_int64]
+    d.mt_batcher2d_free.argtypes = [ctypes.c_void_p]
+    d.mt_batcher2d_dedup.restype = ctypes.c_int64
+    d.mt_batcher2d_dedup.argtypes = [
+        ctypes.c_void_p, c_i64_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
+        c_i64_p, c_i32_p, c_i32_p, c_i32_p, c_i32_p]
+    d.mt_batcher2d_dedup2.restype = ctypes.c_int64
+    d.mt_batcher2d_dedup2.argtypes = [
+        ctypes.c_void_p, c_i64_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
+        c_i64_p, c_i32_p, c_i32_p, c_i32_p, c_i32_p, c_i32_p]
 
 
 def get_lib() -> ctypes.CDLL:

@@ -57,6 +57,13 @@ as in the JAX package, a tiered trainer runs no blocks.
 Loss and AUC accumulate on the device (metrics.device_metrics_update) and
 are read back only by `_drain_metrics`. A task whose batch carries no
 "label", or whose predictions are a dict, accumulates the loss alone.
+
+The sharded trainer (parallel/sharded.py) runs these same steps on each
+rank, with its own wire and five seams that are identities here:
+`_exchange` / `_exchange_back` (the unique rows to and from the other
+ranks), `_reduce_dense` (the ranks' mean of loss, dense gradients and
+model state), `_gather` (the global predictions) and `_mean` (an eval
+loss).
 """
 
 from __future__ import annotations
@@ -215,10 +222,10 @@ class Trainer:
                              "revived rows are taken from the archive at "
                              "each step's prepare")
         layout = self._batch_layout(pairs[0][1])
-        key = (layout, len(pairs))
+        words = self._full_wire_words(layout)
+        key = (layout, len(pairs), words)
         if key not in self._wires:
-            self._wires[key] = _PinnedWires(
-                len(pairs), self._full_wire_words(layout), self.device)
+            self._wires[key] = _PinnedWires(len(pairs), words, self.device)
         staging = self._wires[key]
         host = staging.host()
         stats, revives = [], []
@@ -320,8 +327,10 @@ class Trainer:
         clip and the dense update. Returns (loss, preds, aux, gradients wrt
         the unique rows {table: [U, dim]})."""
         engine, task = self.engine, self.task
-        # differentiate wrt the gathered unique rows, not the pool
-        leaves = {t: u.detach().requires_grad_() for t, u in unique.items()}
+        # differentiate wrt the gathered unique rows (after the exchange,
+        # which stays outside autograd), not the pool
+        leaves = {t: u.detach().requires_grad_()
+                  for t, u in self._exchange(unique, inputs).items()}
         pooled = engine.pool_features(engine.retrieve_unique(leaves, step),
                                       inputs)
         out = self._forward(pooled, batch_t, step, training=True)
@@ -330,13 +339,39 @@ class Trainer:
         grads = torch.autograd.grad(
             loss, [p for _, p in named] + list(leaves.values()))
         gp = {name: g for (name, _), g in zip(named, grads)}
-        gu = dict(zip(leaves, grads[len(named):]))
+        gu = self._exchange_back(dict(zip(leaves, grads[len(named):])),
+                                 inputs)
+        loss, gp = self._reduce_dense(loss.detach(), gp)
         if self.config.clip_norm > 0:
             gp, _ = clip_by_global_norm(gp, self.config.clip_norm)
         self.tx.update_(named, gp, self.opt_state)
-        loss, preds = loss.detach(), _detach(task.predictions(out))
+        preds = self._gather(_detach(task.predictions(out)))
         self._metrics_update(loss, preds, batch_t)
         return loss, preds, _detach(aux), gu
+
+    # the sharded trainer's seams (parallel/sharded.py); identities here
+
+    def _exchange(self, unique: Dict[str, torch.Tensor], inputs: Dict
+                  ) -> Dict[str, torch.Tensor]:
+        """The unique rows the step's index matrices address."""
+        return unique
+
+    def _exchange_back(self, grads: Dict[str, torch.Tensor], inputs: Dict
+                       ) -> Dict[str, torch.Tensor]:
+        """The gradients wrt this trainer's own unique rows."""
+        return grads
+
+    def _reduce_dense(self, loss: torch.Tensor, gp: Dict[str, torch.Tensor]):
+        """(loss, dense gradients) of the whole batch."""
+        return loss, gp
+
+    def _gather(self, preds):
+        """The predictions of the whole batch."""
+        return preds
+
+    def _mean(self, loss: torch.Tensor) -> torch.Tensor:
+        """An eval loss of the whole batch."""
+        return loss
 
     def _step_core(self, inputs, batch_t, step: int):
         """One synchronous training step on decoded inputs, shared by
@@ -515,8 +550,12 @@ class Trainer:
         """Forward only, through the wire path (K1 gather, no init, no
         write-back). Returns (module outputs, batch tensors)."""
         inputs, batch_t, _ = self._upload(fid_batch, batch, 0)
-        pooled, _ = self.engine.embed(self.table_states, inputs,
-                                      step=self.step)
+        engine = self.engine
+        unique = self._exchange(engine.lookup_unique(self.table_states,
+                                                     inputs), inputs)
+        pooled = engine.pool_features(engine.retrieve_unique(unique,
+                                                             self.step),
+                                      inputs)
         return (self._forward(pooled, batch_t, self.step, training=False),
                 batch_t)
 
@@ -525,7 +564,7 @@ class Trainer:
         """The eval predictions [B] of one batch, on the device: what a
         serving replica loaded from an export of this state must answer."""
         out, _ = self._eval_forward(fid_batch, batch)
-        return self.task.predictions(out)
+        return self._gather(self.task.predictions(out))
 
     @torch.no_grad()
     def evaluate(self, data: Iterator, max_steps: Optional[int] = None) -> Dict[str, float]:
@@ -538,8 +577,9 @@ class Trainer:
                 break
             out, batch_t = self._eval_forward(fid_batch, batch)
             loss, _ = task.loss(out, batch_t)
-            auc.update(task.predictions(out).cpu().numpy(), batch["label"])
-            loss_mean.update(float(loss))
+            auc.update(self._gather(task.predictions(out)).cpu().numpy(),
+                       batch["label"])
+            loss_mean.update(float(self._mean(loss)))
         return {"auc": auc.result(), "loss": loss_mean.result()}
 
     def _block_capable(self) -> bool:

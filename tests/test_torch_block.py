@@ -208,9 +208,9 @@ def test_port_trainer_config_carries_the_jax_settings():
                             async_optimize=True),
         clip_norm=2.5, seed=3, log_every=7, metrics_enabled=False,
         steps_per_dispatch=8)
-    with pytest.raises(ValueError, match="num_shards"):
+    with pytest.raises(ValueError, match="packed='off'"):
         convert.port_trainer_config(JaxTrainerConfig(
-            engine=JaxEngineConfig(num_shards=2)))
+            engine=JaxEngineConfig(num_shards=2, packed="off")))
 
 
 def test_sync_block_matches_jax_with_clipping():
