@@ -248,6 +248,41 @@ failures is caught:
        own (`rank_16c`), K1 = K2 = 8 a card rank, counted with the path.
      Every launch of 16a and 16c is path "sharded" of the deepfm_f32
      kernels, 16b's of the multislot_bf16 ones.
+ 17. the multi-host trainer (parallel/multihost.py), run after phase 16:
+     17c. first, two gloo ranks sharing cuda:0 (`rank_17c`, a process
+       each, fed its half of every batch; capacity 2^20 a shard, tiered,
+       ttl 8, touches recorded): 8 steps, a synchronous block of 8, an
+       evaluation, expiry, a spill, 4 steps that revive, predict, export
+       and a checkpoint by both ranks, a streaming round to a stand-in
+       target; held against the same ranks on the CPU within 1e-5 (losses,
+       eval, predictions, dense params and rows by id; freed, spilled and
+       revived counts and pushed rows exactly); each rank holds its own
+       store alone (its RSS growth for one store of capacity 2^20 beside
+       what a ShardedTrainer rank's two take); every pushed row acked and
+       equal to its pool row; K1 = 24 (+1 with a spill), K2 = 20 (+1 with
+       a spill, +1 with freed rows) a card rank;
+     17a. deepfm_f32 at full width (init_scale 0.0) on one NCCL rank (a
+       world of 1; a2a#1 over a gloo group of 1) beside the Trainer: 8
+       steps, a synchronous and an asynchronous block of 8 and 1 eval
+       batch under deterministic algorithms, losses and dense params
+       within rtol 1e-5 / atol 1e-6 and the pools by id; then with the
+       default algorithms 8 timed steps in turns with the Trainer and 16a's
+       a2a ShardedTrainer on the same batches, 4 steps with the host phases
+       timed (local prepare, a2a#1, owner map, pack, upload), a timed
+       synchronous and asynchronous block of 8, and 4 steps under
+       torch.profiler (busy, operations, idle); K1/K2 bit for bit on its
+       pool;
+     17b. multislot_bf16 at full width, an asynchronous block of 8 beside
+       the Trainer's: three all-to-alls a step (int32 ids, bf16 rows, bf16
+       gradients), losses within 1e-3, live rows' mean and std within
+       0.1%, K1/K2/K3 bit for bit on its pool;
+     then 17c's checkpoint restored 2 -> 1 into a one-rank MultiHostTrainer
+     and into the Trainer, equal by id to the ranks' rows, and its export
+     served by one ServingModel, equal to the ranks' predict (rtol 1e-4);
+     17d logs 17c's spill and revive: rows spilled, revived rows and bytes
+     a step, the tiered ms/step. Every launch of 17a and 17c's card ranks
+     is path "multihost" of the deepfm_f32 kernels, 17b's of the
+     multislot_bf16 ones.
 
 TF32 is off for matrix products and convolutions (torch.backends), so the
 card's f32 dense towers run in full f32 like the CPU's. The second-to-last
@@ -3471,6 +3506,591 @@ def phase_sharded(device="cuda"):
     return {"deepfm_f32": deepfm.total, "multislot_bf16": multislot.total}
 
 
+# ----------------------------------------------------------------------
+# phase 17: the multi-host trainer
+# ----------------------------------------------------------------------
+
+MH_RTOL, MH_ATOL = 1e-5, 1e-6   # 17a: the multi-host trainer vs the Trainer
+MH_BF16_LOSS, MH_BF16_STATS = 1e-3, 1e-3   # 17b: losses, live-row stats
+# 17c/17d: capacity a shard, steps, ttl, evict and spill points, tiered steps
+MH2_CAP, MH2_STEPS, MH2_TTL = 1 << 20, 8, 8
+MH2_EVICT, MH2_SPILL, MH2_TIERED, MH2_TIERED_TS = 2, 5, 4, 20
+MH2_RTOL = 1e-5
+#: the deepfm_f32 stream's users and items (bench.py's)
+CTR_USERS, CTR_ITEMS = 1_000_000, 200_000
+
+
+def _mh_task(cap, ttl=0):
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    return DeepFMTask(embedding_dim=16, capacity_per_shard=cap,
+                      hidden=(256, 128, 64), init_scale=0.0, ttl_seconds=ttl)
+
+
+def _mh_config(**engine):
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.training.trainer import TrainerConfig
+    return TrainerConfig(engine=EngineConfig(
+        **{"num_shards": 1, "unique_cap": SHARD_U, "new_cap": SHARD_U,
+           **engine}), log_every=0)
+
+
+def _rank_rows(pair, rank, world):
+    """Rank `rank`'s rows of a global (fid_batch, batch)."""
+    fb, b = pair
+    n = len(next(iter(b.values()))) // world
+    sl = slice(rank * n, (rank + 1) * n)
+    return ({k: v[sl] for k, v in fb.items()},
+            {k: v[sl] for k, v in b.items()})
+
+
+def _own_rows_by_id(trainer):
+    """(sorted fids, their packed rows read by K1's plain version) of the
+    trainer's own shard."""
+    import torch
+    from monolith_tpu_torch.ops import scatter as ops
+    fids, rows = trainer.engine.store_of("sparse").save()[:2]
+    order = np.argsort(fids)
+    pool = trainer.table_states["sparse"]["data"]
+    idx = torch.from_numpy(np.ascontiguousarray(rows[order], np.int32))
+    return fids[order], ops.gather_rows_plain(pool, idx.to(pool.device))
+
+
+def _timed_block(trainer, pairs, ts):
+    import torch
+    t0 = time.perf_counter()
+    out = trainer.train_step_block(pairs, ts=ts)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / len(pairs)
+
+
+def _host_split(trainer, batches, ts0, launches):
+    """Train steps (counted in `launches`) with the multi-host trainer's
+    host phases timed: the local prepare, a2a#1, the owner map, the rest
+    of the pack, and the upload (between two synchronizes). Returns ms a
+    step of each."""
+    import torch
+    from monolith_tpu_torch.training import trainer as trainer_mod
+    acc = {"prepare": 0.0, "a2a1": 0.0, "map": 0.0, "pack": 0.0,
+           "upload": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            acc[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    names = {"_prepare_local": "prepare", "_send_ids": "a2a1",
+             "_map_ids": "map", "_pack_full_wire": "pack"}
+    for name, key in names.items():
+        setattr(trainer, name, timed(getattr(trainer, name), key))
+    real_upload = trainer_mod._PinnedWires.upload
+
+    def upload(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_upload(self)
+        torch.cuda.synchronize()
+        acc["upload"] += time.perf_counter() - t0
+        return out
+    trainer_mod._PinnedWires.upload = upload
+    try:
+        _steps(trainer, batches, ts0, launches)
+    finally:
+        trainer_mod._PinnedWires.upload = real_upload
+        for name in names:
+            delattr(trainer, name)
+    acc["pack"] -= acc["prepare"] + acc["a2a1"] + acc["map"]
+    return {k: v * 1e3 / len(batches) for k, v in acc.items()}
+
+
+def _mh_deepfm(mesh, launches):
+    """17a: the deepfm_f32 cell (init_scale 0.0) through the multi-host
+    trainer beside the Trainer on the same batches, first held equal
+    (deterministic algorithms), then timed (the default ones) in turns
+    with the Trainer and 16a's a2a ShardedTrainer; returns the numbers
+    logged."""
+    import torch
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.parallel import MultiHostTrainer, ShardedTrainer
+    from monolith_tpu_torch.training.trainer import Trainer
+    mh = MultiHostTrainer(_mh_task(SHARD_CAP), _mh_config(), mesh)
+    single = Trainer(_mh_task(SHARD_CAP), _mh_config(), device=mesh.device)
+    data = SyntheticCTR(num_users=CTR_USERS, num_items=CTR_ITEMS,
+                        batch_size=SHARD_B, seed=0)
+
+    def take(n):
+        return [data.batch() for _ in range(n)]
+    steps, sync_block, async_block, evals = (
+        take(SHARD_STEPS), take(SHARD_K), take(SHARD_K), take(1))
+    timed, split, sync_t, async_t, window = (
+        take(SHARD_STEPS), take(SHARD_WINDOW), take(SHARD_K), take(SHARD_K),
+        take(SHARD_WINDOW))
+    r = {}
+    seen = _record_lookups(mh)
+
+    def gap():
+        (fa, a), (fb, b) = _own_rows_by_id(mh), _own_rows_by_id(single)
+        assert np.array_equal(fa, fb), "the two stores hold other ids"
+        return max(_gap(a, b), _dense_gap(mh, single))
+
+    with _Deterministic():
+        got, _ = _steps(mh, steps, 0, launches)
+        want, _ = _steps(single, steps, 0, Launches())
+        np.testing.assert_allclose(got, want, rtol=MH_RTOL, atol=MH_ATOL)
+        r["steps_gap"] = gap()
+        assert r["steps_gap"] <= MH_RTOL, r["steps_gap"]
+        for pairs, on, ts in ((sync_block, False, SHARD_STEPS),
+                              (async_block, True, SHARD_STEPS + 1)):
+            for t in (mh, single):
+                _set_async(t, on)
+            out, _ = launches.run(lambda: _timed_block(mh, pairs, ts))
+            ref, _ = _timed_block(single, pairs, ts)
+            got = out["loss"].cpu().numpy()
+            np.testing.assert_allclose(got, ref["loss"].cpu().numpy(),
+                                       rtol=MH_RTOL, atol=MH_ATOL)
+            assert tuple(out["preds"].shape) == (SHARD_K, SHARD_B)
+            r["losses"] = got
+        for t in (mh, single):
+            _set_async(t, False)
+        r["blocks_gap"] = gap()
+        assert r["blocks_gap"] <= MH_RTOL, r["blocks_gap"]
+        r["eval"] = launches.run(lambda: mh.evaluate(iter(evals)))
+        ev = single.evaluate(iter(evals))
+        assert abs(r["eval"]["loss"] - ev["loss"]) <= \
+            MH_RTOL * ev["loss"] + MH_ATOL, (r["eval"], ev)
+        assert abs(r["eval"]["auc"] - ev["auc"]) <= MH_RTOL, (r["eval"], ev)
+    # timed with the default algorithms, in turns on the same batches
+    sharded = ShardedTrainer(_mh_task(SHARD_CAP), _mh_config(exchange="a2a"),
+                             mesh)
+    _, r["ms"] = _steps(mh, timed, 200, launches)
+    _, r["single_ms"] = _steps(single, timed, 200, Launches())
+    _, r["sharded_ms"] = _steps(sharded, timed, 200, Launches())
+    del sharded
+    torch.cuda.empty_cache()
+    r["split"] = _host_split(mh, split, 300, launches)
+    for key, pairs, on, ts in (("sync_ms", sync_t, False, 400),
+                               ("async_ms", async_t, True, 500)):
+        _set_async(mh, on)
+        out, r[key] = launches.run(lambda: _timed_block(mh, pairs, ts))
+        assert np.isfinite(out["loss"].cpu().numpy()).all()
+    _set_async(mh, False)
+    losses, r["busy"], r["ops"], r["nccl"] = launches.run(
+        lambda: _profiled_steps(mh, window, 600))
+    assert np.isfinite(losses).all(), losses
+    r["idle"] = 1.0 - r["busy"] / r["ms"]
+    r["valid_rows"] = _hold_kernels_on(mh, seen)
+    del mh, single, seen
+    return r
+
+
+def _mh_multislot(mesh, launches):
+    """17b: multislot_bf16 through the multi-host trainer, an asynchronous
+    block of 8 beside the Trainer's; the all-to-alls of each step counted
+    by dtype; K1/K2/K3 bit for bit on its pool."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from monolith_tpu_torch.embedding.engine import _round_seed
+    from monolith_tpu_torch.parallel import MultiHostTrainer
+    from monolith_tpu_torch.profile_step import CONFIGS
+    single, data = CONFIGS["multislot_bf16"]()
+    cfg = single.config
+    mh = MultiHostTrainer(single.task, dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, async_optimize=True)),
+        mesh)
+    _set_async(single, True)
+    batches = [data.batch() for _ in range(SHARD_K)]
+    seen = _record_lookups(mh)
+    calls, real = [], dist.all_to_all_single
+
+    def spy(output, input, *a, **k):
+        calls.append(str(input.dtype).replace("torch.", ""))
+        return real(output, input, *a, **k)
+    dist.all_to_all_single = spy
+    try:
+        out, ms = launches.run(lambda: _timed_block(mh, batches, 0))
+    finally:
+        dist.all_to_all_single = real
+    ref, single_ms = _timed_block(single, batches, 0)
+    # a step: a2a#1 of int32 ids (the block packs every step's first),
+    # a2a#2 and a2a#3 of the one (bf16) wire dtype
+    assert calls == ["int32"] * SHARD_K + ["bfloat16"] * 2 * SHARD_K, calls
+    got, want = out["loss"].cpu().numpy(), ref["loss"].cpu().numpy()
+    assert np.isfinite(got).all(), got
+    loss_gap = float(np.max(np.abs(got - want) / np.abs(want)))
+    assert loss_gap <= MH_BF16_LOSS, (got, want)
+    pools = [t.table_states["table_all"]["data"] for t in (mh, single)]
+    assert all(p.dtype == torch.bfloat16 for p in pools)
+    live = mh.engine.store_of("table_all").size()
+    stats = []
+    for p in pools:
+        x = p[:live, :16].float()
+        stats.append((float(x.mean()), float(x.std())))
+    (m0, s0), (m1, s1) = stats
+    assert abs(m0 - m1) <= MH_BF16_STATS * s1 and \
+        abs(s0 / s1 - 1) <= MH_BF16_STATS, stats
+    valid = _hold_kernels_on(mh, seen,
+                             rounding_seed=_round_seed(0, SHARD_K - 1, 0))
+    r = {"losses": got, "ms": ms, "single_ms": single_ms, "live": live,
+         "stats": stats, "loss_gap": loss_gap, "valid_rows": valid,
+         "a2a_per_step": len(calls) / SHARD_K,
+         "pool_gap": _gap(pools[0], pools[1])}
+    del mh, single, seen, pools
+    return r
+
+
+def _rss_bytes():
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class _AckedPush(PushTo):
+    """PushTo that keeps each push's ack (the rows the model applied)."""
+
+    def __init__(self, model):
+        super().__init__(model)
+        self.acks = []
+
+    def push(self, table, fids, values):
+        self.acks.append(super().push(table, fids, values))
+        return self.acks[-1]
+
+
+def rank_17c(rank, port, device, work, out, sizes):
+    """One rank of 17c/17d (a process of its own, `_run_17c`): the
+    deepfm_f32 cell (capacity 2^20 a shard, init_scale 0.0, ttl 8, tiered,
+    touches recorded) through MultiHostTrainer over two gloo ranks, each
+    fed its half of every batch: 8 steps, a block of 8, an evaluation,
+    expiry, a spill, 4 steps that revive, predict, export and checkpoint
+    into `work`, a streaming round to phase 10c's stand-in target (a
+    ServingModel of the two ranks' export). Writes the
+    results, the launches and the rank's rows by id into `out` (.npz).
+    `sizes`: the parent's (capacity a shard, unique_cap, global batch,
+    users, items)."""
+    import torch
+    import torch.distributed as dist
+    from monolith_tpu_torch import ops
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.embedding.host_store import HostStore
+    from monolith_tpu_torch.embedding.tiered import state_width
+    from monolith_tpu_torch.parallel import MultiHostTrainer, make_mesh
+    from monolith_tpu_torch.serving.engine import ServingModel
+    from monolith_tpu_torch.serving.export import export_model, latest_export
+    from monolith_tpu_torch.training import checkpoint
+    from monolith_tpu_torch.training.streaming import StreamingTrainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = device != "cpu"
+    if not card:
+        torch.set_num_threads(4)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    mesh = make_mesh(device=device)
+    cap, unique, batch, users, items = sizes
+    rss0 = _rss_bytes()
+    probe = HostStore(row_capacity=cap)
+    store_bytes = _rss_bytes() - rss0
+    del probe
+    tr = MultiHostTrainer(_mh_task(cap, ttl=MH2_TTL), _mh_config(
+        num_shards=2, unique_cap=unique, new_cap=unique, tiered=True,
+        record_touch=True), mesh)
+    data = SyntheticCTR(num_users=users, num_items=items, batch_size=batch,
+                        seed=0)
+    glob = [data.batch() for _ in range(MH2_STEPS + SHARD_K + 1 + MH2_TIERED)]
+    mine = [_rank_rows(p, rank, 2) for p in glob]
+    steps, block = mine[:MH2_STEPS], mine[MH2_STEPS:MH2_STEPS + SHARD_K]
+    ev = mine[MH2_STEPS + SHARD_K]
+    tiered = mine[MH2_STEPS + SHARD_K + 1:]
+    seen = _record_lookups(tr)
+    archive = tr.engine.archive_of("sparse")
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def step(pair, ts):
+        t0 = time.perf_counter()
+        loss = float(tr.train_step(*pair, ts=ts)["loss"])
+        sync()
+        return loss, (time.perf_counter() - t0) * 1e3
+
+    sync()
+    ops.reset_launch_counts()
+    res = {}
+    res["losses"], res["ms"] = map(np.asarray, zip(
+        *[step(p, i) for i, p in enumerate(steps)]))
+    res["block"] = tr.train_step_block(block, ts=MH2_STEPS)["loss"].cpu()
+    e = tr.evaluate(iter([ev]))
+    res["eval"] = np.asarray([e["loss"], e["auc"]])
+    res["freed"] = tr.evict_expired(MH2_EVICT)["sparse"]
+    res["spilled"] = tr.spill_expired(MH2_SPILL)["sparse"]
+    revived, tl, tms = [], [], []
+    for i, p in enumerate(tiered):
+        before = archive.revived
+        loss, ms = step(p, MH2_TIERED_TS + i)
+        tl.append(loss)
+        tms.append(ms)
+        revived.append(archive.revived - before)
+    res["tiered_losses"], res["tiered_ms"] = np.asarray(tl), np.asarray(tms)
+    res["revived"] = np.asarray(revived)
+    res["width"] = state_width(tr.engine.tables["sparse"])
+    res["predict"] = tr.predict(*ev).cpu().numpy()
+    export_model(tr, os.path.join(work, "export"))
+    checkpoint.save(tr, os.path.join(work, "ckpt"))
+    # phase 10c's stand-in target: the pushes land in a ServingModel of
+    # the two ranks' export
+    model = ServingModel(_mh_task(cap), latest_export(
+        os.path.join(work, "export")), unique_cap=unique, device=device)
+    target = _AckedPush(model)
+    pushed = StreamingTrainer(tr, target).sync_now().get("sparse", 0)
+    sync()
+    counts = ops.launch_counts()
+    res["launches"] = np.asarray([counts["gather_rows"],
+                                  counts["scatter_rows"]])
+    fids, live = _own_rows_by_id(tr)
+    width = res["width"]
+    dim = tr.engine.tables["sparse"].dim
+    (_, pf), = target.pushes
+    order = np.searchsorted(fids, pf)
+    assert np.array_equal(fids[order], pf)
+    res["pushed"], res["acked"] = pushed, target.acks[0]
+    res["push_ok"] = np.asarray(np.array_equal(
+        model.lookup_rows("sparse", pf), live[torch.from_numpy(order).to(
+            live.device), :dim].float().cpu().numpy()))
+    res["valid_rows"] = _hold_kernels_on(tr, seen)
+    res["fids"], res["live"] = fids, live[:, :width].float().cpu().numpy()
+    for k, p in tr.module.named_parameters():
+        res[f"dense/{k}"] = p.detach().cpu().numpy()
+    res["store_bytes"], res["rss"] = store_bytes, _rss_bytes()
+    res["held"] = np.asarray([s is not None
+                              for s in tr.engine.shard_stores["sparse"]])
+    np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _run_17c(device, work):
+    """Both ranks of 17c on `device` (cuda:0 shared, or the CPU); returns
+    each rank's results."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.makedirs(work)
+    outs = [os.path.join(work, f"rank{r}.npz") for r in range(2)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    sizes = (MH2_CAP, SHARD_U, SHARD_B, CTR_USERS, CTR_ITEMS)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as cs; cs.rank_17c("
+         f"{r}, {port}, {device!r}, {work!r}, {outs[r]!r}, {sizes!r})"],
+        cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            log_text, _ = p.communicate(timeout=600)
+            assert p.returncode == 0, (device, r, log_text[-4000:])
+        return [dict(np.load(o)) for o in outs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_17c(device, work):
+    """17c/17d: the two-rank run on the card (`device`) and on the CPU,
+    held equal within MH2_RTOL; returns the card ranks' results."""
+    t0 = time.time()
+    card = _run_17c(device, os.path.join(work, "card"))
+    t1 = time.time()
+    cpu = _run_17c("cpu", os.path.join(work, "cpu"))
+    gaps = []
+    for r, (g, c) in enumerate(zip(card, cpu)):
+        assert g["held"].tolist() == [s == r for s in range(2)], g["held"]
+        for k in ("losses", "block", "eval", "tiered_losses", "predict"):
+            np.testing.assert_allclose(g[k], c[k], rtol=MH2_RTOL,
+                                       err_msg=f"rank {r} {k}")
+        for k in ("freed", "spilled", "revived", "fids", "pushed"):
+            np.testing.assert_array_equal(g[k], c[k], err_msg=f"rank {r} {k}")
+        for k in g:
+            if k == "live" or k.startswith("dense/"):
+                den = float(np.abs(c[k]).max()) or 1.0
+                gaps.append(float(np.abs(g[k] - c[k]).max()) / den)
+        assert bool(g["push_ok"]) and int(g["pushed"]) > 0, r
+        assert int(g["acked"]) == int(g["pushed"]), r
+        if device != "cpu":
+            # steps, block, tiered steps (K1 + K2 each), eval, predict,
+            # export and the streaming round (K1 each), the spill (K1 + the
+            # zeroing K2), the eviction's zeroing K2
+            spill, freed = int(g["spilled"] > 0), int(len(g["freed"]) > 0)
+            train = MH2_STEPS + SHARD_K + MH2_TIERED
+            assert g["launches"].tolist() == [train + 4 + spill,
+                                              train + spill + freed], \
+                g["launches"]
+    assert max(gaps) <= MH2_RTOL, max(gaps)
+    assert sum(int(g["revived"].sum()) for g in card) > 0, "nothing revived"
+    return card, t1 - t0, time.time() - t1, max(gaps)
+
+
+def _mh_restored(card, work, mesh):
+    """17c's files in one process: the two ranks' checkpoint restored into
+    a one-rank multi-host trainer (2 -> 1) and into the Trainer, each
+    equal by id to the ranks' rows; their export served by one
+    ServingModel, which answers as the ranks' predict did."""
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.parallel import MultiHostTrainer
+    from monolith_tpu_torch.serving.engine import ServingModel
+    from monolith_tpu_torch.serving.export import latest_export
+    from monolith_tpu_torch.training import checkpoint
+    from monolith_tpu_torch.training.trainer import Trainer
+    fids = np.concatenate([g["fids"] for g in card])
+    order = np.argsort(fids)
+    fids = fids[order]
+    live = np.concatenate([g["live"] for g in card])[order]
+    width = int(card[0]["width"])
+    ckpt = os.path.join(work, "card", "ckpt")
+    out = {}
+    for name, make in (
+            ("multihost", lambda: MultiHostTrainer(
+                _mh_task(MH2_CAP, MH2_TTL), _mh_config(tiered=True), mesh)),
+            ("trainer", lambda: Trainer(
+                _mh_task(MH2_CAP, MH2_TTL), _mh_config(tiered=True),
+                device=mesh.device))):
+        t = make()
+        t0 = time.perf_counter()
+        checkpoint.restore(t, ckpt)
+        out[f"{name}_s"] = time.perf_counter() - t0
+        got_fids, got = _own_rows_by_id(t)
+        np.testing.assert_array_equal(got_fids, fids)
+        np.testing.assert_array_equal(got[:, :width].float().cpu().numpy(),
+                                      live, err_msg=name)
+        del t
+    model = ServingModel(_mh_task(MH2_CAP), latest_export(
+        os.path.join(work, "card", "export")), unique_cap=SHARD_U,
+        device=mesh.device)
+    data = SyntheticCTR(num_users=CTR_USERS, num_items=CTR_ITEMS,
+                        batch_size=SHARD_B, seed=0)
+    for _ in range(MH2_STEPS + SHARD_K):
+        data.batch()
+    ev = data.batch()
+    pred = model.predict(*ev)
+    np.testing.assert_allclose(pred, card[0]["predict"], rtol=1e-4,
+                               atol=1e-6)
+    out["rows"] = len(fids)
+    return out
+
+
+def phase_multihost(device="cuda"):
+    """Phase 17; returns the launches of 17a and 17c's card ranks (path
+    "multihost" of the deepfm_f32 kernels) and of 17b (of the
+    multislot_bf16 ones)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    t0 = time.time()
+    work = tempfile.mkdtemp(prefix="chip_smoke_17_")
+    try:
+        card_dev = "cuda:0" if device == "cuda" else "cpu"
+        card, card_s, cpu_s, gap = phase_17c(card_dev, work)
+        mesh = _world_of_one(device)
+        deepfm, multislot = Launches(), Launches()
+        r = _mh_deepfm(mesh, deepfm)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _expect_launches(deepfm.total, {
+            "gather_rows": 2 * SHARD_STEPS + 6 * SHARD_K + 1
+            + 2 * SHARD_WINDOW,
+            "scatter_rows": 2 * SHARD_STEPS + 4 * SHARD_K
+            + 2 * SHARD_WINDOW}, "17a")
+        sp = r["split"]
+        log(f"17a deepfm_f32 (one {mesh.backend} rank, {mesh.device}): "
+            f"losses {np.round(r['losses'], 5).tolist()} (the asynchronous "
+            f"block); with deterministic algorithms equal to the Trainer's "
+            f"within rtol {MH_RTOL} / atol {MH_ATOL} (losses; pools by id "
+            f"and dense params: largest gap over the largest magnitude "
+            f"{r['steps_gap']:.3g} after 8 steps, {r['blocks_gap']:.3g} after "
+            f"a synchronous and an asynchronous block of 8; eval "
+            f"{r['eval']}); timed in turns: {r['ms']:.3f} ms/step (the "
+            f"Trainer {r['single_ms']:.3f}, 16a's a2a ShardedTrainer "
+            f"{r['sharded_ms']:.3f}); host a step: local prepare "
+            f"{sp['prepare']:.3f} ms, a2a#1 {sp['a2a1']:.3f}, owner map "
+            f"{sp['map']:.3f}, pack {sp['pack']:.3f}, upload "
+            f"{sp['upload']:.3f}; a block of 8: synchronous "
+            f"{r['sync_ms']:.3f} ms/step, asynchronous {r['async_ms']:.3f}; "
+            f"device busy {r['busy']:.4f} ms/step, {r['ops']:.1f} device "
+            f"operations/step, idle {100 * r['idle']:.1f}%, NCCL "
+            f"{100 * r['nccl']:.2f}% of the busy time; K1/K2 bit for bit on "
+            f"its pool ({r['valid_rows']} valid rows)")
+        b = _mh_multislot(mesh, multislot)
+        _expect_launches(multislot.total, {
+            "gather_rows": 2 * SHARD_K, "scatter_rows": SHARD_K,
+            "stochastic_round_bf16": SHARD_K}, "17b")
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"17b multislot_bf16 asynchronous block of 8 (one "
+            f"{mesh.backend} rank): losses "
+            f"{np.round(b['losses'], 5).tolist()}, within {b['loss_gap']:.3g} "
+            f"of the Trainer's; {b['a2a_per_step']:.0f} all_to_all_single a "
+            f"step (int32 ids, bf16 rows, bf16 gradients); {b['live']} live "
+            f"rows: mean / std of their params {b['stats'][0]} vs the "
+            f"Trainer's {b['stats'][1]} (largest pool gap "
+            f"{b['pool_gap']:.3g}); {b['ms']:.3f} ms/step (the Trainer "
+            f"{b['single_ms']:.3f}); K1/K2/K3 bit for bit on its pool "
+            f"({b['valid_rows']} valid rows)")
+        restored = _mh_restored(card, work, mesh)
+        dist.destroy_process_group()
+        live = [len(g["fids"]) for g in card]
+        log(f"17c deepfm_f32 over two gloo ranks sharing {card_dev} (capacity "
+            f"2^20 a shard, tiered, ttl {MH2_TTL}): 8 steps, a block of 8, "
+            f"an evaluation {card[0]['eval'].tolist()}, expiry (freed "
+            f"{[len(g['freed']) for g in card]}), the spill, 4 steps, "
+            f"predict: equal to two CPU ranks' within {MH2_RTOL} (largest "
+            f"gap of dense params and rows by id {gap:.3g}); ms/step on the "
+            f"card (median of steps 3-8) "
+            f"{[round(float(np.median(g['ms'][2:])), 3) for g in card]}; "
+            f"each rank holds its own store: live rows {live}, one host "
+            f"store of capacity 2^20 {card[0]['store_bytes']} B a rank "
+            f"(a ShardedTrainer rank holds both: {sum(live)} rows, "
+            f"{2 * int(card[0]['store_bytes'])} B); rank RSS "
+            f"{[int(g['rss']) for g in card]} B; the ranks' checkpoint "
+            f"restored 2 -> 1 into a one-rank MultiHostTrainer "
+            f"({restored['multihost_s']:.3f} s) and into the Trainer "
+            f"({restored['trainer_s']:.3f} s), {restored['rows']} rows equal "
+            f"by id; their export served by one ServingModel = their "
+            f"predict (rtol 1e-4); a streaming round pushed "
+            f"{[int(g['pushed']) for g in card]} rows into a ServingModel "
+            f"of the export, all acked, each equal to its pool row; K1/K2 a "
+            f"rank "
+            f"{[g['launches'].tolist() for g in card]}, bit for bit on its "
+            f"pool; {card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU")
+        width = int(card[0]["width"])
+        before = [round(float(np.median(g['ms'][2:])), 3) for g in card]
+        log(f"17d tiered per shard: spilled "
+            f"{[int(g['spilled']) for g in card]} rows, revived a step "
+            f"{[g['revived'].tolist() for g in card]} "
+            f"({[int(g['revived'].sum()) * width * 4 for g in card]} B of "
+            f"archived state in all), tiered ms/step "
+            f"{[round(float(np.median(g['tiered_ms'])), 3) for g in card]} "
+            f"against {before} before the spill")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    deepfm.add({"gather_rows": int(sum(g["launches"][0] for g in card)),
+                "scatter_rows": int(sum(g["launches"][1] for g in card)),
+                "stochastic_round_bf16": 0})
+    log(f"phase 17: {time.time() - t0:.1f} s; multihost launches deepfm_f32 "
+        f"{deepfm.total}, multislot_bf16 {multislot.total}")
+    return {"deepfm_f32": deepfm.total, "multislot_bf16": multislot.total}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3525,6 +4145,8 @@ def main():
     torch.cuda.empty_cache()
     sharded_launches = phase_sharded()
     torch.cuda.empty_cache()
+    multihost_launches = phase_multihost()
+    torch.cuda.empty_cache()
     for k in kernels:
         # each path was driven with the counts set to 0 just before it;
         # "serving" is the export and the trainer's eval predictions (both
@@ -3538,7 +4160,8 @@ def main():
             "per_step": launches[k["path"]][k["name"]],
             "block": block_launches[k["path"]][k["name"]],
             "serving": serving_launches[k["path"]][k["name"]],
-            "sharded": sharded_launches[k["path"]][k["name"]]}
+            "sharded": sharded_launches[k["path"]][k["name"]],
+            "multihost": multihost_launches[k["path"]][k["name"]]}
         if k["path"] == "deepfm_f32":
             k["launches_by_path"]["expiry"] = expiry_launches[k["name"]]
             k["launches_by_path"]["cli"] = cli_launches[k["name"]]

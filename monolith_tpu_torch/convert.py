@@ -19,7 +19,11 @@ The state format is the JAX trainer's, in numpy:
 
 A sharded state carries all S shards' pools and host stores: a
 `ShardedTrainer` on rank r loads pool r and every host store (each rank
-holds all S), and exports its own pool as [1, cap, P] beside all S stores.
+holds all S), and exports its own pool as [1, cap, P] beside all S stores;
+a `MultiHostTrainer` on rank r loads pool r and store r alone, and exports
+its pool beside a list of S stores that is None but at r. A JAX
+`MultiHostTrainer` run in one process reads out as a `ShardedTrainer`
+does, with all S.
 
 `load_state` writes such a state into a port `Trainer` (Dense kernels are
 transposed into `nn.Linear`'s [out, in]; every other leaf crosses by name
@@ -200,7 +204,8 @@ def load_state(trainer, state: Dict) -> None:
     for tname, saved in state["stores"].items():
         shards = trainer.engine.shard_stores[tname]
         for store, one in zip(shards, saved if S > 1 else [saved]):
-            store.restore(*one)
+            if store is not None:   # a shard this process holds
+                store.restore(*one)
     trainer.step = int(state["step"])
 
 
@@ -217,9 +222,9 @@ def export_state(trainer) -> Dict:
 
 def _saved_stores(shard_stores) -> Dict:
     """{table: save()} of one shard's stores, {table: [save(), ...]} of
-    S > 1 shards'."""
+    S > 1 shards' (None for a shard whose store is not held)."""
     return {t: shards[0].save() if len(shards) == 1
-            else [s.save() for s in shards]
+            else [None if s is None else s.save() for s in shards]
             for t, shards in shard_stores.items()}
 
 
@@ -249,19 +254,22 @@ def _state_dict(x):
     return np.asarray(x)
 
 
-def jax_archives(jax_trainer) -> Dict:
-    """A tiered JAX trainer's host archives (shard 0, the port's one) in
-    numpy: {table: {"fids", "rows", "map_tss", "tss", "values", "spilled",
-    "revived", "dropped"}}: the archive map's entries (with the map's
-    timestamps, which order recycling), and each entry's spill timestamp
-    and archived row."""
-    return {t: _archive_state(shards[0])
+def jax_archives(jax_trainer, shard: int = 0) -> Dict:
+    """A tiered JAX trainer's host archives of one shard (0: a
+    single-device trainer's one; r: what rank r of a port multi-host run
+    holds) in numpy: {table: {"fids", "rows", "map_tss", "tss", "values",
+    "spilled", "revived", "dropped"}}: the archive map's entries (with the
+    map's timestamps, which order recycling), and each entry's spill
+    timestamp and archived row."""
+    return {t: _archive_state(shards[shard])
             for t, shards in jax_trainer.engine.archives.items()}
 
 
 def export_archives(trainer) -> Dict:
-    """A tiered port trainer's host archives in jax_archives' format."""
-    return {t: _archive_state(a) for t, a in trainer.engine.archives.items()}
+    """A tiered port trainer's host archives of its own shard, in
+    jax_archives' format."""
+    return {t: _archive_state(trainer.engine.archive_of(t))
+            for t in trainer.engine.shard_archives}
 
 
 def _archive_state(archive) -> Dict:
@@ -275,8 +283,8 @@ def _archive_state(archive) -> Dict:
 
 def load_archives(archives, state: Dict) -> None:
     """Write archives in jax_archives' format into RowArchive objects
-    {table: archive} of either package (a port trainer's
-    `engine.archives`, or a JAX trainer's shard-0 archives), in place:
+    {table: archive} of either package (a port trainer's own, `{t:
+    engine.archive_of(t)}`, or a JAX trainer's of one shard), in place:
     the same entries at the same archive rows, values, timestamps and
     counters."""
     for tname, st in state.items():

@@ -36,16 +36,20 @@ rows travel beside it: only the n revived rows, padded to a power of two
 with position -1. `fused_lookup` lays them over the gathered rows. As in
 the JAX package, a tiered trainer steps one by one (no blocks).
 
-Sharded tables (`num_shards = S > 1`, driven by parallel/sharded.py, one
-rank a shard): every rank holds all S host stores and runs the same host
-prepare over the whole global batch, as the JAX package's one host engine
-does for its S devices. `prepare_shards` (allgather exchange) and
-`prepare_batch_a2a` (bucketed all-to-all) return the JAX package's arrays
-with their leading shard axis; the sharded step does not take the 16-bit
-wire, so its caps are not held to 65535. A rank's table state is its own
-shard's pool, and the engine's device functions serve shard `self.shard`
-(the rank; 0 by default), which keys their new-row init and K3 draws
-apart from the other shards'.
+Sharded tables (`num_shards = S > 1`, one rank a shard): the engine's
+device functions serve shard `self.shard`, which keys their new-row init
+and K3 draws apart from the other shards'. Under parallel/sharded.py every
+rank holds all S host stores and runs the same host prepare over the whole
+global batch, as the JAX package's one host engine does for its S devices:
+`prepare_shards` (allgather exchange) and `prepare_batch_a2a` (bucketed
+all-to-all) return the JAX package's arrays with their leading shard axis.
+With `local_shards` (the multi-host trainer, parallel/multihost.py) the
+engine holds the host stores, and when tiered the archives, of those shards
+only (None for the others) and `shard` is the first of them; the trainer
+then maps ids in its own store. The sharded steps do not take the 16-bit
+wire, so their caps are not held to 65535. `stores` and `archives` are the
+single-shard views (empty when S > 1); `store_of` / `archive_of` give the
+engine's own shard's at any S.
 
 Decoded inputs and table states carry no shard axis (the JAX package's
 carry a leading one). Table pools are updated in place by fused_apply,
@@ -112,9 +116,8 @@ class EngineConfig:
     # that overflow a bucket read zeros and are counted as overflow
     exchange: str = "allgather"
     bucket_cap: int = 0      # 0 = max(128, 2 * unique_cap / num_shards)
-    # the shards whose host stores this process holds (None = all); a
-    # process that holds only its own is the multi-host trainer, not yet
-    # ported: the engine refuses any other value than None
+    # the shards whose host stores (and archives) this process holds
+    # (None = all); the multi-host trainer holds only its own rank's
     local_shards: Optional[Tuple[int, ...]] = None
 
     def ucap(self, table: str) -> int:
@@ -228,14 +231,12 @@ class EmbeddingEngine:
         if config.exchange not in ("allgather", "a2a"):
             raise ValueError(f"exchange must be 'allgather' or 'a2a' (got "
                              f"{config.exchange!r})")
-        if config.local_shards is not None:
-            raise ValueError("local_shards (a process holding only its own "
-                             "shards' host stores) is the multi-host "
-                             "trainer, ROADMAP item 11 (b), not yet ported")
-        if S > 1 and config.tiered:
-            raise ValueError("tiered storage with num_shards > 1 (an archive "
-                             "a shard) is ROADMAP item 11 (b), not yet "
-                             "ported")
+        local = (None if config.local_shards is None
+                 else sorted(set(config.local_shards)))
+        if local is not None and (not local or local[0] < 0
+                                  or local[-1] >= S):
+            raise ValueError(f"local_shards {config.local_shards} must be "
+                             f"shards of 0..{S - 1}")
         if S > 1 and (config.unique_caps or config.new_caps):
             raise ValueError("per-table unique_caps/new_caps require "
                              "num_shards == 1 (sharded paths use the "
@@ -256,10 +257,10 @@ class EmbeddingEngine:
         self.table_features: Dict[str, List[FeatureConfig]] = {
             t: [f for f in features if f.table == t] for t in self.tables}
         # one host store a table shard, seeded as the JAX package seeds
-        # shard s's; `stores` is the single-shard view that checkpoints,
-        # exports and the streaming push read, left empty when S > 1 (those
-        # do not yet run per shard: ROADMAP item 11 (c))
-        self.shard_stores: Dict[str, List[HostStore]] = {}
+        # shard s's (None for a shard outside local_shards); `stores` is
+        # the single-shard view, left empty when S > 1 so that no consumer
+        # reads one shard of several by mistake
+        self.shard_stores: Dict[str, List[Optional[HostStore]]] = {}
         self.batchers: Dict[str, Batcher] = {}
         self.batchers2d: Dict[str, Batcher2D] = {}
         for name, t in self.tables.items():
@@ -270,6 +271,7 @@ class EmbeddingEngine:
                           filter_capacity=t.admission.filter_capacity,
                           filter_splits=t.admission.filter_splits,
                           seed=seed * 1000003 + s)
+                if local is None or s in local else None
                 for s in range(S)]
             self.batchers[name] = Batcher(expected_unique=config.ucap(name) * S)
             self.batchers2d[name] = Batcher2D(
@@ -277,14 +279,29 @@ class EmbeddingEngine:
         self.stores: Dict[str, HostStore] = (
             {name: st[0] for name, st in self.shard_stores.items()}
             if S == 1 else {})
-        self.shard = 0   # the table shard the device functions serve
-        # the JAX package seeds shard s's archive with seed + s; this is
-        # shard 0
-        self.archives: Dict[str, RowArchive] = (
-            {name: RowArchive(t, config.archive_capacity
-                              or 4 * t.capacity_per_shard, seed=seed)
+        # the table shard the device functions serve (a trainer on rank r
+        # of a sharded run sets r)
+        self.shard = local[0] if local else 0
+        # a tiered table's archive a held shard, seeded with seed + s as
+        # the JAX package seeds shard s's
+        self.shard_archives: Dict[str, List[Optional[RowArchive]]] = (
+            {name: [RowArchive(t, config.archive_capacity
+                               or 4 * t.capacity_per_shard, seed=seed + s)
+                    if local is None or s in local else None
+                    for s in range(S)]
              for name, t in self.tables.items()} if config.tiered else {})
+        self.archives: Dict[str, RowArchive] = (
+            {name: a[0] for name, a in self.shard_archives.items()}
+            if S == 1 else {})
         self._generator = torch.Generator(device=self.device)
+
+    def store_of(self, tname: str) -> HostStore:
+        """The host store of this engine's own shard (`self.shard`)."""
+        return self.shard_stores[tname][self.shard]
+
+    def archive_of(self, tname: str) -> RowArchive:
+        """The archive of this engine's own shard (a tiered engine)."""
+        return self.shard_archives[tname][self.shard]
 
     # ------------------------------------------------------------------
     # host side
@@ -394,6 +411,11 @@ class EmbeddingEngine:
         host store maps its own."""
         cfg = self.config
         S = cfg.num_shards
+        if cfg.local_shards is not None or (S > 1 and cfg.tiered):
+            raise ValueError("an engine that holds only its local shards' "
+                             "stores, or a tiered engine of S > 1 shards, "
+                             "maps ids through the multi-host trainer "
+                             "(parallel.MultiHostTrainer)")
         inputs = {}
         stats = {"overflow": {}, "new": {}, "unique": {}, "filtered": {},
                  "new_rejected": {}}
@@ -459,7 +481,7 @@ class EmbeddingEngine:
             # rejected ones are counted in new_rejected already
             n_filtered += int((r == -1).sum()) - store.last_rejected
             if cfg.tiered and len(nf):
-                ok, vals = self.archives[tname].revive(nf)
+                ok, vals = self.shard_archives[tname][s].revive(nf)
                 if ok.any():
                     pos = pad_rows(npos[ok])
                     values = np.zeros((len(pos), vals.shape[1]), np.float32)
@@ -484,9 +506,11 @@ class EmbeddingEngine:
         effective_bucket_cap; stats as prepare_batch's without
         "filtered"."""
         cfg = self.config
-        if cfg.tiered:
+        if cfg.tiered or cfg.local_shards is not None:
             raise ValueError("prepare_batch_a2a: a tiered engine prepares "
-                             "with prepare_batch")
+                             "with prepare_batch, one that holds only its "
+                             "local shards' stores through the multi-host "
+                             "trainer")
         S, U, K = cfg.num_shards, cfg.unique_cap, cfg.new_cap
         D = S
         cap = cfg.effective_bucket_cap
@@ -560,16 +584,19 @@ class EmbeddingEngine:
         """Expiry on the host stores of every table with a ttl: ids whose
         last update is older than `expire_before` leave the id map. Returns
         the freed rows {table: int64 [n]}, for zero_rows; shard s's rows
-        read s * capacity_per_shard + row."""
+        read s * capacity_per_shard + row. Only the held shards' stores
+        (local_shards) evict."""
         out = {}
         for tname, t in self.tables.items():
             if t.eviction.ttl_seconds <= 0:
                 continue
             # shard s's rows as s * capacity + row, as the JAX package's
             out[tname] = np.concatenate(
-                [st.evict_expired(expire_before).astype(np.int64)
-                 + s * t.capacity_per_shard
-                 for s, st in enumerate(self.shard_stores[tname])])
+                [np.empty(0, np.int64)]
+                + [st.evict_expired(expire_before).astype(np.int64)
+                   + s * t.capacity_per_shard
+                   for s, st in enumerate(self.shard_stores[tname])
+                   if st is not None])
         return out
 
     @torch.no_grad()

@@ -6,8 +6,12 @@ collapsed to the knobs that apply.
 `RunnerConfig` keeps the JAX package's fields and defaults, so that
 `config.extract_flags` gives both packages' CLIs the same flags. The port
 builds the single-device `Trainer`, on the card unless the caller passes
-`device="cpu"`; a sharded run (`num_shards != 1`) is refused until
-checkpoints run per shard (ROADMAP item 11 (c)).
+`device="cpu"`. Under an initialised torch.distributed group of more than
+one rank (the launcher, e.g. `torchrun`, initialises it; the CLI takes no
+flag for it, as in the JAX package) it builds a `MultiHostTrainer` with
+one shard a rank, whatever `num_shards` says; its checkpoints and exports
+are written per shard. Without such a group `num_shards != 1` is refused:
+the port has no single-process multi-device mode.
 
 A restore is decided at construction (a checkpoint under `model_dir`) and
 made when the first batch arrives, as in the JAX package. The port's
@@ -20,6 +24,8 @@ import dataclasses
 import itertools
 from typing import Dict, Iterable, Iterator, Optional, Sequence
 
+import torch.distributed as dist
+
 from monolith_tpu_torch.embedding.engine import EngineConfig
 from monolith_tpu_torch.training import checkpoint as ckpt_lib
 from monolith_tpu_torch.training.task import RecTask
@@ -30,7 +36,7 @@ from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
 class RunnerConfig:
     """ref runner_utils.py:148 RunnerConfig (subset that applies)."""
     model_dir: str = ""
-    num_shards: int = 1            # table shards; the Estimator runs 1
+    num_shards: int = 1            # table shards: 1 (N ranks run N)
     unique_cap: int = 8192
     new_cap: int = 8192
     clip_norm: float = 0.0
@@ -47,16 +53,19 @@ class RunnerConfig:
 class Estimator:
     def __init__(self, task: RecTask, config: RunnerConfig = RunnerConfig(),
                  device=None):
-        if config.num_shards != 1:
+        world = (dist.get_world_size()
+                 if dist.is_available() and dist.is_initialized() else 1)
+        if world == 1 and config.num_shards != 1:
             raise ValueError(
-                f"num_shards={config.num_shards}: the Estimator saves, "
-                f"restores and exports one shard; the sharded trainer "
-                f"(parallel.ShardedTrainer) has no checkpoints per shard "
-                f"until ROADMAP item 11 (c)")
+                f"num_shards={config.num_shards} without a process group of "
+                f"as many ranks: the port runs one process a rank (the "
+                f"launcher initialises torch.distributed; the Estimator "
+                f"then builds a MultiHostTrainer) and has no single-process "
+                f"multi-device mode")
         self.task = task
         self.config = config
         tc = TrainerConfig(
-            engine=EngineConfig(num_shards=1,
+            engine=EngineConfig(num_shards=world,
                                 unique_cap=config.unique_cap,
                                 new_cap=config.new_cap,
                                 record_touch=(config.record_touch
@@ -64,7 +73,12 @@ class Estimator:
             clip_norm=config.clip_norm, seed=config.seed,
             log_every=config.log_every,
             steps_per_dispatch=config.steps_per_dispatch)
-        self.trainer = Trainer(task, tc, device=device)
+        if world > 1:
+            from monolith_tpu_torch.parallel import MultiHostTrainer, make_mesh
+            self.trainer = MultiHostTrainer(task, tc,
+                                            make_mesh(device=device))
+        else:
+            self.trainer = Trainer(task, tc, device=device)
         self._restore_pending = bool(
             config.model_dir
             and ckpt_lib.latest_step(config.model_dir) is not None)

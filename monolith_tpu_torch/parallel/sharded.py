@@ -37,6 +37,12 @@ JAX package. Returned predictions are the global batch's [B], as the JAX
 trainer's `out_specs=P(ax)`; the metrics see them with the global labels.
 The auxiliary losses are this rank's.
 
+Checkpoints, exports and the streaming push run per shard (every rank
+calls them): rank r writes and pushes shard r, and restores every host
+store it holds with its own pool (training/checkpoint.py). Tiered storage
+runs on the multi-host trainer (parallel/multihost.py), whose rank holds
+its own shard's store and archive alone.
+
 The collectives reduce in another order than JAX's `psum_scatter`: the
 sparse gradients and the dense mean agree with the JAX trainer to f32
 rounding, not bit for bit. At S = 1 (one card) every collective is the
@@ -62,21 +68,41 @@ class ShardedTrainer(Trainer):
     Requires config.engine.num_shards == S and a batch that divides by
     S."""
 
+    #: whether a rank holds its shard's archive (tiered storage)
+    _holds_archives = False
+
     def __init__(self, task: RecTask, config: TrainerConfig, mesh: Mesh):
         e = config.engine
         if e.num_shards != mesh.size:
             raise ValueError(f"engine.num_shards ({e.num_shards}) must equal "
                              f"mesh size ({mesh.size})")
-        if e.tiered:
-            raise ValueError("tiered storage on the sharded trainer is "
-                             "ROADMAP item 11 (b), not yet ported")
+        if e.tiered and not self._holds_archives:
+            raise ValueError("tiered storage runs on the multi-host trainer "
+                             "(parallel.MultiHostTrainer: an archive a "
+                             "rank); the sharded trainer's ranks hold every "
+                             "shard's host store and no archive")
         if e.unique_caps or e.new_caps:
-            raise ValueError("the sharded trainer uses the global caps "
+            raise ValueError("the sharded trainers use the global caps "
                              "(no per-table unique_caps/new_caps)")
         self.mesh = mesh
         self._eval_wire = False
+        self._host_group = None
         super().__init__(task, config, device=mesh.device)
         self.engine.shard = mesh.rank
+
+    @property
+    def host_group(self):
+        """A gloo group over the mesh's ranks, for host data and barriers
+        (checkpoints, exports): the mesh's own group when it is gloo, else
+        one made at first use. Making it is collective: every rank asks at
+        the same point of the run."""
+        if self._host_group is None:
+            self._host_group = (self.mesh.group if self.mesh.backend == "gloo"
+                                else dist.new_group(backend="gloo"))
+        return self._host_group
+
+    def _barrier(self) -> None:
+        dist.barrier(group=self.host_group)
 
     # ------------------------------------------------------------------
     # the rank's wire: its shard's rows and mask, its batch slice

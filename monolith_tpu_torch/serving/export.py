@@ -13,11 +13,17 @@ Layout:
         dense.msgpack
         model_state.msgpack         BatchNorm's statistics, for a model
                                     with non-parameter state
-        tables/<table>-s0.npz       fids + per-segment compressed blobs
+        tables/<table>-s<k>.npz     shard k's fids + per-segment
+                                    compressed blobs
     <dir>/EXPORT                    latest step pointer
 
-Single process, single shard: one `-s0` file a table and `"shards": 1`.
-A bf16 training pool exports as f32 (widening is exact).
+A single-device trainer writes one `-s0` file a table and `"shards": 1`.
+A trainer of S > 1 shards exports from every rank (each calls
+`export_model`): rank r writes its own shard's live rows as `-s<r>`, rank
+0 the dense state and `meta.json` with `"shards": S`, and barriers on the
+trainer's gloo group come before the `EXPORT` pointer and after it, as the
+JAX package's multi-process branch does. `ServingModel` merges the S files
+at load. A bf16 training pool exports as f32 (widening is exact).
 """
 
 from __future__ import annotations
@@ -38,25 +44,27 @@ from monolith_tpu_torch.serving import codec
 
 def export_model(trainer, directory: str, step: Optional[int] = None) -> str:
     """Export trainer state for serving; returns the export path. Only the
-    live rows are gathered on the device (K1 on the card) and copied back,
-    in the store's order."""
+    live rows of the trainer's own shard are gathered on the device (K1 on
+    the card) and copied back, in the store's order."""
     step = trainer.step if step is None else step
     path = os.path.join(directory, f"export-{step}")
     os.makedirs(os.path.join(path, "tables"), exist_ok=True)
+    shards, own = trainer.engine.config.num_shards, trainer.engine.shard
 
-    with open(os.path.join(path, "dense.msgpack"), "wb") as f:
-        f.write(serialization.to_bytes(
-            convert.dense_tree(trainer.module.named_parameters())))
-    serialization.save_model_state(path, trainer.model_state)
+    if own == 0:
+        with open(os.path.join(path, "dense.msgpack"), "wb") as f:
+            f.write(serialization.to_bytes(
+                convert.dense_tree(trainer.module.named_parameters())))
+        serialization.save_model_state(path, trainer.model_state)
 
     meta = {"step": step, "ts": int(time.time()), "tables": {}}
     for tname, spec in trainer.engine.tables.items():
         seg_meta = [{"dim": s.dim, "compressor": s.compressor.name}
                     for s in spec.segments]
-        meta["tables"][tname] = {"shards": 1, "dim": spec.dim,
+        meta["tables"][tname] = {"shards": shards, "dim": spec.dim,
                                  "capacity_per_shard": spec.capacity_per_shard,
                                  "segments": seg_meta}
-        fids, rows, _, _ = trainer.engine.stores[tname].save()
+        fids, rows, _, _ = trainer.engine.store_of(tname).save()
         if len(rows):
             with torch.no_grad():
                 live = table_lib.lookup(
@@ -76,12 +84,17 @@ def export_model(trainer, directory: str, step: Optional[int] = None) -> str:
             for k, v in seg.compressor.compress(vals).items():
                 arrays[f"seg{i}:{k}"] = np.asarray(v)
             off += seg.dim
-        np.savez(os.path.join(path, "tables", f"{tname}-s0.npz"), **arrays)
+        np.savez(os.path.join(path, "tables", f"{tname}-s{own}.npz"),
+                 **arrays)
 
-    with open(os.path.join(path, "meta.json"), "w") as f:
-        json.dump(meta, f)
-    with open(os.path.join(directory, "EXPORT"), "w") as f:
-        f.write(str(step))
+    if own == 0:
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
+    trainer._barrier()
+    if own == 0:
+        with open(os.path.join(directory, "EXPORT"), "w") as f:
+            f.write(str(step))
+    trainer._barrier()
     return path
 
 

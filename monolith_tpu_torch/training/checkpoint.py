@@ -8,22 +8,37 @@ Layout (one directory per step):
         opt_state.msgpack              dense optimizer state
         model_state.msgpack            non-parameter state (BatchNorm's
                                        batch_stats), for a model with any
-        tables/<table>-s0.npz          pool params + optimizer slot arrays +
-                                       host map dump (fids/rows/tss/counts)
-        filters/<table>-s0.bin         admission-filter state
-        archives/<table>-s0.npz        a tiered table's host archive
-                                       (fids, rows, tss, values)
+        tables/<table>-s<k>.npz        shard k's pool params + optimizer
+                                       slot arrays + host map dump
+                                       (fids/rows/tss/counts)
+        filters/<table>-s<k>.bin       shard k's admission-filter state
+        archives/<table>-s<k>.npz      a tiered table's host archive of
+                                       shard k (fids, rows, tss, values)
     <dir>/CHECKPOINT                   latest step pointer
 
-The port's tables are single-shard, so it writes `-s0` files and
-`"shards": 1`; it reads a checkpoint of any shard count (`_restore_resharded`
-folds a sharded JAX trainer's files into the one shard). `tables/*.npz`
-holds the live prefix of the pool only (`pool[:high-water]`: rows come from
-a dense free list, so every live row lies below the highest row in use),
-params and slots as separate f32 arrays. The prefix is sliced on the device
-and only that is copied to the host; restore uploads only the prefix and
-makes the rows above it on the device (`table.state_from_np`), so neither
-direction moves or holds a full-capacity pool on the host.
+`tables/*.npz` holds the live prefix of the pool only (`pool[:high-water]`:
+rows come from a dense free list, so every live row lies below the highest
+row in use), params and slots as separate f32 arrays. The prefix is sliced
+on the device and only that is copied to the host; restore uploads only the
+prefix and makes the rows above it on the device (`table.state_from_np`),
+so neither direction moves or holds a full-capacity pool on the host.
+
+A trainer of S > 1 shards (one process a rank: `parallel.MultiHostTrainer`,
+`parallel.ShardedTrainer`) saves from every rank (`save`, or its JAX name
+`save_distributed`): rank r writes its own shard's `-s<r>` table, filter
+and archive files, rank 0 the dense, optimizer and model state and
+`meta.json` with `"shards": S`, and a barrier on the trainer's gloo group
+comes before the `CHECKPOINT` pointer and another after it, so no rank
+sees a checkpoint half written. `restore` (`restore_distributed`) reads
+any shard count into any: at the same count
+each held host store reads its own shard's file (a `ShardedTrainer` rank
+holds all S) and the rank's pool its own; at another count every rank
+reads every old shard and keeps the entries that `shard_of_batch(fid, S)`
+routes to its shards, packed into rows 0..n-1 (1 -> N, N -> M, and the
+fold N -> 1 into a single-device Trainer). Filters are not carried across
+counts, as in the JAX package. Archives are read by shard index: a cold
+row whose id moves to another shard at a new count starts afresh when the
+id comes back.
 
 `opt_state.msgpack` is the tree flax writes for the dense optimizer's
 optax state (the optimizer's `state_tree`: optax.adagrad's is
@@ -32,16 +47,14 @@ is `Trainer.model_state`, `{"batch_stats": ...}`. Restore reads
 `model_state.msgpack` into a model that has such state, as the JAX package
 does (a model without ignores the file).
 
-Deltas (`save_delta` / `restore_delta`) carry only the rows touched since a
-timestamp, as (fids, tss, counts, values); `restore_delta` assigns rows
-through the host map and writes the values with `table.assign_rows`, which
-on the card is K1, an overwrite of the params columns, and K2.
+Deltas (`save_delta` / `restore_delta`, one shard) carry only the rows
+touched since a timestamp, as (fids, tss, counts, values); `restore_delta`
+assigns rows through the host map and writes the values with
+`table.assign_rows`, which on the card is K1, an overwrite of the params
+columns, and K2.
 
 `save(..., evict_before_save=True)` first runs expiry on every table with
-a ttl (`trainer.evict_expired(now - ttl)`), as the JAX package does. A
-tiered trainer's archives are written to `archives/` (a non-empty archive
-only) and read back on restore; a JAX checkpoint of several shards gives
-the port the archive of shard 0, as it would a one-shard JAX trainer.
+a ttl (`trainer.evict_expired(now - ttl)`), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -56,6 +69,7 @@ import torch
 
 from monolith_tpu_torch import convert, serialization
 from monolith_tpu_torch.embedding import table as table_lib
+from monolith_tpu_torch.embedding.host_store import shard_of_batch
 
 
 def _tables_dir(path):
@@ -68,8 +82,12 @@ def _rows_tensor(rows: np.ndarray, device) -> torch.Tensor:
 
 def save(trainer, directory: str, evict_before_save: bool = False,
          dense_only: bool = False) -> str:
-    """Save trainer state; returns the checkpoint path."""
+    """Save trainer state; returns the checkpoint path. Every rank of a
+    sharded run calls it: rank r writes shard r's files, rank 0 the dense
+    state and the metadata, and the ranks meet before the `CHECKPOINT`
+    pointer and after it."""
     step = trainer.step
+    shards, own = trainer.engine.config.num_shards, trainer.engine.shard
     path = os.path.join(directory, f"ckpt-{step}")
     os.makedirs(_tables_dir(path), exist_ok=True)
     os.makedirs(os.path.join(path, "filters"), exist_ok=True)
@@ -80,71 +98,89 @@ def save(trainer, directory: str, evict_before_save: bool = False,
             if spec.eviction.ttl_seconds > 0:
                 trainer.evict_expired(now - spec.eviction.ttl_seconds)
 
-    with open(os.path.join(path, "dense.msgpack"), "wb") as f:
-        f.write(serialization.to_bytes(
-            convert.dense_tree(trainer.module.named_parameters())))
-    with open(os.path.join(path, "opt_state.msgpack"), "wb") as f:
-        f.write(serialization.to_bytes(
-            trainer.tx.state_tree(trainer.opt_state)))
-    serialization.save_model_state(path, trainer.model_state)
+    if own == 0:
+        with open(os.path.join(path, "dense.msgpack"), "wb") as f:
+            f.write(serialization.to_bytes(
+                convert.dense_tree(trainer.module.named_parameters())))
+        with open(os.path.join(path, "opt_state.msgpack"), "wb") as f:
+            f.write(serialization.to_bytes(
+                trainer.tx.state_tree(trainer.opt_state)))
+        serialization.save_model_state(path, trainer.model_state)
 
     meta = {"step": step, "ts": int(time.time()), "dense_only": dense_only,
             "tables": {}}
     if not dense_only:
         for tname, spec in trainer.engine.tables.items():
-            meta["tables"][tname] = {"shards": 1, "dim": spec.dim}
-            store = trainer.engine.stores[tname]
-            fids, rows, tss, counts = store.save()
-            hw = int(rows.max()) + 1 if len(rows) else 0
-            # the live prefix: sliced on the device, only it comes back
-            live = {k: v[:hw].cpu()
-                    for k, v in trainer.table_states[tname].items()}
-            arrays = {"pool": table_lib.params_np(spec, live),
-                      "fids": fids, "rows": rows, "tss": tss,
-                      "counts": counts}
-            for name, arr in table_lib.slot_items_np(spec, live):
-                arrays["slot:" + name] = arr
-            np.savez(os.path.join(_tables_dir(path), f"{tname}-s0.npz"),
-                     **arrays)
-            blob = store.filter_save()
-            if blob:
-                with open(os.path.join(path, "filters", f"{tname}-s0.bin"),
-                          "wb") as f:
-                    f.write(blob)
+            meta["tables"][tname] = {"shards": shards, "dim": spec.dim}
+            _save_table(trainer, tname, spec, path, own)
 
     _save_archives(trainer, path)
-    with open(os.path.join(path, "meta.json"), "w") as f:
-        json.dump(meta, f)
-    with open(os.path.join(directory, "CHECKPOINT"), "w") as f:
-        f.write(str(step))
+    trainer._barrier()
+    if own == 0:
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        with open(os.path.join(directory, "CHECKPOINT"), "w") as f:
+            f.write(str(step))
+    trainer._barrier()
     return path
 
 
+def save_distributed(trainer, directory: str,
+                     evict_before_save: bool = False,
+                     dense_only: bool = False) -> str:
+    """The JAX package's save of a multi-process trainer: `save`, which
+    writes per shard at any shard count."""
+    return save(trainer, directory, evict_before_save, dense_only)
+
+
+def _save_table(trainer, tname, spec, path, shard: int) -> None:
+    """`tables/<table>-s<shard>.npz` (and its filter) of the trainer's own
+    shard: the store's dump and the live prefix of its pool."""
+    store = trainer.engine.store_of(tname)
+    fids, rows, tss, counts = store.save()
+    hw = int(rows.max()) + 1 if len(rows) else 0
+    # the live prefix: sliced on the device, only it comes back
+    live = {k: v[:hw].cpu() for k, v in trainer.table_states[tname].items()}
+    arrays = {"pool": table_lib.params_np(spec, live),
+              "fids": fids, "rows": rows, "tss": tss, "counts": counts}
+    for name, arr in table_lib.slot_items_np(spec, live):
+        arrays["slot:" + name] = arr
+    np.savez(os.path.join(_tables_dir(path), f"{tname}-s{shard}.npz"),
+             **arrays)
+    blob = store.filter_save()
+    if blob:
+        with open(os.path.join(path, "filters", f"{tname}-s{shard}.bin"),
+                  "wb") as f:
+            f.write(blob)
+
+
 def _save_archives(trainer, path) -> None:
-    """A tiered trainer's host archives, so that a restart keeps its cold
-    rows: `archives/<table>-s0.npz` for every non-empty archive."""
-    archives = trainer.engine.archives
-    if not archives:
+    """A tiered trainer's host archive of its own shard, so that a restart
+    keeps its cold rows: `archives/<table>-s<k>.npz` for a non-empty
+    archive."""
+    if not trainer.engine.config.tiered:
         return
     adir = os.path.join(path, "archives")
     os.makedirs(adir, exist_ok=True)
-    for tname, arch in archives.items():
+    own = trainer.engine.shard
+    for tname in trainer.engine.tables:
+        arch = trainer.engine.archive_of(tname)
         if arch.size() > 0:
-            arch.save(os.path.join(adir, f"{tname}-s0.npz"))
+            arch.save(os.path.join(adir, f"{tname}-s{own}.npz"))
 
 
 def _restore_archives(trainer, path) -> None:
-    """Read back `archives/<table>-s0.npz` into a tiered trainer's
-    archives. The port is one shard, so a JAX checkpoint of several gives
-    it the archive of shard 0 only, as it gives a one-shard JAX trainer:
-    the other shards' cold rows start afresh when their ids come back."""
+    """Read back `archives/<table>-s<k>.npz` of the trainer's own shard k
+    into its archives, whatever the checkpoint's shard count (archives go
+    by shard index, as in the JAX package)."""
     adir = os.path.join(path, "archives")
-    if not trainer.engine.archives or not os.path.isdir(adir):
+    if not trainer.engine.config.tiered or not os.path.isdir(adir):
         return
-    for tname, arch in trainer.engine.archives.items():
-        p = os.path.join(adir, f"{tname}-s0.npz")
+    own = trainer.engine.shard
+    for tname in trainer.engine.tables:
+        p = os.path.join(adir, f"{tname}-s{own}.npz")
         if os.path.exists(p):
-            arch.restore(p)
+            trainer.engine.archive_of(tname).restore(p)
 
 
 def save_delta(trainer, directory: str, since_ts: int,
@@ -216,9 +252,11 @@ def latest_step(directory: str) -> Optional[int]:
 
 @torch.no_grad()
 def restore(trainer, directory: str, step: Optional[int] = None) -> int:
-    """Restore trainer state in place; returns the restored step. The
-    module owns its parameters from construction, so (unlike the JAX
-    trainer) no step has to run before a restore."""
+    """Restore trainer state in place, from a checkpoint of any shard
+    count into a trainer of any; returns the restored step. Every rank of
+    a sharded run calls it. The module owns its parameters from
+    construction, so (unlike the JAX trainer) no step has to run before a
+    restore."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -241,66 +279,87 @@ def restore(trainer, directory: str, step: Optional[int] = None) -> int:
 
     if not meta.get("dense_only"):
         for tname, tmeta in meta["tables"].items():
-            spec = trainer.engine.tables[tname]
-            if tmeta["shards"] != 1:
-                _restore_resharded(trainer, tname, spec, path,
-                                   tmeta["shards"])
-                continue
-            z = np.load(os.path.join(_tables_dir(path), f"{tname}-s0.npz"))
-            if z["pool"].shape[0] > spec.capacity_per_shard:
-                raise ValueError(
-                    f"table '{tname}': the checkpoint's live prefix has "
-                    f"{z['pool'].shape[0]} rows but capacity_per_shard is "
-                    f"{spec.capacity_per_shard}")
-            store = trainer.engine.stores[tname]
-            store.restore(z["fids"], z["rows"], z["tss"], z["counts"])
-            fpath = os.path.join(path, "filters", f"{tname}-s0.bin")
-            if os.path.exists(fpath):
-                with open(fpath, "rb") as f:
-                    store.filter_restore(f.read())
-            # the file holds pool[:high-water]; rows above it are made on
-            # the device as a fresh pool has them (params zero, slots at
-            # their optimizer's init value)
-            trainer.table_states[tname] = table_lib.state_from_np(
-                spec, z["pool"],
-                {k[5:]: z[k] for k in z.files if k.startswith("slot:")},
-                trainer.device)
+            _restore_table(trainer, tname, trainer.engine.tables[tname], path,
+                           tmeta["shards"])
 
     _restore_archives(trainer, path)
     trainer.step = meta["step"]
     return meta["step"]
 
 
-def _restore_resharded(trainer, tname, spec, path, old_shards: int) -> None:
-    """Restore a table whose checkpoint has another shard count than the
-    port's one (a sharded JAX trainer's): every entry (fid, ts, count,
-    params, optimizer slots) of every old shard is concatenated and packed
-    into contiguous rows 0..n-1 of the single shard. Admission filters are
-    NOT carried over (count-min state is keyed to the old shard layout);
-    live ids are already admitted via the restored map, so only the
-    occurrence window of not-yet-admitted ids resets."""
-    all_fids, all_tss, all_counts, pool_vals = [], [], [], []
+def restore_distributed(trainer, directory: str,
+                        step: Optional[int] = None) -> int:
+    """The JAX package's restore of a multi-process trainer: `restore`,
+    which reads every topology."""
+    return restore(trainer, directory, step)
+
+
+def _restore_table(trainer, tname, spec, path, old_shards: int) -> None:
+    """One table: every host store the trainer holds and its own shard's
+    pool, from a checkpoint of `old_shards` shards."""
+    engine = trainer.engine
+    S, own = engine.config.num_shards, engine.shard
+    cap = spec.capacity_per_shard
+    stores = engine.shard_stores[tname]
+    pool = slots = None
+    if old_shards == S:
+        for s, store in enumerate(stores):
+            if store is None:
+                continue
+            z = np.load(os.path.join(_tables_dir(path), f"{tname}-s{s}.npz"))
+            if z["pool"].shape[0] > cap:
+                raise ValueError(
+                    f"table '{tname}': the checkpoint's live prefix has "
+                    f"{z['pool'].shape[0]} rows but capacity_per_shard is "
+                    f"{cap}")
+            store.restore(z["fids"], z["rows"], z["tss"], z["counts"])
+            fpath = os.path.join(path, "filters", f"{tname}-s{s}.bin")
+            if os.path.exists(fpath):
+                with open(fpath, "rb") as f:
+                    store.filter_restore(f.read())
+            if s == own:
+                pool = z["pool"]
+                slots = {k[5:]: z[k] for k in z.files if k.startswith("slot:")}
+    else:
+        fids, tss, counts, values, slot_vals = _entries(path, tname, spec,
+                                                        old_shards)
+        dest = shard_of_batch(fids, S)
+        for s, store in enumerate(stores):
+            if store is None:
+                continue
+            sel = dest == s
+            n = int(sel.sum())
+            if n > cap:
+                raise ValueError(
+                    f"resharding table '{tname}' {old_shards}->{S}: shard "
+                    f"{s} needs {n} rows but capacity_per_shard is {cap}")
+            store.restore(fids[sel], np.arange(n, dtype=np.int32), tss[sel],
+                          counts[sel])
+            if s == own:
+                pool = values[sel]
+                slots = {k: v[sel] for k, v in slot_vals.items()}
+    # the file holds pool[:high-water]; rows above it are made on the
+    # device as a fresh pool has them (params zero, slots at their
+    # optimizer's init value)
+    trainer.table_states[tname] = table_lib.state_from_np(
+        spec, pool, slots, trainer.device)
+
+
+def _entries(path, tname, spec, old_shards: int):
+    """Every live entry of every old shard of a table, concatenated in
+    shard order: (fids, tss, counts, params [n, dim], {slot: [n, k]})."""
+    fids, tss, counts, values = [], [], [], []
     slot_vals: Dict[str, list] = {}
     for s in range(old_shards):
         z = np.load(os.path.join(_tables_dir(path), f"{tname}-s{s}.npz"))
         rows = z["rows"]
-        all_fids.append(z["fids"])
-        all_tss.append(z["tss"])
-        all_counts.append(z["counts"])
-        pool_vals.append(z["pool"][rows])
+        fids.append(z["fids"])
+        tss.append(z["tss"])
+        counts.append(z["counts"])
+        values.append(z["pool"][rows].reshape(len(rows), spec.dim))
         for k in z.files:
             if k.startswith("slot:"):
                 slot_vals.setdefault(k[5:], []).append(z[k][rows])
-    fids = np.concatenate(all_fids)
-    n = len(fids)
-    cap = spec.capacity_per_shard
-    if n > cap:
-        raise ValueError(
-            f"resharding table '{tname}' {old_shards}->1: the shard needs "
-            f"{n} rows but capacity_per_shard is {cap}")
-    trainer.engine.stores[tname].restore(
-        fids, np.arange(n, dtype=np.int32), np.concatenate(all_tss),
-        np.concatenate(all_counts))
-    trainer.table_states[tname] = table_lib.state_from_np(
-        spec, np.concatenate(pool_vals).reshape(n, spec.dim),
-        {k: np.concatenate(v) for k, v in slot_vals.items()}, trainer.device)
+    return (np.concatenate(fids), np.concatenate(tss),
+            np.concatenate(counts), np.concatenate(values),
+            {k: np.concatenate(v) for k, v in slot_vals.items()})

@@ -86,8 +86,10 @@ class TrainingController:
                         "paused": int(self._paused.is_set()),
                         "loss": float(t.loss_mean.result()),
                         "auc": float(t.auc.result())}
-        for tname, store in t.engine.stores.items():
-            status[f"table:{tname}:s0:size"] = store.size()
+        for tname, stores in t.engine.shard_stores.items():
+            for s, store in enumerate(stores):
+                if store is not None:   # a multi-host rank holds its own
+                    status[f"table:{tname}:s{s}:size"] = store.size()
         info = machine_info()
         for k in ("load1", "mem_available_kb"):
             if k in info:

@@ -11,6 +11,12 @@ at a power-of-two padded length, which bounds the distinct launch shapes
 across rounds, and only those rows cross to the host: a round costs what
 the touched rows cost, never what the pool does.
 
+A sharded trainer pushes per shard, as the JAX package's multi-process
+run does: each rank drains the touched ids of its own shard's store,
+gathers those rows from its own pool and pushes them (a `ShardedTrainer`
+rank, which holds every shard's store, drains the others' and leaves
+their rows to their ranks).
+
 Every `evict_interval_steps` steps the loop runs expiry at now minus the
 largest ttl of the tables: a tiered trainer spills the expired rows to its
 host archive (`spill_expired`), any other evicts and zeroes them
@@ -69,13 +75,17 @@ class StreamingTrainer:
         """Drain touched fids and push their rows to serving (one sync
         round). Per table: drain the touched fids -> host map to rows ->
         device gather of just those rows, -1 padded -> small copy to the
-        host -> retrievers -> push."""
+        host -> retrievers -> push. A sharded trainer's rank pushes its own
+        shard's rows."""
         if self.sync is None:
             return {}
         t = self.trainer
         pushed = {}
         for tname, spec in t.engine.tables.items():
-            store = t.engine.stores[tname]
+            for s, other in enumerate(t.engine.shard_stores[tname]):
+                if other is not None and s != t.engine.shard:
+                    other.drain_touched()   # their own ranks push them
+            store = t.engine.store_of(tname)
             fids = store.drain_touched(cap=self.config.max_push_rows)
             if fids.size == 0:
                 continue

@@ -52,18 +52,20 @@ table gathers just those rows into the host archive, then the zeroing K2)
 and revives them when their ids come back. Its steps take the engine's
 host path (`prepare_batch` + `pack_wire` write the same wire), with the
 revived rows as a second small upload beside it, and it steps one by one:
-as in the JAX package, a tiered trainer runs no blocks.
+as in the JAX package, a tiered trainer runs no blocks (the multi-host
+trainer's do: its revived rows are taken at each step's pack).
 
 Loss and AUC accumulate on the device (metrics.device_metrics_update) and
 are read back only by `_drain_metrics`. A task whose batch carries no
 "label", or whose predictions are a dict, accumulates the loss alone.
 
-The sharded trainer (parallel/sharded.py) runs these same steps on each
-rank, with its own wire and five seams that are identities here:
+The sharded and multi-host trainers (parallel/) run these same steps on
+each rank, with their own wires and six seams that are identities here:
 `_exchange` / `_exchange_back` (the unique rows to and from the other
 ranks), `_reduce_dense` (the ranks' mean of loss, dense gradients and
-model state), `_gather` (the global predictions) and `_mean` (an eval
-loss).
+model state), `_gather` (the global predictions), `_mean` (an eval loss)
+and `_barrier` (the ranks meet, around a checkpoint's or an export's
+pointer).
 """
 
 from __future__ import annotations
@@ -217,7 +219,7 @@ class Trainer:
         bakes in the step numbers self.step .. self.step + K - 1, so the
         result must be dispatched before any other step runs. Returns
         (wires [K, W] on the device, K stats, batch layout, K revives)."""
-        if len(pairs) > 1 and self.engine.config.tiered:
+        if len(pairs) > 1 and not self._block_capable():
             raise ValueError("a tiered trainer steps one by one: its "
                              "revived rows are taken from the archive at "
                              "each step's prepare")
@@ -261,19 +263,25 @@ class Trainer:
         wires, stats, layout, revives = self._pack_block(
             [(fid_batch, batch)], ts)
         inputs, batch_t = self._decode(wires[0], layout)
-        if revives[0] is not None:
-            for tname, (pos, values) in self._upload_revive(
-                    revives[0]).items():
-                inputs[tname]["revive_pos"] = pos
-                inputs[tname]["revive_values"] = values
+        self._attach_revive(inputs, self._upload_revive(revives[0]))
         return inputs, batch_t, stats[0]
+
+    @staticmethod
+    def _attach_revive(inputs, revive) -> None:
+        """Lay a step's uploaded revived rows ({table: (positions,
+        values)}, `_upload_revive`) into its decoded inputs."""
+        for tname, (pos, values) in revive.items():
+            inputs[tname]["revive_pos"] = pos
+            inputs[tname]["revive_values"] = values
 
     def _upload_revive(self, revive) -> Dict[str, Tuple[torch.Tensor,
                                                         torch.Tensor]]:
         """The revived rows of a step, every table's in ONE copy: its
         positions [m] int32 and values [m, width] f32 as the raw words of
         one int32 buffer. Returns {table: (positions, values)} on the
-        device, for the tables that revive any row."""
+        device, for the tables that revive any row ({} for revive None)."""
+        if revive is None:
+            return {}
         parts, spans = [], []
         for tname, (pos, values) in sorted(revive.items()):
             if len(pos):
@@ -373,6 +381,9 @@ class Trainer:
         """An eval loss of the whole batch."""
         return loss
 
+    def _barrier(self) -> None:
+        """Wait for every rank (checkpoints, exports): none here."""
+
     def _step_core(self, inputs, batch_t, step: int):
         """One synchronous training step on decoded inputs, shared by
         train_step and the synchronous block: gather (K1), forward and
@@ -438,9 +449,10 @@ class Trainer:
         before. The staged block bakes in step numbers and admissions: it
         MUST be the next thing dispatched (train_step_block checks)."""
         ts = int(time.time()) if ts is None else ts
-        wires, stats, layout, _ = self._pack_block(pairs, ts)
+        wires, stats, layout, revives = self._pack_block(pairs, ts)
         return {"wires": wires, "stats": stats, "base_step": self.step,
-                "K": len(pairs), "layout": layout}
+                "K": len(pairs), "layout": layout,
+                "revives": [self._upload_revive(r) for r in revives]}
 
     def train_step_block(self, pairs, ts: Optional[int] = None,
                          staged: Optional[Dict] = None) -> Dict:
@@ -463,17 +475,20 @@ class Trainer:
                     f"{staged['base_step'] + staged['K'] - 1}) is not the "
                     f"next dispatch ({K} steps from {self.step}): "
                     f"stage_block must be followed by its own dispatch")
-            wires, stats, layout = (staged["wires"], staged["stats"],
-                                    staged["layout"])
+            wires, stats, layout, revives = (
+                staged["wires"], staged["stats"], staged["layout"],
+                staged["revives"])
         else:
             ts = int(time.time()) if ts is None else ts
-            wires, stats, layout, _ = self._pack_block(pairs, ts)
+            wires, stats, layout, revives = self._pack_block(pairs, ts)
+            revives = [self._upload_revive(r) for r in revives]
         stale = self.config.engine.async_optimize
         pending = None
         losses, preds, auxes = [], [], []
         for i in range(K):
             # the step number comes from the host, which knows it
             inputs, batch_t = self._decode(wires[i], layout)
+            self._attach_revive(inputs, revives[i])
             if stale:
                 loss, p, aux, pending = self._step_async(
                     inputs, batch_t, self.step + i, pending)
@@ -508,10 +523,11 @@ class Trainer:
     @torch.no_grad()
     def spill_expired(self, expire_before: int) -> Dict[str, int]:
         """Two-tier expiry (EngineConfig(tiered=True)): per table, evict
-        the expired ids from the host store, gather just their rows with
-        ONE K1 launch (`pad_rows`), keep the first
-        `state_width` columns (params and optimizer slots, as f32) in the
-        host archive, then zero the rows (engine.zero_rows). Only the
+        the expired ids from the host store of the trainer's own shard,
+        gather just their rows with ONE K1 launch (`pad_rows`), keep the
+        first `state_width` columns (params and optimizer slots, as f32)
+        in the shard's host archive, then zero the rows
+        (engine.zero_rows). Only the
         expired rows cross to the host; the JAX package reads back the
         whole pool and takes the same values. Returns the rows spilled by
         table."""
@@ -519,7 +535,7 @@ class Trainer:
             raise ValueError("spill_expired requires EngineConfig(tiered=True)")
         spilled, freed = {}, {}
         for tname, spec in self.engine.tables.items():
-            rows, fids = self.engine.stores[tname].evict_expired(
+            rows, fids = self.engine.store_of(tname).evict_expired(
                 expire_before, return_fids=True)
             freed[tname] = rows.astype(np.int64)
             spilled[tname] = 0
@@ -527,7 +543,7 @@ class Trainer:
                 values = table_lib.gather_packed(
                     spec, self.table_states[tname],
                     torch.from_numpy(pad_rows(rows)).to(self.device))
-                spilled[tname] = self.engine.archives[tname].spill(
+                spilled[tname] = self.engine.archive_of(tname).spill(
                     fids, values[:len(rows), :state_width(spec)].cpu().numpy(),
                     ts=expire_before)
         self.engine.zero_rows(self.table_states, freed)

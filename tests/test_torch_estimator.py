@@ -173,10 +173,13 @@ def test_zoo_refuses_a_model_not_ported_yet():
 
 
 def test_sharded_runs_are_refused():
-    with pytest.raises(ValueError, match="ROADMAP item 11"):
+    """Without a process group there is no sharded run: the port has no
+    single-process multi-device mode (a group of N ranks gets a
+    MultiHostTrainer: tests/test_torch_multihost.py)."""
+    with pytest.raises(ValueError, match="no single-process multi-device"):
         Estimator(DeepFMTask(**TASK), RunnerConfig(num_shards=2),
                   device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP item 11"):
+    with pytest.raises(ValueError, match="no single-process multi-device"):
         pcli.main(["--num_shards", "2", "--cpu", "--steps", "1"])
 
 

@@ -147,12 +147,20 @@ def test_walk_covers_the_slice():
                  "monolith_tpu_torch/compat.py",
                  "monolith_tpu_torch/parallel/__init__.py",
                  "monolith_tpu_torch/parallel/mesh.py",
-                 "monolith_tpu_torch/parallel/sharded.py"):
+                 "monolith_tpu_torch/parallel/sharded.py",
+                 "monolith_tpu_torch/parallel/multihost.py"):
         assert must in files
 
 
 def test_sharded_rank_worker_imports_no_jax():
     """The rank processes of the sharded tests run the port alone."""
     path = "tests/torch_sharded_worker.py"
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_multihost_rank_worker_imports_no_jax():
+    """The rank processes of the multi-host tests run the port alone."""
+    path = "tests/torch_multihost_worker.py"
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path} imports {bad}"

@@ -7,9 +7,10 @@ tests/test_torch_sharded.py):
   every array, its dtype and every stat equal to the JAX engine's, step
   after step on twin engines; `Batcher2D` itself on the same calls;
 - expiry on every shard, rows numbered as the JAX engine numbers them;
-- the refusals that remain (local_shards, tiered or per-table caps with
-  S > 1, the Estimator's num_shards) and `port_trainer_config`'s sharded
-  settings;
+- local_shards and the per-shard archives (as the JAX engine builds
+  them), the refusals that remain (per-table caps with S > 1, the
+  Estimator's num_shards without a process group) and
+  `port_trainer_config`'s sharded settings;
 - item C: `Constants` exactly through `table.init_packed`, `RandomNormal`
   by mean and standard deviation, `NAMED_INITIALIZERS`' keys, and
   `HostStore.filter_estimate` on the same stream as the JAX store.
@@ -166,15 +167,36 @@ def test_single_shard_prepare_keeps_its_layout():
 
 
 def test_refusals_that_remain():
+    """The local shards and the per-shard archives that the multi-host
+    trainer runs on (once refused), and the refusals that remain: the
+    per-table caps, an unknown exchange, the single-shard wire of a
+    sharded engine, a sharded Estimator without a process group."""
     task = DeepFMTask(embedding_dim=4, capacity_per_shard=64)
 
     def engine(**cfg):
         return EmbeddingEngine(task.tables(), task.features(),
                                EngineConfig(**cfg), device="cpu")
-    with pytest.raises(ValueError, match=r"11 \(b\)"):
-        engine(num_shards=2, local_shards=(0,))
-    with pytest.raises(ValueError, match=r"11 \(b\)"):
-        engine(num_shards=2, tiered=True)
+    # a process that holds only shard 1: its store and archive, as the
+    # JAX engine's local_shards builds them (None elsewhere)
+    local = engine(num_shards=2, local_shards=(1,), tiered=True)
+    jtask = JaxDeepFMTask(embedding_dim=4, capacity_per_shard=64)
+    jlocal = JaxEngine(jtask.tables(), jtask.features(), JaxEngineConfig(
+        num_shards=2, local_shards=(1,), tiered=True))
+    for t in ("sparse",):
+        assert [s is None for s in local.shard_stores[t]] == \
+            [s is None for s in jlocal.stores[t]] == [True, False]
+        assert [a is None for a in local.shard_archives[t]] == \
+            [a is None for a in jlocal.archives[t]] == [True, False]
+    assert local.shard == 1 and local.stores == {} and local.archives == {}
+    assert local.store_of("sparse") is local.shard_stores["sparse"][1]
+    assert local.archive_of("sparse") is local.shard_archives["sparse"][1]
+    fb = random_fids(np.random.default_rng(0))
+    for prepare in (local.prepare_shards, local.prepare_batch_a2a,
+                    engine(num_shards=2, tiered=True).prepare_shards):
+        with pytest.raises(ValueError, match="multi-host trainer"):
+            prepare(fb, ts=0)
+    with pytest.raises(ValueError, match="local_shards"):
+        engine(num_shards=2, local_shards=(2,))
     with pytest.raises(ValueError, match="per-table"):
         engine(num_shards=2, unique_caps=(("sparse", 8),))
     with pytest.raises(ValueError, match="exchange"):
@@ -183,7 +205,7 @@ def test_refusals_that_remain():
     assert sharded.stores == {} and len(sharded.shard_stores["sparse"]) == 2
     with pytest.raises(ValueError, match="prepare_shards"):
         sharded.prepare_wire(random_fids(np.random.default_rng(0)), ts=0)
-    with pytest.raises(ValueError, match=r"ROADMAP item 11 \(c\)"):
+    with pytest.raises(ValueError, match="no single-process multi-device"):
         Estimator(task, RunnerConfig(num_shards=2), device="cpu")
 
 

@@ -7,7 +7,8 @@ pickled in JOB (a scenario of ShardedTrainer runs on the CPU, from a
 carried JAX state) and pickles this rank's results into OUT. It imports the
 port and torch, never JAX. `run_ranks` (imported by the tests) starts the
 WORLD processes, waits for them under a time limit and raises with the
-failing rank's output.
+failing rank's output; `start_ranks` and `main` serve the multi-host
+trainer's worker (tests/torch_multihost_worker.py) too.
 """
 
 from __future__ import annotations
@@ -30,10 +31,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def start_ranks(world: int, job: dict):
-    """Start `world` rank processes on `job`; returns a handle for
-    wait_ranks (the parent can work while they run)."""
-    tmp = tempfile.mkdtemp(prefix="torch_sharded_")
+def start_ranks(world: int, job: dict, script: str = __file__):
+    """Start `world` rank processes of `script` (this file, or another
+    rank worker whose main is `main` with its own scenario) on `job`;
+    returns a handle for wait_ranks (the parent can work while they
+    run)."""
+    tmp = tempfile.mkdtemp(prefix="torch_ranks_")
     path = os.path.join(tmp, "job.pkl")
     with open(path, "wb") as f:
         pickle.dump(job, f)
@@ -41,7 +44,7 @@ def start_ranks(world: int, job: dict):
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     outs = [os.path.join(tmp, f"out{r}.pkl") for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), path, str(r), str(world),
+        [sys.executable, os.path.abspath(script), path, str(r), str(world),
          str(port), outs[r]],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
         for r in range(world)]
@@ -261,7 +264,9 @@ def scenario(job, mesh):
     return res
 
 
-def main(argv):
+def main(argv, run=None):
+    """Join the gloo group, run `run(job, mesh)` (this file's scenario by
+    default) and pickle its results."""
     job_path, rank, world, port, out_path = argv
     import torch
     import torch.distributed as dist
@@ -273,7 +278,7 @@ def main(argv):
         with open(job_path, "rb") as f:
             job = pickle.load(f)
         mesh = make_mesh(device="cpu")
-        res = scenario(job, mesh)
+        res = (run or scenario)(job, mesh)
         dist.barrier()
     finally:
         dist.destroy_process_group()
