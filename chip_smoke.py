@@ -283,6 +283,46 @@ failures is caught:
      a step, the tiered ms/step. Every launch of 17a and 17c's card ranks
      is path "multihost" of the deepfm_f32 kernels, 17b's of the
      multislot_bf16 ones.
+ 18. the multi-array step and the structure-of-arrays state, run after
+     phase 17:
+     18a. multislot_bf16 with EngineConfig(packed="off") at full width
+       (params [4456448, 17] bf16, Adagrad slots f32): the table state's
+       bytes against the packed pool's; 8 steps in turns with the packed
+       trainer on the same batches (ms/step of each), 4 under
+       torch.profiler (device busy ms/step, operations/step); K3 once a
+       step, K1 and K2 never; checkpoint restored into a
+       structure-of-arrays trainer (bit for bit) and a packed one (params
+       bit for bit, slots the f32 ones rounded to nearest bf16); export
+       served by a ServingModel = the trainer's predict (rtol 1e-3: bf16
+       tower, as 10b's multislot);
+     18b. deepfm_f32 with compact_wire=False (int32 index matrices on the
+       multi-array path) beside the wire Trainer, 8 steps under
+       deterministic algorithms: losses, pools and dense params bit for
+       bit; K1 and K2 once a step on both; upload bytes a step;
+     18c. multislot_bf16 packed at batch 32768 with unique_cap = new_cap
+       from utils/tuning.suggest_caps over the first 3 batches (about
+       135,000): at least one step maps more than 65535 unique ids; 8
+       steps: ms/step, host prepare_batch ms, upload bytes a step; K1, K2,
+       K3 once a step;
+     18d. a small structure-of-arrays multislot (bf16 table, stochastic
+       rounding, f32 tower) and DeepFM (f32) on the card and on the CPU
+       from one carried state, 3 steps: losses and f32 tables within
+       1e-5, bf16 params within one bf16 ulp;
+     18e. deepfm_f32 tiered as structure of arrays (ttl 8): 16 steps,
+       spill_expired(8) (the freed rows read zero in params and every
+       slot), 2 steps whose user ids were spilled: each revived row, as
+       the forward reads it, equals its archived params and slots bit for
+       bit; no kernel launched;
+     18f. one NCCL rank of the structure-of-arrays ShardedTrainer = the
+       structure-of-arrays Trainer bit for bit (8 steps, deterministic
+       algorithms, deepfm_f32 width), then 16c's two gloo ranks sharing
+       cuda:0 on that layout against two CPU ranks within 1e-5;
+     then K3 on [49152, 17] f32 (18a's params, 4-element groups that
+     straddle rows) and a ragged [13, 17], and K1/K2/K3 at 18c's shapes
+     (the trained pool, the last step's rows), each against its plain
+     version bit for bit and timed as phase 3 (entries of paths "soa" and
+     "multi_array"). Every launch of 18a, 18e and 18f counts as path "soa"
+     of its config's kernels, of 18b and 18c as "multi_array".
 
 TF32 is off for matrix products and convolutions (torch.backends), so the
 card's f32 dense towers run in full f32 like the CPU's. The second-to-last
@@ -479,14 +519,23 @@ def phase_rows_out_of_step(path):
         f"step: bit-exact at {'; '.join(done)}")
 
 
-def phase_rounding(path, floor):
-    """K3 at the multislot path's shape against its plain version."""
+def phase_rounding(path, floor, x=None, ragged=()):
+    """K3 against its plain version: at the multislot path's shape, or on
+    `x` (f32 on the card); each shape of `ragged` is held bit for bit too
+    (not timed)."""
     import torch
     from monolith_tpu_torch.ops import rounding
     from monolith_tpu_torch.timing import time_ms
     g = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn((MS_U, WIDTH), generator=g, device="cuda")
+    if x is None:
+        x = torch.randn((MS_U, WIDTH), generator=g, device="cuda")
     seed = 0x0123456789ABCDEF
+    for shape in ragged:
+        small = torch.randn(shape, generator=g, device="cuda")
+        assert torch.equal(
+            rounding.stochastic_round_bf16(small, seed).view(torch.int16),
+            rounding.stochastic_round_bf16_plain(small, seed).view(
+                torch.int16)), f"stochastic_round_bf16 differs at {shape}"
     out = rounding.stochastic_round_bf16(x, seed)
     ref = rounding.stochastic_round_bf16_plain(x, seed)
     torch.cuda.synchronize()
@@ -501,10 +550,12 @@ def phase_rounding(path, floor):
     ops_count = (n // 4) * 10 * 10 + n * 3
     bytes_ms = n * (4 + 2) / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_count / ALU_OPS_PER_S * 1e3
+    shape = "x [" + ",".join(map(str, x.shape)) + "] f32 -> bf16" + "".join(
+        f"; bit-exact at [{','.join(map(str, r))}] too" for r in ragged)
     k3 = {"name": "stochastic_round_bf16", "path": path, "route": "cuda",
           "source": "monolith_tpu_torch/csrc/rounding.cu",
           "replaces": "monolith_tpu/ops/rounding.py:33",
-          "shape": f"x [{MS_U},{WIDTH}] f32 -> bf16",
+          "shape": shape,
           "max_abs_err": float((out.float() - ref.float()).abs().max()),
           "mean_gap": mean_gap,
           **kernel_times(lambda: rounding.stochastic_round_bf16(x, seed)),
@@ -522,18 +573,18 @@ def phase_rounding(path, floor):
         f"{floor:.4f}; plain "
         f"{k3['plain_ms']:.4f}, x.to(bf16) "
         f"{k3['library_ms']:.4f}, bound {k3['bound_ms']:.4f} by "
-        f"{k3['bound_by']}; ops bound {ops_ms:.4f})")
+        f"{k3['bound_by']}; ops bound {ops_ms:.4f}); {shape}")
     return [k3]
 
 
-def phase_kernel_durations(kernels, cases):
+def phase_kernel_durations(kernels, cases, rounding_cases=None):
     """Each kernel's own duration, by kernel name, from a torch.profiler
     window (CPU + CUDA) over 20 flushed launches at the shapes of phase 3
-    (and of `cases`, {path: (pool, rows, values)}, for the paths phase 3
-    does not make), written into its entry as `kernel_ms_profiler` (None
-    where the profiler saw no device time). It runs after every timed
-    phase, so that none of them runs in a process that has had the
-    profiler on."""
+    (and of `cases`, {path: (pool, rows, values)}, and K3's of
+    `rounding_cases`, {path: x}, for the paths phase 3 does not make),
+    written into its entry as `kernel_ms_profiler` (None where the
+    profiler saw no device time). It runs after every timed phase, so that
+    none of them runs in a process that has had the profiler on."""
     import torch
     from monolith_tpu_torch.bench_rows import SHAPES, make_case
     from monolith_tpu_torch.ops import rounding
@@ -550,6 +601,9 @@ def phase_kernel_durations(kernels, cases):
     x = torch.randn((MS_U, WIDTH), device="cuda")
     calls["stochastic_round_bf16", "multislot_bf16"] = (
         lambda: rounding.stochastic_round_bf16(x, 1))
+    for path, xr in (rounding_cases or {}).items():
+        calls["stochastic_round_bf16", path] = (
+            lambda xr=xr: rounding.stochastic_round_bf16(xr, 1))
     for k in kernels:
         ms = profiler_ms(calls[k["name"], k["path"]], k["name"] + "_kernel")
         k["kernel_ms_profiler"] = ms
@@ -3324,16 +3378,18 @@ def _gloo_cuda_probe():
 SHARD2_CAP, SHARD2_STEPS, SHARD2_RTOL = 1 << 20, 8, 1e-5
 
 
-def rank_16c(rank, port, device, out):
+def rank_16c(rank, port, device, out, packed="auto"):
     """One rank of 16c (run in a process of its own by `_run_16c`): the
     deepfm_f32 cell's a2a step over two gloo ranks, 8 steps from the
     seed's state (init_scale 0.0); writes the losses, ms/step, launches,
-    dense params and the rank's shard of the pool by id into `out`
-    (.npz)."""
+    dense params and the rank's shard of the table (params and slots, f32)
+    by id into `out` (.npz). `packed="off"`: the structure-of-arrays state
+    (18f)."""
     import torch
     import torch.distributed as dist
     from monolith_tpu_torch import ops
     from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.embedding import table as table_lib
     from monolith_tpu_torch.embedding.engine import EngineConfig
     from monolith_tpu_torch.models.deepfm import DeepFMTask
     from monolith_tpu_torch.parallel import ShardedTrainer, make_mesh
@@ -3348,7 +3404,8 @@ def rank_16c(rank, port, device, out):
         DeepFMTask(embedding_dim=16, capacity_per_shard=SHARD2_CAP,
                    hidden=(256, 128, 64), init_scale=0.0),
         TrainerConfig(engine=EngineConfig(num_shards=2, unique_cap=SHARD_U,
-                                          new_cap=SHARD_U, exchange="a2a"),
+                                          new_cap=SHARD_U, exchange="a2a",
+                                          packed=packed),
                       log_every=0), mesh)
     data = SyntheticCTR(num_users=1_000_000, num_items=200_000,
                         batch_size=SHARD_B, seed=0)
@@ -3364,8 +3421,9 @@ def rank_16c(rank, port, device, out):
     counts = ops.launch_counts()
     fids, rows = tr.engine.shard_stores["sparse"][rank].save()[:2]
     order = np.argsort(fids)
-    pool = tr.table_states["sparse"]["data"]
-    live = pool[torch.from_numpy(rows[order]).long().to(pool.device)]
+    live = table_lib.full_rows(
+        tr.engine.tables["sparse"], tr.table_states["sparse"],
+        torch.from_numpy(rows[order]).to(tr.device))
     dense = {f"dense/{k}": p.detach().cpu().numpy()
              for k, p in tr.module.named_parameters()}
     np.savez(out, losses=np.asarray(losses), ms=np.asarray(times),
@@ -3375,7 +3433,7 @@ def rank_16c(rank, port, device, out):
     dist.destroy_process_group()
 
 
-def _run_16c(device):
+def _run_16c(device, packed="auto"):
     """Both ranks of 16c on `device` (cuda:0 shared, or the CPU); returns
     each rank's results."""
     import shutil
@@ -3389,7 +3447,7 @@ def _run_16c(device):
     here = os.path.dirname(os.path.abspath(__file__))
     procs = [subprocess.Popen(
         [sys.executable, "-c", f"import chip_smoke as cs; cs.rank_16c("
-         f"{r}, {port}, {device!r}, {outs[r]!r})"], cwd=here,
+         f"{r}, {port}, {device!r}, {outs[r]!r}, {packed!r})"], cwd=here,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(2)]
     try:
@@ -3405,16 +3463,13 @@ def _run_16c(device):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def phase_16c(device="cuda:0"):
-    """16c: the a2a step over two gloo ranks sharing the card against the
-    same ranks on the CPU (losses, dense params and each shard's live rows
-    within SHARD2_RTOL); returns the card ranks' launches."""
-    t0 = time.time()
-    card = _run_16c(device)
-    t1 = time.time()
-    cpu = _run_16c("cpu")
+def _hold_16c(card, cpu, device, launches):
+    """Two ranks on the card against the same two on the CPU: losses,
+    dense params and each shard's live rows by id within SHARD2_RTOL, K1
+    and K2 launches a card rank as `launches`; returns the largest gap
+    over the largest magnitude."""
     gaps = []
-    for r, (g, c) in enumerate(zip(card, cpu)):
+    for g, c in zip(card, cpu):
         np.testing.assert_allclose(g["losses"], c["losses"],
                                    rtol=SHARD2_RTOL)
         np.testing.assert_array_equal(g["fids"], c["fids"])
@@ -3423,15 +3478,26 @@ def phase_16c(device="cuda:0"):
                 den = float(np.abs(c[k]).max()) or 1.0
                 gaps.append(float(np.abs(g[k] - c[k]).max()) / den)
         if device != "cpu":
-            assert g["launches"].tolist() == [SHARD2_STEPS] * 2, \
-                g["launches"]
+            assert g["launches"].tolist() == launches, g["launches"]
     assert max(gaps) <= SHARD2_RTOL, max(gaps)
+    return max(gaps)
+
+
+def phase_16c(device="cuda:0"):
+    """16c: the a2a step over two gloo ranks sharing the card against the
+    same ranks on the CPU (losses, dense params and each shard's live rows
+    within SHARD2_RTOL); returns the card ranks' launches."""
+    t0 = time.time()
+    card = _run_16c(device)
+    t1 = time.time()
+    cpu = _run_16c("cpu")
+    gap = _hold_16c(card, cpu, device, [SHARD2_STEPS] * 2)
     log(f"16c deepfm_f32 a2a, two gloo ranks sharing {device} (capacity "
         f"2^20 a shard), {SHARD2_STEPS} steps: losses "
         f"{np.round(card[0]['losses'], 5).tolist()} equal to two CPU "
         f"ranks' within {SHARD2_RTOL}; dense params and both shards' "
         f"{[len(c['fids']) for c in cpu]} live rows: largest gap over the "
-        f"largest magnitude {max(gaps):.3g}; ms/step on the card (median "
+        f"largest magnitude {gap:.3g}; ms/step on the card (median "
         f"of steps 3-8) {[round(float(np.median(g['ms'][2:])), 3) for g in card]}"
         f", on the CPU {[round(float(np.median(c['ms'][2:])), 3) for c in cpu]}"
         f"; K1/K2 a rank {card[0]['launches'].tolist()}; "
@@ -4091,6 +4157,514 @@ def phase_multihost(device="cuda"):
     return {"deepfm_f32": deepfm.total, "multislot_bf16": multislot.total}
 
 
+# ----------------------------------------------------------------------
+# phase 18: the multi-array step and the structure-of-arrays state
+# ----------------------------------------------------------------------
+
+SOA_STEPS, SOA_WINDOW = 8, 4   # 18a-18c train steps; 18a's profiled ones
+MA_B = 32768                   # 18c's batch
+SOA_RTOL = 1e-5                # 18d: losses and f32 tables, card vs CPU
+SOA_RAGGED = [(13, 17)]        # K3's ragged case (n % 4 != 0)
+NO_KERNELS = {"gather_rows": 0, "scatter_rows": 0,
+              "stochastic_round_bf16": 0}
+
+
+def _state_bytes(state):
+    """Bytes of a table state's tensors (either layout)."""
+    from monolith_tpu_torch.embedding import table as table_lib
+    sizes = []
+    table_lib.map_state(lambda a: sizes.append(a.numel() * a.element_size()),
+                        state)
+    return sum(sizes)
+
+
+def _turns(runs, batches, ts0):
+    """The same batches through several trainers, in turns at each step;
+    runs = [(trainer, Launches)]. Returns per trainer (losses, median ms a
+    step over steps 3.., host clock with a synchronize)."""
+    import torch
+    out = [([], []) for _ in runs]
+    for i, (fb, b) in enumerate(batches):
+        for (tr, counter), (losses, times) in zip(runs, out):
+            def one(tr=tr, times=times):
+                t0 = time.perf_counter()
+                o = tr.train_step(fb, b, ts=ts0 + i)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                return o
+            o = counter.run(one)
+            losses.append(o["loss"].item())
+            assert not any(o["stats"]["overflow"].values()), o["stats"]
+    res = []
+    for losses, times in out:
+        assert np.isfinite(losses).all(), losses
+        res.append((np.asarray(losses), float(np.median(times[2:]))))
+    return res
+
+
+def phase_soa_multislot(work, soa):
+    """18a: multislot_bf16 as structure of arrays at full width, 8 steps
+    in turns with the packed trainer, 4 under the profiler; checkpoint
+    into both layouts; export and serve."""
+    import torch
+    from monolith_tpu_torch.embedding import table as table_lib
+    from monolith_tpu_torch.profile_step import CONFIGS
+    from monolith_tpu_torch.serving import ServingModel, export_model
+    from monolith_tpu_torch.training import checkpoint
+    trainer, data = CONFIGS["multislot_bf16"](packed="off")
+    packed, _ = CONFIGS["multislot_bf16"]()
+    spec = trainer.engine.tables["table_all"]
+    st = trainer.table_states["table_all"]
+    assert not trainer.engine.packed and not trainer.engine.fuse_wire
+    assert st["params"].dtype == torch.bfloat16 and \
+        tuple(st["params"].shape) == (MS_CAP, spec.dim), st["params"].shape
+    assert all(a.dtype == torch.float32 for seg in st["slots"]
+               for a in seg.values())
+    r = {"soa_bytes": _state_bytes(st),
+         "packed_bytes": _state_bytes(packed.table_states["table_all"])}
+    batches = [data.batch() for _ in range(SOA_STEPS + SOA_WINDOW + 2)]
+    counted = Launches()
+    (r["losses"], r["ms"]), (r["packed_losses"], r["packed_ms"]) = _turns(
+        [(trainer, counted), (packed, Launches())], batches[:SOA_STEPS], 0)
+    _expect_launches(counted.total, dict(NO_KERNELS, stochastic_round_bf16=
+                                         SOA_STEPS), "18a steps")
+    del packed
+    torch.cuda.empty_cache()
+    window = batches[SOA_STEPS:SOA_STEPS + SOA_WINDOW]
+    losses, r["busy"], r["ops"], _ = counted.run(
+        lambda: _profiled_steps(trainer, window, SOA_STEPS))
+    assert np.isfinite(losses).all(), losses
+    soa.add(counted.total)
+    # checkpoint -> a structure-of-arrays trainer and a packed one
+    hw = int(trainer.engine.stores["table_all"].save()[1].max()) + 1
+    t0 = time.perf_counter()
+    checkpoint.save(trainer, os.path.join(work, "ckpt"))
+    r["save_s"] = time.perf_counter() - t0
+    into = {}
+    for layout, kw in (("soa", {"packed": "off"}), ("packed", {})):
+        fresh, _ = CONFIGS["multislot_bf16"](**kw)
+        checkpoint.restore(fresh, os.path.join(work, "ckpt"))
+        into[layout] = fresh.table_states["table_all"]
+        del fresh
+    own = table_lib.params_view(spec, st)[:hw]
+    for layout, other in into.items():
+        assert torch.equal(table_lib.params_view(spec, other)[:hw].view(
+            torch.int16), own.view(torch.int16)), f"18a params into {layout}"
+    for i, seg in enumerate(st["slots"]):
+        for name, arr in seg.items():
+            assert torch.equal(into["soa"]["slots"][i][name][:hw], arr[:hw])
+            # the packed pool holds the f32 slot rounded to nearest bf16
+            got = table_lib.slot_view(spec, into["packed"], i, name)[:hw]
+            assert torch.equal(got.view(torch.int16), arr[:hw].to(
+                torch.bfloat16).view(torch.int16)), f"18a slot {name}"
+    r["rows"] = hw
+    del into
+    torch.cuda.empty_cache()
+    # export -> ServingModel on the card = the trainer's predict
+    counted = Launches()
+    path = counted.run(lambda: export_model(trainer, os.path.join(work,
+                                                                  "export")))
+    model = ServingModel(trainer.task, path, unique_cap=MS_U)
+    r["serve_gap"] = 0.0
+    for fb, b in batches[-2:]:
+        preds = model.predict(fb, b)
+        want = counted.run(lambda: trainer.predict(fb, b)).cpu().numpy()
+        assert preds.shape == want.shape and np.isfinite(preds).all()
+        np.testing.assert_allclose(preds, want, rtol=1e-3, atol=1e-5)
+        r["serve_gap"] = max(r["serve_gap"], float(
+            np.max(np.abs(preds - want) / np.maximum(np.abs(want), 1e-6))))
+    _expect_launches(counted.total, NO_KERNELS, "18a export and predict")
+    soa.add(counted.total)
+    del model, trainer
+    return r
+
+
+def phase_multi_array_deepfm(ma):
+    """18b: deepfm_f32 without the compact wire (int32 index matrices on
+    the multi-array path) beside the wire Trainer on the same batches,
+    deterministic algorithms: losses, pools and dense params bit for
+    bit."""
+    import torch
+    from monolith_tpu_torch.profile_step import CONFIGS
+    multi, data = CONFIGS["deepfm"](compact_wire=False)
+    wire, _ = CONFIGS["deepfm"]()
+    assert not multi.engine.fuse_wire and multi.engine.packed
+    assert wire.engine.fuse_wire
+    batches = [data.batch() for _ in range(SOA_STEPS)]
+    wire_count = Launches()
+    with _Deterministic():
+        (ml, m_ms), (wl, w_ms) = _turns(
+            [(multi, ma), (wire, wire_count)], batches, 0)
+    assert np.array_equal(ml, wl), (ml, wl)
+    assert torch.equal(multi.table_states["sparse"]["data"],
+                       wire.table_states["sparse"]["data"]), "18b pools"
+    assert all(torch.equal(p, q) for p, q in zip(
+        multi.module.parameters(), wire.module.parameters())), "18b dense"
+    want = dict(NO_KERNELS, gather_rows=SOA_STEPS, scatter_rows=SOA_STEPS)
+    _expect_launches(ma.total, want, "18b multi-array")
+    _expect_launches(wire_count.total, want, "18b wire")
+    layout = multi._batch_layout(batches[0][1])
+    r = {"losses": ml, "ms": m_ms, "wire_ms": w_ms,
+         "bytes": 4 * multi._full_wire_words(layout),
+         "wire_bytes": 4 * wire._full_wire_words(layout)}
+    del multi, wire
+    return r
+
+
+def phase_multi_array_big(ma):
+    """18c: multislot_bf16 packed at batch 32768, unique_cap = new_cap from
+    suggest_caps over the first 3 batches (int32 path): 8 steps, at least
+    one mapping more than 65535 unique ids; returns the numbers and the
+    kernel cases at these shapes (the pool, the last step's rows and
+    values; K3's input, those rows gathered as f32)."""
+    import torch
+    from monolith_tpu_torch.ops import scatter as ops
+    from monolith_tpu_torch.profile_step import CONFIGS
+    from monolith_tpu_torch.utils.tuning import suggest_caps
+    probe, data = CONFIGS["multislot_bf16"](batch_size=MA_B)
+    feats = {t: [f.name for f in fs]
+             for t, fs in probe.engine.table_features.items() if fs}
+    del probe
+    torch.cuda.empty_cache()
+    first = [data.batch() for _ in range(3)]
+    cap = suggest_caps([fb for fb, _ in first], feats,
+                       compact_wire_limit=None)["table_all"]
+    trainer, _ = CONFIGS["multislot_bf16"](batch_size=MA_B, unique_cap=cap)
+    assert trainer.engine.packed and not trainer.engine.fuse_wire
+    batches = first + [data.batch() for _ in range(SOA_STEPS - 3)]
+    uniques, host = [], []
+    prepare = trainer.engine.prepare_batch
+
+    def timed(fid_batch, ts):
+        t0 = time.perf_counter()
+        inputs, stats = prepare(fid_batch, ts)
+        host.append((time.perf_counter() - t0) * 1e3)
+        uniques.append(stats["unique"]["table_all"])
+        return inputs, stats
+    trainer.engine.prepare_batch = timed
+    seen = _record_lookups(trainer)
+    losses, ms = _steps(trainer, batches, 0, ma)
+    assert max(uniques) > 65535, uniques
+    _expect_launches(ma.total, {"gather_rows": SOA_STEPS,
+                                "scatter_rows": SOA_STEPS,
+                                "stochastic_round_bf16": SOA_STEPS}, "18c")
+    layout = trainer._batch_layout(batches[0][1])
+    states, inputs = seen[-1]
+    pool, rows = states["table_all"]["data"], inputs["table_all"]["rows"]
+    gathered = ops.gather_rows(pool, rows)
+    r = {"cap": cap, "uniques": uniques, "losses": losses, "ms": ms,
+         "host_ms": float(np.median(host[2:])),
+         "bytes": 4 * trainer._full_wire_words(layout)}
+    case = (pool, rows.clone(), gathered + 1)
+    x = gathered.float()
+    del trainer, seen, states, inputs, gathered
+    return r, case, x
+
+
+def _soa_small(kind, device):
+    """18d's small trainers, structure of arrays, init_scale 0.0: the
+    multislot bf16 variant (stochastic rounding, f32 tower) or DeepFM
+    f32."""
+    import torch
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    from monolith_tpu_torch.models.multislot import MultiSlotTask
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+    if kind == "multislot":
+        task = MultiSlotTask(num_tables=4, num_slots=10, embedding_dim=8,
+                             capacity_per_shard=8192, history_length=6,
+                             hidden=(32,), merge=True, init_scale=0.0,
+                             table_dtype=torch.bfloat16,
+                             stochastic_rounding=True)
+        cap = 2048
+    else:
+        task = DeepFMTask(capacity_per_shard=4096, hidden=(32, 16),
+                          init_scale=0.0)
+        cap = 512
+    return Trainer(task, TrainerConfig(engine=EngineConfig(
+        unique_cap=cap, new_cap=cap, packed="off"), log_every=0),
+        device=device)
+
+
+def phase_soa_card_vs_cpu():
+    """18d: each small structure-of-arrays trainer on the card and on the
+    CPU from one carried state, 3 steps on the same batches: losses and
+    f32 tables within SOA_RTOL, bf16 params within one bf16 ulp. Returns
+    {kind: (largest loss gap, largest table gap)}."""
+    import torch
+    from monolith_tpu_torch import convert
+    from monolith_tpu_torch.data.synthetic import (SyntheticCTR,
+                                                   SyntheticMultiSlot)
+    out = {}
+    for kind in ("multislot", "deepfm"):
+        data = (SyntheticMultiSlot(num_slots=10, vocab_per_slot=300,
+                                   history_length=6, batch_size=256, seed=11)
+                if kind == "multislot" else
+                SyntheticCTR(num_users=400, num_items=300, batch_size=64,
+                             seed=11))
+        batches = [data.batch() for _ in range(6)]
+        cpu = _soa_small(kind, "cpu")
+        for i in range(3):
+            cpu.train_step(*batches[i], ts=500 + i)
+        card = _soa_small(kind, "cuda")
+        convert.load_state(card, convert.export_state(cpu))
+        lc, lg = [], []
+        with _Deterministic():
+            for i in range(3, 6):
+                lc.append(cpu.train_step(*batches[i], ts=500 + i)["loss"]
+                          .item())
+                lg.append(card.train_step(*batches[i], ts=500 + i)["loss"]
+                          .item())
+        np.testing.assert_allclose(lg, lc, rtol=SOA_RTOL)
+        table_gap = 0.0
+        for t, sc in cpu.table_states.items():
+            sg = card.table_states[t]
+            a, b = sg["params"].cpu(), sc["params"]
+            if b.dtype == torch.bfloat16:
+                # one ulp of bf16: 2^-7 of the value's power of two
+                big = torch.maximum(a.float().abs(), b.float().abs())
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    big.clamp(min=1e-30))) - 7)
+                assert bool(((a.float() - b.float()).abs() <= ulp).all()), \
+                    f"18d {kind} bf16 params beyond one ulp"
+            else:
+                table_gap = max(table_gap, _gap(a, b))
+            for i, seg in enumerate(sc["slots"]):
+                for name, arr in seg.items():
+                    table_gap = max(table_gap, _gap(
+                        sg["slots"][i][name].cpu(), arr))
+        assert table_gap <= SOA_RTOL, (kind, table_gap)
+        out[kind] = (float(np.max(np.abs(np.array(lg) / np.array(lc) - 1))),
+                     table_gap)
+        del cpu, card
+    return out
+
+
+def phase_soa_tiered(soa):
+    """18e: deepfm_f32 tiered as structure of arrays (ttl 8): 16 steps,
+    spill_expired(8): the freed rows read zero in params and every slot;
+    2 steps whose user ids were spilled: each revived row's params and
+    slots, as admit_rows left them for the forward, equal the archived
+    values bit for bit; 2 more steps."""
+    import torch
+    from monolith_tpu_torch.embedding import table as table_lib
+    from monolith_tpu_torch.profile_step import CONFIGS
+    trainer, data = CONFIGS["deepfm"](ttl_seconds=EXPIRY_TTL, tiered=True,
+                                      packed="off")
+    spec = trainer.engine.tables["sparse"]
+    _steps(trainer, [data.batch() for _ in range(EXPIRY_STEPS)], 0, soa)
+    store, archive = (trainer.engine.stores["sparse"],
+                      trainer.engine.archives["sparse"])
+    fids, rows, tss, _ = store.save()
+    old = tss < EXPIRE_BEFORE
+    t0 = time.perf_counter()
+    spilled = soa.run(lambda: trainer.spill_expired(EXPIRE_BEFORE))
+    spill_s = time.perf_counter() - t0
+    assert spilled["sparse"] == int(old.sum()) == archive.size(), spilled
+    freed = table_lib.full_rows(spec, trainer.table_states["sparse"],
+                                torch.from_numpy(rows[old]).cuda())
+    assert not freed.any(), "18e spilled rows not zero"
+    a_fids, a_rows, _, _ = archive.map.save()
+    archived = {f: archive.values[r].copy()
+                for f, r in zip(a_fids.tolist(), a_rows.tolist())}
+    users = a_fids[(a_fids >> 54) == 1]
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(2):
+        fb, b = data.batch()
+        batches.append((dict(fb, user_id=rng.choice(
+            users, (len(b["label"]), 1), replace=False)), b))
+    checked = []
+    real = trainer.engine.lookup_unique
+
+    def spy(states, inputs):
+        tin = inputs["sparse"]
+        rr = tin.get("revive_rows")
+        if rr is None:          # no revived row this step
+            checked.append(0)
+            return real(states, inputs)
+        n = int((rr >= 0).sum())
+        got = table_lib.full_rows(spec, states["sparse"], rr[:n]).cpu()
+        assert torch.equal(got.view(torch.int32),
+                           tin["revive_values"][:n].cpu().view(torch.int32))
+        probe = np.array(list(archived), np.int64)
+        fid_of_row = dict(zip(store.lookup(probe).tolist(), probe.tolist()))
+        for row, v in zip(rr[:n].cpu().tolist(), got.numpy()):
+            assert np.array_equal(v.view(np.int32),
+                                  archived[fid_of_row[row]].view(np.int32))
+        checked.append(n)
+        return real(states, inputs)
+    trainer.engine.lookup_unique = spy
+    losses, _ = _steps(trainer, batches, EXPIRY_STEPS, soa)
+    trainer.engine.lookup_unique = real
+    assert checked[0] >= len(batches[0][1]["label"]), checked
+    more, ms = _steps(trainer, [data.batch() for _ in range(2)],
+                      EXPIRY_STEPS + 2, soa)
+    _expect_launches(soa.total, NO_KERNELS, "18e")
+    r = {"spilled": spilled["sparse"], "spill_s": spill_s,
+         "revived": checked, "losses": losses + more, "ms": ms}
+    del trainer
+    return r
+
+
+def phase_soa_sharded(soa):
+    """18f: the sharded trainer on the structure-of-arrays state: one NCCL
+    rank (a world of one) against the structure-of-arrays Trainer at
+    deepfm_f32 width, 8 steps under deterministic algorithms, bit for bit
+    (losses, params, slots, dense); then 16c's two gloo ranks sharing
+    cuda:0 against two CPU ranks, structure of arrays."""
+    import torch
+    import torch.distributed as dist
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    from monolith_tpu_torch.parallel import ShardedTrainer
+    from monolith_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    def task():
+        return DeepFMTask(embedding_dim=16, capacity_per_shard=SHARD_CAP,
+                          hidden=(256, 128, 64), init_scale=0.0)
+
+    config = TrainerConfig(engine=EngineConfig(
+        unique_cap=SHARD_U, new_cap=SHARD_U, packed="off"), log_every=0)
+    mesh = _world_of_one("cuda")
+    r = {"backend": mesh.backend}
+    try:
+        sharded = ShardedTrainer(task(), config, mesh)
+        single = Trainer(task(), config, device=mesh.device)
+        data = SyntheticCTR(num_users=1_000_000, num_items=200_000,
+                            batch_size=SHARD_B, seed=0)
+        batches = [data.batch() for _ in range(SHARD_STEPS)]
+        with _Deterministic():
+            got, r["ms"] = _steps(sharded, batches, 0, soa)
+            want, r["single_ms"] = _steps(single, batches, 0, Launches())
+        assert got == want, (got, want)
+        a, b = sharded.table_states["sparse"], single.table_states["sparse"]
+        assert torch.equal(a["params"], b["params"]), "18f params"
+        assert all(torch.equal(a["slots"][i][n], b["slots"][i][n])
+                   for i, seg in enumerate(b["slots"]) for n in seg)
+        assert all(torch.equal(p, q) for p, q in zip(
+            sharded.module.parameters(), single.module.parameters()))
+        r["losses"] = got
+        del sharded, single
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    card = _run_16c("cuda:0", packed="off")
+    t1 = time.time()
+    cpu = _run_16c("cpu", packed="off")
+    r["gloo_gap"] = _hold_16c(card, cpu, "cuda:0", [0, 0])
+    r["gloo_losses"] = card[0]["losses"]
+    r["gloo_ms"] = [float(np.median(g["ms"][2:])) for g in card]
+    r["gloo_s"] = (t1 - t0, time.time() - t1)
+    _expect_launches(soa.total, NO_KERNELS, "18f")
+    return r
+
+
+def phase_soa(floor):
+    """Phase 18. Returns (the new kernel entries: K3 on 18a's [49152, 17]
+    params and a ragged length, K1/K2/K3 at 18c's shapes; the launches of
+    the driven runs by path and config {"soa" | "multi_array": {config:
+    counts}}; the profiler cases {"multi_array": (pool, rows, values)} and
+    the K3 inputs {path: x})."""
+    import shutil
+    import tempfile
+
+    import torch
+    t0 = time.time()
+    work = tempfile.mkdtemp(prefix="chip_smoke_18_")
+    soa = {"deepfm_f32": Launches(), "multislot_bf16": Launches()}
+    ma = {"deepfm_f32": Launches(), "multislot_bf16": Launches()}
+    try:
+        a = phase_soa_multislot(work, soa["multislot_bf16"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"18a multislot_bf16 structure of arrays (params [{MS_CAP}, 17] "
+        f"bf16, Adagrad slots f32): {a['soa_bytes']} bytes of table state "
+        f"against the packed pool's {a['packed_bytes']}; {SOA_STEPS} steps "
+        f"in turns with the packed trainer on the same batches: losses "
+        f"{np.round(a['losses'], 5).tolist()} (packed "
+        f"{np.round(a['packed_losses'], 5).tolist()}), ms/step "
+        f"{a['ms']:.3f} (packed {a['packed_ms']:.3f}; median of steps 3-8, "
+        f"host clock with synchronize); under torch.profiler over "
+        f"{SOA_WINDOW} steps: device busy {a['busy']:.4f} ms/step, "
+        f"{a['ops']:.1f} device operations/step; K3 one launch a step, K1 "
+        f"and K2 none; checkpoint ({a['rows']} live rows, save "
+        f"{a['save_s']:.3f} s) restored into a structure-of-arrays trainer "
+        f"(params and slots bit for bit) and a packed one (params bit for "
+        f"bit, slots = the f32 slots rounded to nearest bf16); export served "
+        f"by a ServingModel on the card = the trainer's predict (largest "
+        f"relative gap {a['serve_gap']:.3g}, rtol 1e-3: bf16 tower, as "
+        f"phase 10b's multislot)")
+    b = phase_multi_array_deepfm(ma["deepfm_f32"])
+    torch.cuda.empty_cache()
+    log(f"18b deepfm_f32 multi-array (compact_wire=False: int32 index "
+        f"matrices, {b['bytes']} bytes uploaded a step against the wire's "
+        f"{b['wire_bytes']}): {SOA_STEPS} steps beside the wire Trainer, "
+        f"deterministic algorithms: losses "
+        f"{np.round(b['losses'], 5).tolist()}, losses, pools and dense "
+        f"params bit for bit; K1 and K2 one launch a step each on both "
+        f"paths; ms/step {b['ms']:.3f} (wire {b['wire_ms']:.3f}; with "
+        f"deterministic algorithms)")
+    c, ma_case, ma_x = phase_multi_array_big(ma["multislot_bf16"])
+    log(f"18c multislot_bf16 packed at batch {MA_B}: unique_cap = new_cap = "
+        f"{c['cap']} (suggest_caps over the first 3 batches, int32 path); "
+        f"unique ids a step {c['uniques']} (more than 65535 on "
+        f"{sum(u > 65535 for u in c['uniques'])} of {SOA_STEPS}); losses "
+        f"{np.round(c['losses'], 5).tolist()}; ms/step {c['ms']:.3f} "
+        f"(median, synchronized); host prepare_batch {c['host_ms']:.3f} ms "
+        f"a step (median of steps 3-8); upload {c['bytes']} bytes a step in "
+        f"one copy; K1, K2, K3 one launch a step each")
+    d = phase_soa_card_vs_cpu()
+    torch.cuda.empty_cache()
+    log(f"18d card vs cpu, structure of arrays, 3 carried steps: "
+        + "; ".join(f"{k}: losses' largest relative gap {lg:.3g}, tables "
+                    f"{tg:.3g}" for k, (lg, tg) in d.items())
+        + f" (losses and f32 tables within {SOA_RTOL}, bf16 params within "
+          f"one bf16 ulp)")
+    e = phase_soa_tiered(soa["deepfm_f32"])
+    torch.cuda.empty_cache()
+    log(f"18e deepfm_f32 tiered structure of arrays (ttl {EXPIRY_TTL}): "
+        f"spill_expired({EXPIRE_BEFORE}) spilled {e['spilled']} rows in "
+        f"{e['spill_s']:.3f} s, their params and slots read zero; revived "
+        f"rows a step {e['revived']}, each equal to its archived params "
+        f"and slots bit for bit as the forward reads them; losses "
+        f"{np.round(e['losses'], 5).tolist()}; ms/step {e['ms']:.3f}; no "
+        f"kernel launched")
+    f = phase_soa_sharded(soa["deepfm_f32"])
+    torch.cuda.empty_cache()
+    log(f"18f sharded structure of arrays: one {f['backend']} rank = the "
+        f"structure-of-arrays Trainer bit for bit over {SHARD_STEPS} steps "
+        f"(losses {np.round(f['losses'], 5).tolist()}, params, slots, "
+        f"dense; deterministic algorithms; ms/step {f['ms']:.3f} vs "
+        f"{f['single_ms']:.3f}); two gloo ranks sharing cuda:0 = two CPU "
+        f"ranks within {SHARD2_RTOL} (largest gap {f['gloo_gap']:.3g}; "
+        f"losses {np.round(f['gloo_losses'], 5).tolist()}; ms/step "
+        f"{np.round(f['gloo_ms'], 3).tolist()}; {f['gloo_s'][0]:.1f} s on "
+        f"the card, {f['gloo_s'][1]:.1f} s on the CPU)")
+    # the kernels at the new shapes against their plain versions
+    g = torch.Generator(device="cuda").manual_seed(3)
+    soa_x = torch.randn((MS_U, 17), generator=g, device="cuda")
+    kernels = phase_rounding("soa", floor, x=soa_x, ragged=SOA_RAGGED)
+    kernels += phase_rows("multi_array", floor, case=ma_case)
+    kernels += phase_rounding("multi_array", floor, x=ma_x)
+    launches = {"soa": {k: v.total for k, v in soa.items()},
+                "multi_array": {k: v.total for k, v in ma.items()}}
+    for k in kernels:
+        if k["path"] == "soa":
+            k["launches_by_path"] = {"soa": launches["soa"][
+                "multislot_bf16"][k["name"]]}
+        else:
+            k["launches_by_path"] = {"multi_array": launches["multi_array"][
+                "multislot_bf16"][k["name"]]}
+        k["launches"] = sum(k["launches_by_path"].values())
+    log(f"phase 18: {time.time() - t0:.1f} s; launches {launches}")
+    return kernels, launches, {"multi_array": ma_case}, {"soa": soa_x,
+                                                         "multi_array": ma_x}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4147,6 +4721,8 @@ def main():
     torch.cuda.empty_cache()
     multihost_launches = phase_multihost()
     torch.cuda.empty_cache()
+    soa_kernels, soa_launches, soa_cases, soa_x = phase_soa(floor)
+    torch.cuda.empty_cache()
     for k in kernels:
         # each path was driven with the counts set to 0 just before it;
         # "serving" is the export and the trainer's eval predictions (both
@@ -4161,7 +4737,9 @@ def main():
             "block": block_launches[k["path"]][k["name"]],
             "serving": serving_launches[k["path"]][k["name"]],
             "sharded": sharded_launches[k["path"]][k["name"]],
-            "multihost": multihost_launches[k["path"]][k["name"]]}
+            "multihost": multihost_launches[k["path"]][k["name"]],
+            "soa": soa_launches["soa"][k["path"]][k["name"]],
+            "multi_array": soa_launches["multi_array"][k["path"]][k["name"]]}
         if k["path"] == "deepfm_f32":
             k["launches_by_path"]["expiry"] = expiry_launches[k["name"]]
             k["launches_by_path"]["cli"] = cli_launches[k["name"]]
@@ -4172,14 +4750,15 @@ def main():
     # "cli": 12d's train.main (MovieRanking, two tables)
     for k in mr_kernels:
         k["launches"] = sum(k["launches_by_path"].values())
-    kernels += mr_kernels
+    kernels += mr_kernels + soa_kernels
     phase_block_card_vs_cpu()
     phase_card_vs_cpu()
     phase_multislot_card_vs_cpu()
     phase_multislot_trains()
     phase_northstar()
     torch.cuda.empty_cache()
-    phase_kernel_durations(kernels, {"movie_ranking": mr_case})
+    phase_kernel_durations(kernels, {"movie_ranking": mr_case, **soa_cases},
+                           soa_x)
     log(f"total {time.time() - t0:.1f} s")
     # the card again, within the end of the output that a caller keeps
     log(smi[0])

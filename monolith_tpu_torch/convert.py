@@ -11,7 +11,10 @@ The state format is the JAX trainer's, in numpy:
      "model_state":    the non-parameter collections, {"batch_stats":
                        {...: {"mean", "var"}}} or {} for a model without,
      "tables":         {table: packed pools [S, cap, P] (or [cap, P] for
-                       one shard), f32 whatever the pool's dtype},
+                       one shard), f32 whatever the pool's dtype; or,
+                       for a structure-of-arrays state, the JAX
+                       package's {"params": [S, cap, dim], "slots":
+                       [{name: [S, cap, k]} for each segment]}, f32},
      "stores":         {table: HostStore.save() -> (fids, rows, tss, counts)}
                        for one shard; {table: [save of shard s, ...]} for
                        S > 1,
@@ -40,7 +43,10 @@ two packages can start a tiered run from identical state.
 
 Row optimizer slots travel inside the packed pool, at the offsets that
 `table._layout` gives them in both packages, so no row optimizer needs
-code here.
+code here. `load_state` writes a table in either layout into a trainer of
+either (`EngineConfig.packed`): the params and each slot go to their
+columns or arrays, so a packed state loads into a structure-of-arrays
+trainer and back.
 
 A bf16 pool travels as f32: widening it is exact, and `load_state` narrows
 it back exactly (it raises on a value that bf16 cannot hold, rather than
@@ -54,19 +60,15 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from monolith_tpu_torch.embedding import table as table_lib
+
 
 def port_trainer_config(jax_config):
     """The port's TrainerConfig with the settings of a JAX-package
-    TrainerConfig (read by attribute; nothing of JAX is imported). Raises
-    for a setting the port does not run."""
+    TrainerConfig (read by attribute; nothing of JAX is imported)."""
     from monolith_tpu_torch.embedding.engine import EngineConfig
     from monolith_tpu_torch.training.trainer import TrainerConfig
     je = jax_config.engine
-    unported = {"packed='off'": je.packed == "off",
-                "compact_wire=False": not je.compact_wire}
-    bad = sorted(k for k, v in unported.items() if v)
-    if bad:
-        raise ValueError(f"the port does not run an engine with {bad}")
     return TrainerConfig(
         engine=EngineConfig(
             num_shards=je.num_shards, unique_cap=je.unique_cap,
@@ -74,7 +76,8 @@ def port_trainer_config(jax_config):
             new_caps=je.new_caps, async_optimize=je.async_optimize,
             record_touch=je.record_touch, tiered=je.tiered,
             archive_capacity=je.archive_capacity, exchange=je.exchange,
-            bucket_cap=je.bucket_cap, local_shards=je.local_shards),
+            bucket_cap=je.bucket_cap, local_shards=je.local_shards,
+            compact_wire=je.compact_wire, packed=je.packed),
         clip_norm=jax_config.clip_norm, seed=jax_config.seed,
         log_every=jax_config.log_every,
         metrics_enabled=jax_config.metrics_enabled,
@@ -187,20 +190,27 @@ def load_state(trainer, state: Dict) -> None:
     trainer.tx.load_state_tree(trainer.opt_state, state["opt_state"])
     load_model_state(trainer.module, state["model_state"])
     S = trainer.engine.config.num_shards
-    for tname, pool in state["tables"].items():
-        data = trainer.table_states[tname]["data"]
-        pool = np.asarray(pool)
-        if S > 1 and pool.ndim == 3 and pool.shape[0] == S:
-            pool = pool[trainer.engine.shard]  # every shard's: take ours
-        src = torch.from_numpy(
-            np.array(pool, dtype=np.float32).reshape(data.shape))
-        if data.dtype != torch.float32:
-            narrowed = src.to(data.dtype)
-            if not torch.equal(narrowed.float(), src):
-                raise ValueError(f"table {tname}: the state holds values "
-                                 f"that a {data.dtype} pool cannot hold")
-            src = narrowed
-        data.copy_(src)
+    for tname, value in state["tables"].items():
+        spec = trainer.engine.tables[tname]
+        params, slots = _table_arrays(spec, value)
+        if S > 1 and params.ndim == 3 and params.shape[0] == S:
+            # every shard's: take ours
+            params = params[trainer.engine.shard]
+            slots = {k: v[trainer.engine.shard] for k, v in slots.items()}
+        params = params.reshape(params.shape[-2:])
+        slots = {k: v.reshape(v.shape[-2:]) for k, v in slots.items()}
+        dst = trainer.table_states[tname]
+        if "data" in dst:
+            data = np.zeros(tuple(dst["data"].shape), np.float32)
+            data[:, :spec.dim] = params
+            for (i, name), (off, k, _) in table_lib._layout(spec)[2].items():
+                data[:, off:off + k] = slots[f"seg{i}/{name}"]
+            _copy_exact(dst["data"], data, tname)
+            continue
+        _copy_exact(dst["params"], params, tname)
+        for i, seg_slots in enumerate(dst["slots"]):
+            for name, arr in seg_slots.items():
+                _copy_exact(arr, slots[f"seg{i}/{name}"], tname)
     for tname, saved in state["stores"].items():
         shards = trainer.engine.shard_stores[tname]
         for store, one in zip(shards, saved if S > 1 else [saved]):
@@ -209,12 +219,49 @@ def load_state(trainer, state: Dict) -> None:
     trainer.step = int(state["step"])
 
 
+def _table_arrays(spec, value) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """(params [..., cap, dim], {'seg{i}/{name}': [..., cap, k]}) f32 of a
+    table in the format above, packed or structure of arrays."""
+    if isinstance(value, dict):
+        return (np.asarray(value["params"], np.float32),
+                {f"seg{i}/{name}": np.asarray(a, np.float32)
+                 for i, seg in enumerate(value["slots"])
+                 for name, a in seg.items()})
+    data = np.asarray(value, np.float32)
+    return (data[..., :spec.dim],
+            {f"seg{i}/{name}": data[..., off:off + k]
+             for (i, name), (off, k, _) in table_lib._layout(spec)[2].items()})
+
+
+def _copy_exact(dst: torch.Tensor, src: np.ndarray, tname: str) -> None:
+    """dst <- src (f32), narrowed to dst's dtype; raises where the
+    narrowing is not exact."""
+    src = torch.from_numpy(np.array(src, dtype=np.float32).reshape(dst.shape))
+    if dst.dtype != torch.float32:
+        narrowed = src.to(dst.dtype)
+        if not torch.equal(narrowed.float(), src):
+            raise ValueError(f"table {tname}: the state holds values that a "
+                             f"{dst.dtype} array cannot hold")
+        src = narrowed
+    dst.copy_(src)
+
+
+def _table_value(state) -> object:
+    """One table's state in the format above, one shard [1, ...]: the
+    packed pool, or the structure-of-arrays dict."""
+    if "data" in state:
+        return _host_copy(state["data"].float())[None]
+    return {"params": _host_copy(state["params"].float())[None],
+            "slots": [{name: _host_copy(a.float())[None]
+                       for name, a in seg.items()} for seg in state["slots"]]}
+
+
 def export_state(trainer) -> Dict:
     """Read a port Trainer's state out in the numpy format above."""
     return {"params": dense_tree(trainer.module.named_parameters()),
             "opt_state": trainer.tx.state_tree(trainer.opt_state),
             "model_state": model_state_tree(trainer.module),
-            "tables": {t: _host_copy(st["data"].float())[None]
+            "tables": {t: _table_value(st)
                        for t, st in trainer.table_states.items()},
             "stores": _saved_stores(trainer.engine.shard_stores),
             "step": trainer.step}
@@ -235,10 +282,19 @@ def jax_trainer_state(jax_trainer) -> Dict:
     return {"params": _state_dict(jax_trainer.params),
             "opt_state": _state_dict(jax_trainer.opt_state),
             "model_state": _state_dict(jax_trainer.model_state),
-            "tables": {t: np.asarray(st["data"]).astype(np.float32)
+            "tables": {t: _jax_table(st)
                        for t, st in jax_trainer.table_states.items()},
             "stores": _saved_stores(jax_trainer.engine.stores),
             "step": int(jax_trainer.step)}
+
+
+def _jax_table(st):
+    """A JAX table state [S, ...] in the format above, f32."""
+    if "data" in st:
+        return np.asarray(st["data"]).astype(np.float32)
+    return {"params": np.asarray(st["params"]).astype(np.float32),
+            "slots": [{name: np.asarray(a).astype(np.float32)
+                       for name, a in seg.items()} for seg in st["slots"]]}
 
 
 def _state_dict(x):

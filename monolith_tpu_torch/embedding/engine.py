@@ -21,10 +21,22 @@ only, on freshly gathered rows, with the rows the forward used handed to DC
 segments) and `scatter_rows` (the deferred write-back, one K2 per table, a
 step later).
 
+The multi-array path (`fuse_wire` False: the JAX package's other step
+path) takes what the 16-bit wire cannot carry: unique caps above 65535,
+`compact_wire=False` and the structure-of-arrays state of `packed="off"`
+(table.py). Its host side is `prepare_batch` (dedup and the id map in
+Python over the same C++), whose arrays `pack_arrays` lays into int32
+words and `decode_arrays` reads back on the device. A packed engine then
+steps with fused_lookup / fused_apply as on the wire; a
+structure-of-arrays engine with `admit_rows` (init of the new rows and the
+revive, one `index_copy_` an array), `lookup_unique` (`index_select`) and
+`apply_gradients` (per-array update, K3 on a bf16 table's params).
+
 Expiry (a table with `eviction.ttl_seconds > 0`): `evict_expired` frees
 the rows of ids not updated since a timestamp in the host stores, and
-`zero_rows` zeroes those rows on the device with one K2 launch a table, so
-that no evicted state survives into a recycled row.
+`zero_rows` zeroes those rows on the device (params and slots; one K2
+launch a packed table), so that no evicted state survives into a recycled
+row.
 
 Tiered storage (`EngineConfig.tiered`): expired rows spill to a host
 archive a table (embedding/tiered.py, driven by Trainer.spill_expired) and
@@ -33,8 +45,10 @@ come back when their id is admitted again. That takes the host path of
 Python over the same C++ and returns the step's arrays; `pack_wire` packs
 them into the wire `prepare_wire` writes, byte for byte, and the revived
 rows travel beside it: only the n revived rows, padded to a power of two
-with position -1. `fused_lookup` lays them over the gathered rows. As in
-the JAX package, a tiered trainer steps one by one (no blocks).
+with position -1. `fused_lookup` lays them over the gathered rows (a
+structure-of-arrays engine's `admit_rows` writes them with
+restore_packed_rows). As in the JAX package, a tiered trainer steps one by
+one (no blocks).
 
 Sharded tables (`num_shards = S > 1`, one rank a shard): the engine's
 device functions serve shard `self.shard`, which keys their new-row init
@@ -52,8 +66,8 @@ single-shard views (empty when S > 1); `store_of` / `archive_of` give the
 engine's own shard's at any S.
 
 Decoded inputs and table states carry no shard axis (the JAX package's
-carry a leading one). Table pools are updated in place by fused_apply,
-scatter_rows and zero_rows.
+carry a leading one). Table states are updated in place by fused_apply,
+scatter_rows, admit_rows, apply_gradients and zero_rows.
 """
 
 from __future__ import annotations
@@ -119,6 +133,14 @@ class EngineConfig:
     # the shards whose host stores (and archives) this process holds
     # (None = all); the multi-host trainer holds only its own rank's
     local_shards: Optional[Tuple[int, ...]] = None
+    # 16-bit index matrices and new-row positions where they fit (the
+    # JAX package's compact wire); False ships int32 index matrices and
+    # new-row row ids instead, on the multi-array path
+    compact_wire: bool = True
+    # "auto": one packed pool a table when every table is f32 or bf16;
+    # "off": the structure-of-arrays state (params in the table's dtype,
+    # f32 optimizer slots), stepped on the multi-array path
+    packed: str = "auto"
 
     def ucap(self, table: str) -> int:
         if self.unique_caps:
@@ -146,14 +168,20 @@ class EngineConfig:
     @property
     def index_dtype(self):
         """dtype of prepare_shards' index matrices (values < S * U): 16-bit
-        where they fit, as the JAX package's compact wire."""
-        return np.int16 if self.num_shards * self.unique_cap <= 32768 \
-            else np.int32
+        where they fit and compact_wire is on, as the JAX package's."""
+        return _index_dtype(self.compact_wire, self.num_shards,
+                            self.unique_cap)
 
     @property
     def pos_dtype(self):
         """dtype of positions into one shard's unique list (< U)."""
-        return np.int16 if self.unique_cap <= 32768 else np.int32
+        return _index_dtype(self.compact_wire, 1, self.unique_cap)
+
+
+def _index_dtype(compact: bool, shards: int, cap: int):
+    """int16 for values below shards * cap when that is <= 32768 and the
+    compact wire is on; int32 otherwise (the JAX package's rule)."""
+    return np.int16 if compact and shards * cap <= 32768 else np.int32
 
 
 # Three seed domains, one for each stream of random numbers of a step, told
@@ -241,12 +269,9 @@ class EmbeddingEngine:
             raise ValueError("per-table unique_caps/new_caps require "
                              "num_shards == 1 (sharded paths use the "
                              "global caps)")
-        if S == 1 and config.max_ucap > 65535:
-            # a single-shard trainer steps through the wire, whose 16-bit
-            # feature indices (decoded unsigned, 0xFFFF sentinel) can only
-            # address 65535 unique rows; a larger cap would alias rows
-            raise ValueError(f"unique caps must be <= 65535 (got "
-                             f"{config.max_ucap})")
+        if config.packed not in ("auto", "off"):
+            raise ValueError(f"packed must be 'auto' or 'off' (got "
+                             f"{config.packed!r})")
         self.config = config
         self.device = resolve_device(device)
         self.tables: Dict[str, TableSpec] = {t.name: t for t in tables}
@@ -294,6 +319,28 @@ class EmbeddingEngine:
             {name: a[0] for name, a in self.shard_archives.items()}
             if S == 1 else {})
         self._generator = torch.Generator(device=self.device)
+        # one packed pool a table, or the structure-of-arrays state
+        self.packed = (config.packed != "off"
+                       and all(table_lib.is_packed(t) for t in tables))
+
+    @property
+    def wire_capable(self) -> bool:
+        """Whether a step's engine inputs fit the 16-bit wire: packed
+        tables, compact_wire, one shard and unique caps <= 65535 (the
+        wire's feature indices decode unsigned with 0xFFFF the invalid
+        sentinel, so a larger cap would alias rows)."""
+        cfg = self.config
+        return (self.packed and cfg.compact_wire and cfg.num_shards == 1
+                and cfg.max_ucap <= 65535)
+
+    @property
+    def fuse_wire(self) -> bool:
+        """The JAX package's switch between its two step paths: the one
+        fused wire (True) or the multi-array path. The wire also needs an
+        engine that is not tiered; the port's tiered trainer still steps
+        through the wire whenever `wire_capable`, with its revived rows
+        beside it."""
+        return self.wire_capable and not self.config.tiered
 
     def store_of(self, tname: str) -> HostStore:
         """The host store of this engine's own shard (`self.shard`)."""
@@ -335,6 +382,12 @@ class EmbeddingEngine:
             raise ValueError("prepare_wire packs one shard's wire; a sharded "
                              "engine prepares with prepare_shards or "
                              "prepare_batch_a2a")
+        if cfg.max_ucap > 65535 or not cfg.compact_wire or not self.packed:
+            raise ValueError(
+                f"prepare_wire requires packed tables, compact_wire and "
+                f"unique caps <= 65535 (got packed={self.packed}, "
+                f"compact_wire={cfg.compact_wire}, max cap {cfg.max_ucap}); "
+                f"use prepare_batch (the multi-array path)")
         names, streams_per_table = [], []
         offsets = [0]
         for tname in sorted(self.table_features):
@@ -376,35 +429,61 @@ class EmbeddingEngine:
                       ) -> Tuple[Dict, Dict]:
         """The host path of a step's inputs, in Python over the same C++ as
         prepare_wire: per table, dedup (with each id's occurrences when the
-        table has admission), the id map (`map_train_pos`) and, when
-        tiered, the archive's revive of newly admitted ids. Returns
-        (inputs, stats). A sharded engine's inputs are prepare_shards'.
-        A single-shard engine's carry no shard axis; per table:
+        table has admission), the id map and, when tiered, the archive's
+        revive of newly admitted ids. Returns (inputs, stats). A sharded
+        engine's inputs are prepare_shards'. A single-shard engine's carry
+        no shard axis; per table:
 
-          {"rows": [U] int32 (-1 invalid), "new_mask": [U] uint8,
+          {"rows": [U] int32 (-1 invalid),
+           one new-row channel, as the JAX package's:
+             "new_mask": [U] uint8              (packed tables)
+             "new_pos":  [K] positions into rows, -1 padded, int16 when
+                         compact_wire and U <= 32768 (structure of arrays)
+             "new_rows": [K] int32 rows, -1 padded (structure of arrays
+                         without compact_wire),
            "index": {feature: [B, L] int32 (-1 invalid)}}
 
-        and when tiered "revive_pos" [m] int32 (positions into rows) and
-        "revive_values" [m, state_width] f32: the n revived ids, padded to
-        m = the next power of two with position -1 (m = 0 when none). The
-        JAX package ships [S, new_cap, width] with -1 tails; the values are
-        the same. `pack_wire` turns the rest into prepare_wire's bytes."""
+        and when tiered "revive_pos" (packed) or "revive_rows" (structure
+        of arrays) [m] int32 and "revive_values" [m, state_width] f32: the
+        n revived ids, padded to m = the next power of two with -1 (m = 0
+        when none). The JAX package ships [S, new_cap] and [S, new_cap,
+        width] with -1 tails; the values are the same. `pack_wire` turns a
+        packed engine's arrays into prepare_wire's bytes, `pack_arrays`
+        any engine's into the multi-array path's words."""
         inputs, stats = self.prepare_shards(fid_batch, ts)
         if self.config.num_shards == 1:
             for tin in inputs.values():
-                tin["rows"], tin["new_mask"] = tin["rows"][0], tin["new_mask"][0]
+                for k in ("rows", "new_mask", "new_pos", "new_rows"):
+                    if k in tin:
+                        tin[k] = tin[k][0]
                 tin["index"] = {f: i.astype(np.int32)
                                 for f, i in tin["index"].items()}
         return inputs, stats
+
+    def _new_channels(self, tname: str, S: int) -> Dict:
+        """A table's rows [S, U] and its empty new-row channel (new_mask,
+        new_pos or new_rows, as prepare_batch describes them)."""
+        cfg = self.config
+        U, K = cfg.ucap(tname), cfg.ncap(tname)
+        tin = {"rows": np.full((S, U), -1, dtype=np.int32)}
+        if self.packed:
+            tin["new_mask"] = np.zeros((S, U), dtype=np.uint8)
+        elif cfg.compact_wire:
+            tin["new_pos"] = np.full((S, K), -1,
+                                     dtype=_index_dtype(True, 1, U))
+        else:
+            tin["new_rows"] = np.full((S, K), -1, dtype=np.int32)
+        return tin
 
     def prepare_shards(self, fid_batch: Dict[str, np.ndarray], ts: int
                        ) -> Tuple[Dict, Dict]:
         """The JAX package's prepare_batch, array for array: per table
 
-          {"rows": [S, U] int32 (-1 invalid), "new_mask": [S, U] uint8,
+          {"rows": [S, U] int32 (-1 invalid), the new-row channel [S, U]
+           or [S, K] (prepare_batch's),
            "index": {feature: [B, L] into the flat [S*U] buffer of every
                      shard's unique rows, -1 invalid; int16 when
-                     S*U <= 32768, else int32 (index_dtype)}}
+                     compact_wire and S*U <= 32768, else int32}}
 
         (and a tiered single-shard table's revives, as prepare_batch
         describes them). Ids route to shards by `shard_of`; each shard's
@@ -433,15 +512,15 @@ class EmbeddingEngine:
             else:
                 unique, index, counts, overflow = self.batchers[tname].dedup(
                     flat, S, U)
-            tin = {"rows": np.full((S, U), -1, dtype=np.int32),
-                   "new_mask": np.zeros((S, U), dtype=np.uint8)}
+            tin = self._new_channels(tname, S)
             if cfg.tiered:
                 width = state_width(self.tables[tname])
-                tin["revive_pos"] = np.empty(0, np.int32)
+                tin["revive_pos" if self.packed else "revive_rows"] = \
+                    np.empty(0, np.int32)
                 tin["revive_values"] = np.zeros((0, width), np.float32)
             n_new, n_rej, n_filtered = self._map_shards(
                 tname, unique, counts, occ, ts, K, tin)
-            idt = cfg.index_dtype
+            idt = _index_dtype(cfg.compact_wire, S, U)
             tin["index"] = {}
             off = 0
             for f, stream in zip(feats, streams):
@@ -459,21 +538,34 @@ class EmbeddingEngine:
     def _map_shards(self, tname: str, unique: np.ndarray, counts: np.ndarray,
                     occ: Optional[np.ndarray], ts: int, K: int, tin: Dict
                     ) -> Tuple[int, int, int]:
-        """Map each shard's unique ids in its host store (`map_train_pos`),
-        into tin["rows"] / tin["new_mask"] [S, U]; a tiered table's revives
-        into tin["revive_pos"] / ["revive_values"]. Returns (new,
+        """Map each shard's unique ids in its host store into tin["rows"]
+        [S, U] and the new-row channel; a tiered table's revives into
+        tin["revive_pos"] (or ["revive_rows"]) / ["revive_values"]. As in
+        the JAX package, `map_train` maps where neither positions nor
+        occurrence counts are wanted (structure of arrays, no compact wire,
+        no admission), `map_train_pos` elsewhere. Returns (new,
         budget-rejected, admission-filtered) summed over the shards."""
         cfg = self.config
+        use_pos = self.packed or cfg.compact_wire or occ is not None
         n_new = n_rej = n_filtered = 0
         for s, store in enumerate(self.shard_stores[tname]):
             c = int(counts[s])
             if c == 0:
                 continue
-            r, nr, nf, npos = store.map_train_pos(
-                unique[s, :c], ts=ts, new_cap=K,
-                record_touch=cfg.record_touch,
-                counts=None if occ is None else occ[s, :c])
-            tin["new_mask"][s, npos] = 1
+            if use_pos:
+                r, nr, nf, npos = store.map_train_pos(
+                    unique[s, :c], ts=ts, new_cap=K,
+                    record_touch=cfg.record_touch,
+                    counts=None if occ is None else occ[s, :c])
+            else:
+                r, nr, nf = store.map_train(unique[s, :c], ts=ts, new_cap=K,
+                                            record_touch=cfg.record_touch)
+            if "new_mask" in tin:
+                tin["new_mask"][s, npos] = 1
+            elif "new_pos" in tin:
+                tin["new_pos"][s, :len(npos)] = npos
+            else:
+                tin["new_rows"][s, :len(nr)] = nr
             tin["rows"][s, :c] = r
             n_new += len(nr)
             n_rej += store.last_rejected
@@ -483,10 +575,11 @@ class EmbeddingEngine:
             if cfg.tiered and len(nf):
                 ok, vals = self.shard_archives[tname][s].revive(nf)
                 if ok.any():
-                    pos = pad_rows(npos[ok])
+                    key = "revive_pos" if self.packed else "revive_rows"
+                    pos = pad_rows((npos if self.packed else nr)[ok])
                     values = np.zeros((len(pos), vals.shape[1]), np.float32)
                     values[:ok.sum()] = vals[ok]
-                    tin["revive_pos"], tin["revive_values"] = pos, values
+                    tin[key], tin["revive_values"] = pos, values
         return n_new, n_rej, n_filtered
 
     def prepare_batch_a2a(self, fid_batch: Dict[str, np.ndarray], ts: int
@@ -494,13 +587,14 @@ class EmbeddingEngine:
         """The bucketed all-to-all's host prepare, the JAX package's
         prepare_batch_a2a array for array. Per table:
 
-          {"rows": [S, U] int32, "new_mask": [S, U] uint8,
+          {"rows": [S, U] int32, the new-row channel (prepare_batch's),
            "bucket_idx": [S, D, cap] (pos_dtype): for table shard s and
                          batch shard d, positions into shard s's unique
                          list of the rows batch shard d reads, -1 padded,
            "index": {feature: [B, L] into batch shard d's receive buffer
                      [S*cap] (rows d*B/D .. (d+1)*B/D), -1 invalid or
-                     overflowed; int16 when S*cap <= 32768, else int32}}
+                     overflowed; int16 when compact_wire and
+                     S*cap <= 32768, else int32}}
 
         with D = S batch shards (the batch must divide by S) and cap =
         effective_bucket_cap; stats as prepare_batch's without
@@ -540,11 +634,10 @@ class EmbeddingEngine:
                     self.batchers2d[tname].dedup(
                         flat, num_batch_shards=D, num_shards=S,
                         global_cap=U, bucket_cap=cap)
-            tin = {"rows": np.full((S, U), -1, dtype=np.int32),
-                   "new_mask": np.zeros((S, U), dtype=np.uint8)}
+            tin = self._new_channels(tname, S)
             n_new, n_rej, _ = self._map_shards(tname, unique, counts, occ,
                                                ts, K, tin)
-            idt = np.int16 if S * cap <= 32768 else np.int32
+            idt = _index_dtype(cfg.compact_wire, S, cap)
             tin["index"] = {f.name: np.empty(st.shape, dtype=idt)
                             for f, st in zip(feats, streams)}
             pos = 0
@@ -580,6 +673,88 @@ class EmbeddingEngine:
                 parts.append(idx.view(np.int32))
         return np.concatenate(parts)
 
+    def array_words(self, batch_size: int) -> int:
+        """Number of int32 words of the multi-array path's engine region
+        for a batch (layout in pack_arrays)."""
+        cfg = self.config
+        total = 0
+        for tname, feats in self.table_features.items():
+            if not feats:
+                continue
+            total += (cfg.ucap(tname)
+                      + (0 if self.packed else cfg.ncap(tname))
+                      + sum(batch_size * f.max_length for f in feats))
+        return total
+
+    def pack_arrays(self, inputs: Dict, out: np.ndarray) -> None:
+        """prepare_batch's arrays into the multi-array path's int32 region
+        `out` ([array_words(B)]), per table in sorted name order:
+
+          [U]       rows; a packed table's with its new-row mask in bit 30
+                    (as the wire's), -1 rows stay -1
+          [K]       a structure-of-arrays table's new_pos or new_rows,
+                    widened to int32
+          [B*L]     per feature (declared order): the index matrix, int32
+
+        Every array travels as full int32 words, so unique caps above
+        65535 address their rows."""
+        off = 0
+
+        def put(a):
+            nonlocal off
+            out[off:off + a.size] = a.ravel()
+            off += a.size
+
+        for tname in sorted(inputs):
+            tin = inputs[tname]
+            if "new_mask" in tin:
+                rows = np.array(tin["rows"], dtype=np.int32)
+                np.bitwise_or(rows, np.int32(1 << 30), out=rows,
+                              where=tin["new_mask"].astype(bool))
+                put(rows)
+            else:
+                put(tin["rows"])
+                put(tin["new_pos" if "new_pos" in tin else "new_rows"])
+            for f in self.table_features[tname]:
+                put(np.asarray(tin["index"][f.name]))
+        if off != out.size:
+            raise ValueError(f"engine region of {out.size} words, "
+                             f"{off} packed")
+
+    def decode_arrays(self, words: torch.Tensor, batch_size: int) -> Dict:
+        """Device-side inverse of pack_arrays. Returns per table
+        {"rows": [U] int32, "new_mask": [U] uint8 (packed) or "new_pos" /
+        "new_rows": [K] int32 (structure of arrays), "index": {feature:
+        [B, L] int32}}, views of `words` where no decode is needed."""
+        cfg = self.config
+        inputs = {}
+        off = 0
+
+        def take(n):
+            nonlocal off
+            off += n
+            return words[off - n:off]
+
+        for tname in sorted(self.table_features):
+            feats = self.table_features[tname]
+            if not feats:
+                continue
+            rows = take(cfg.ucap(tname))
+            if self.packed:
+                invalid = rows < 0
+                tin = {"new_mask": torch.where(invalid, 0, (rows >> 30) & 1
+                                               ).to(torch.uint8),
+                       "rows": torch.where(invalid, -1,
+                                           rows & ((1 << 30) - 1))}
+            else:
+                tin = {"rows": rows,
+                       "new_pos" if cfg.compact_wire else "new_rows":
+                       take(cfg.ncap(tname))}
+            tin["index"] = {f.name: take(batch_size * f.max_length).reshape(
+                batch_size, f.max_length) for f in feats}
+            inputs[tname] = tin
+        return inputs
+
     def evict_expired(self, expire_before: int) -> Dict[str, np.ndarray]:
         """Expiry on the host stores of every table with a ttl: ids whose
         last update is older than `expire_before` leave the id map. Returns
@@ -601,19 +776,24 @@ class EmbeddingEngine:
 
     @torch.no_grad()
     def zero_rows(self, states: Dict, freed: Dict[str, np.ndarray]) -> Dict:
-        """Zero freed rows of the device pools in place (params and slots),
-        so that no evicted state survives into a recycled row. One K2
-        launch a table writes zero rows of the pool's dtype (a bf16 pool
-        gets bf16 zeros, exact, with no K3), the row list padded by
-        `pad_rows`."""
+        """Zero freed rows of the device state in place, params and every
+        optimizer slot, so that no evicted state survives into a recycled
+        row. A packed pool takes one K2 launch a table of zero rows in its
+        own dtype (a bf16 pool gets bf16 zeros, exact, with no K3); a
+        structure-of-arrays state one `index_copy_` an array. The row list
+        is padded by `pad_rows`."""
         for tname, rows in freed.items():
             if rows.size == 0:
                 continue
-            pool = states[tname]["data"]
-            idx = pad_rows(rows)
-            scatter_rows(pool, torch.from_numpy(idx).to(pool.device),
-                         torch.zeros((len(idx), pool.shape[1]),
-                                     dtype=pool.dtype, device=pool.device))
+            idx = torch.from_numpy(pad_rows(rows)).to(self.device)
+            state = states[tname]
+            if "data" not in state:
+                table_lib.zero_rows(state, idx)
+                continue
+            pool = state["data"]
+            scatter_rows(pool, idx, torch.zeros((len(idx), pool.shape[1]),
+                                                dtype=pool.dtype,
+                                                device=pool.device))
         return states
 
     # ------------------------------------------------------------------
@@ -621,9 +801,69 @@ class EmbeddingEngine:
     # ------------------------------------------------------------------
 
     def create_states(self) -> Dict[str, table_lib.TableState]:
-        """One packed pool per table on the engine's device."""
-        return {name: table_lib.create_state(spec, self.device)
+        """One state per table on the engine's device: a packed pool, or
+        the structure-of-arrays state when `self.packed` is False."""
+        return {name: table_lib.create_state(spec, self.device,
+                                             packed=self.packed)
                 for name, spec in self.tables.items()}
+
+    @staticmethod
+    def rows_at(rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """rows[pos] with -1 (and positions outside rows) reading -1."""
+        U = rows.shape[0]
+        padded = torch.cat([rows, rows.new_full((1,), -1)])
+        return padded[torch.where((pos < 0) | (pos >= U), U, pos.long())]
+
+    @classmethod
+    def new_rows_from(cls, rows: torch.Tensor, tin: Dict) -> torch.Tensor:
+        """The new rows of a structure-of-arrays step's inputs: its
+        "new_rows" [K], rows[new_pos] [K], or, from the multi-host
+        trainer's mask, rows where new_mask is set and -1 elsewhere [U]."""
+        if "new_mask" in tin:
+            return torch.where(tin["new_mask"] > 0, rows, -1)
+        if "new_pos" in tin:
+            return cls.rows_at(rows, tin["new_pos"])
+        return tin["new_rows"]
+
+    @torch.no_grad()
+    def admit_rows(self, states: Dict, inputs: Dict, seed: int,
+                   step: int) -> Dict:
+        """Initialise each structure-of-arrays table's newly admitted rows
+        in place, with the new-row init's seed (seed, step, table index,
+        shard): `init_rows` of new_rows_from(...) (one `index_copy_` an
+        array); a tiered table's revived rows then get their archived
+        state (`restore_packed_rows` of "revive_rows", or of the rows at
+        "revive_pos"). A packed engine admits inside fused_lookup."""
+        for i, (tname, tin) in enumerate(sorted(inputs.items())):
+            spec = self.tables[tname]
+            self._generator.manual_seed(_init_seed(seed, step, i, self.shard))
+            table_lib.init_rows(spec, states[tname],
+                                self.new_rows_from(tin["rows"], tin),
+                                self._generator)
+            revive = tin.get("revive_rows")
+            if revive is None and tin.get("revive_pos") is not None:
+                revive = self.rows_at(tin["rows"], tin["revive_pos"])
+            if revive is not None and len(revive):
+                table_lib.restore_packed_rows(spec, states[tname], revive,
+                                              tin["revive_values"])
+        return states
+
+    @torch.no_grad()
+    def apply_gradients(self, states: Dict, inputs: Dict,
+                        unique_grads: Dict[str, torch.Tensor], step: int,
+                        seed: int = 0) -> Dict:
+        """Per-segment optimize of each structure-of-arrays table's unique
+        rows, in place (table.apply_gradients); a bf16 table with
+        stochastic rounding
+        narrows its params with K3, keyed by (seed, step, table index,
+        shard) in fused_apply's domain, as the JAX package keys its
+        per-(step, table, shard) write-back."""
+        for i, (tname, tin) in enumerate(sorted(inputs.items())):
+            table_lib.apply_gradients(
+                self.tables[tname], states[tname], tin["rows"],
+                unique_grads[tname], step,
+                seed=_round_seed(seed, step, i, self.shard))
+        return states
 
     def decode_wire(self, wire: torch.Tensor, batch_size: int) -> Dict:
         """Device-side inverse of the wire pack. Returns per table

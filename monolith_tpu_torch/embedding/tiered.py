@@ -7,8 +7,10 @@ host-RAM archive holds the full state of rows that expired.
   device rows are zeroed and recycled;
 - revive: when a spilled id is admitted again, `EmbeddingEngine.
   prepare_batch` takes its archived state out of the archive and ships it
-  beside the step's wire; `fused_lookup` lays it over the gathered row, so
-  training resumes where the id left off.
+  beside the step's wire; `fused_lookup` lays it over the gathered row (a
+  structure-of-arrays engine's `admit_rows` writes it with
+  `table.restore_packed_rows`), so training resumes where the id left
+  off.
 
 The archive reuses the collisionless `HostStore` as its fid -> archive row
 map, plus flat numpy value arrays, with oldest-first recycling when it is
@@ -36,10 +38,19 @@ def state_width(spec: TableSpec) -> int:
 
 
 def pack_rows(spec: TableSpec, state, rows: np.ndarray) -> np.ndarray:
-    """[len(rows), width] full state of `rows` of a packed state held on the
-    host ({"data": [cap, P]}, any f32 array). A direct slice: the archive's
-    row format is the pool's, its first `state_width` columns."""
-    return np.asarray(state["data"], np.float32)[rows][:, :state_width(spec)]
+    """[len(rows), width] full state of `rows` of a state held on the host
+    (any f32 arrays). Of a packed state ({"data": [cap, P]}) a direct
+    slice: the archive's row format is the pool's, its first `state_width`
+    columns; of a structure-of-arrays state the params, then each
+    segment's slots in sorted-name order, concatenated."""
+    if "data" in state:
+        return np.asarray(state["data"],
+                          np.float32)[rows][:, :state_width(spec)]
+    pieces = [np.asarray(state["params"], np.float32)[rows]]
+    for seg_slots in state["slots"]:
+        for name in sorted(seg_slots):
+            pieces.append(np.asarray(seg_slots[name], np.float32)[rows])
+    return np.concatenate(pieces, axis=1)
 
 
 def split_row_values(spec: TableSpec, values: np.ndarray

@@ -48,6 +48,12 @@ the same calls in the same order either way). Blocks (`stage_block` /
 schedule) and `train()` are the Trainer's own through its seams; a tiered
 trainer runs blocks too, its revived rows taken at each step's pack.
 
+With `EngineConfig(packed="off")` the owner's mask and revive positions
+are the same; the step initialises the rows under the mask and restores
+the revived ones (`engine.admit_rows`) before its `index_select`, and
+updates each array with K3 on a bf16 table's params, keyed per (step,
+table, shard) as the JAX package's multi-host trainer keys it.
+
 `evaluate` maps read-only (`_map_ids(train=False)`: lookups, nothing
 admitted) through the same exchanges; every rank returns the global AUC
 and loss (the histograms summed by all_reduce). `predict` answers the
@@ -358,6 +364,14 @@ class MultiHostTrainer(ShardedTrainer):
 
     def _stage_capable(self) -> bool:
         return True
+
+    def _attach_revive(self, inputs, revive) -> None:
+        """The owner's revived rows travel as positions into its rows in
+        either layout (a structure-of-arrays engine's admit_rows reads the
+        rows at them), as the JAX package's map callback ships them."""
+        for tname, (pos, values) in revive.items():
+            inputs[tname]["revive_pos"] = pos
+            inputs[tname]["revive_values"] = values
 
     @torch.no_grad()
     def evaluate(self, data, max_steps: Optional[int] = None

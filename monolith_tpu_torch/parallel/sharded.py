@@ -37,6 +37,14 @@ JAX package. Returned predictions are the global batch's [B], as the JAX
 trainer's `out_specs=P(ax)`; the metrics see them with the global labels.
 The auxiliary losses are this rank's.
 
+With `EngineConfig(packed="off")` a rank holds its shard as the
+structure-of-arrays state: its wire carries new_pos / new_rows [K] in place
+of the mask, and the step is the Trainer's multi-array one (admit_rows,
+`index_select`, apply_gradients) through the same seams; K3 is keyed by
+(seed, step, table, rank), where the JAX package's ShardedTrainer rounds
+every shard with one key a step (ROADMAP §3 R6). Its blocks step
+synchronously, as the JAX package's do on that layout.
+
 Checkpoints, exports and the streaming push run per shard (every rank
 calls them): rank r writes and pushes shard r, and restores every host
 store it holds with its own pool (training/checkpoint.py). Tiered storage
@@ -126,11 +134,17 @@ class ShardedTrainer(Trainer):
         b = self._slice_rows(layout)
         words = 0
         for tname in self._tables():
-            words += 2 * e.unique_cap + sum(
+            words += e.unique_cap + self._new_words() + sum(
                 b * f.max_length for f in self.engine.table_features[tname])
             if self._a2a_wire():
                 words += S * e.effective_bucket_cap
         return words + sum(int(np.prod(s)) // S for _, _, s in layout)
+
+    def _new_words(self) -> int:
+        """Words of a table's new-row channel: the mask [U] of a packed
+        engine, new_pos or new_rows [K] of a structure-of-arrays one."""
+        e = self.config.engine
+        return e.unique_cap if self.engine.packed else e.new_cap
 
     def _pack_full_wire(self, fid_batch, batch, layout, ts, stepno, out):
         """The host prepare of the whole batch (every rank makes the same
@@ -151,7 +165,7 @@ class ShardedTrainer(Trainer):
         for tname in self._tables():
             tin = inputs[tname]
             put(tin["rows"][r])
-            put(tin["new_mask"][r])
+            put(tin[_new_channel(tin)][r])
             if "bucket_idx" in tin:
                 put(tin["bucket_idx"][r])
             for f in self.engine.table_features[tname]:
@@ -162,9 +176,11 @@ class ShardedTrainer(Trainer):
         return stats, None
 
     def _decode(self, wire: torch.Tensor, layout):
-        """The rank's inputs {table: {"rows" [U], "new_mask" [U],
-        ["bucket_idx" [S, cap]], "index" {feature: [B/S, L]}}} and its
-        batch slice, as views of the wire."""
+        """The rank's inputs {table: {"rows" [U], the new-row channel
+        ("new_mask" [U], or "new_pos" / "new_rows" [K] of a
+        structure-of-arrays engine), ["bucket_idx" [S, cap]], "index"
+        {feature: [B/S, L]}}} and its batch slice, as views of the
+        wire."""
         e, S = self.config.engine, self.mesh.size
         U, b = e.unique_cap, self._slice_rows(layout)
         inputs, off = {}, 0
@@ -174,8 +190,13 @@ class ShardedTrainer(Trainer):
             off += n
             return wire[off - n:off]
 
+        new = ("new_mask" if self.engine.packed
+               else "new_pos" if e.compact_wire else "new_rows")
         for tname in self._tables():
-            tin = {"rows": take(U), "new_mask": take(U).to(torch.uint8)}
+            tin = {"rows": take(U)}
+            tin[new] = take(self._new_words())
+            if new == "new_mask":
+                tin[new] = tin[new].to(torch.uint8)
             if self._a2a_wire():
                 cap = e.effective_bucket_cap
                 tin["bucket_idx"] = take(S * cap).reshape(S, cap)
@@ -288,6 +309,14 @@ class ShardedTrainer(Trainer):
 
     # ------------------------------------------------------------------
 
+    def _block_capable(self) -> bool:
+        """Blocks on every layout, as the JAX package's sharded trainer
+        runs them (a structure-of-arrays block steps synchronously)."""
+        return True
+
+    def _stage_capable(self) -> bool:
+        return True
+
     def _eval_forward(self, fid_batch, batch):
         """Forward only through the allgather exchange, whatever the
         training one (the JAX trainer's evaluate always all-gathers)."""
@@ -309,3 +338,8 @@ class ShardedTrainer(Trainer):
             mine[tname] = rows[rows // cap == self.mesh.rank] % cap
         self.engine.zero_rows(self.table_states, mine)
         return freed
+
+
+def _new_channel(tin: Dict) -> str:
+    """The key of a prepared table's new-row channel."""
+    return next(k for k in ("new_mask", "new_pos", "new_rows") if k in tin)

@@ -98,14 +98,14 @@ def _kernel_count(event):
                                     for c in event.cpu_children)
 
 
-def _trainer_config(cap, steps_per_dispatch=1, async_optimize=False,
-                    record_touch=False, tiered=False):
+def _trainer_config(cap, steps_per_dispatch=1, **engine):
+    """`engine`: EngineConfig settings (async_optimize, record_touch,
+    tiered, packed, compact_wire, ...)."""
     from monolith_tpu_torch.embedding.engine import EngineConfig
     from monolith_tpu_torch.training.trainer import TrainerConfig
     return TrainerConfig(
         engine=EngineConfig(num_shards=1, unique_cap=cap, new_cap=cap,
-                            async_optimize=async_optimize,
-                            record_touch=record_touch, tiered=tiered),
+                            **engine),
         log_every=0, steps_per_dispatch=steps_per_dispatch)
 
 
@@ -121,7 +121,7 @@ def _deepfm(ttl_seconds=0, **cfg):
                                  batch_size=8192, seed=0)
 
 
-def _multislot_bf16(**cfg):
+def _multislot_bf16(batch_size=8192, unique_cap=49152, **cfg):
     from monolith_tpu_torch.data.synthetic import SyntheticMultiSlot
     from monolith_tpu_torch.models.multislot import MultiSlotTask
     from monolith_tpu_torch.training.trainer import Trainer
@@ -131,16 +131,17 @@ def _multislot_bf16(**cfg):
                       hidden=(256, 128, 64), merge=True,
                       table_dtype=torch.bfloat16, stochastic_rounding=True,
                       dense_dtype=torch.bfloat16),
-        _trainer_config(49152, **cfg))
+        _trainer_config(unique_cap, **cfg))
     return trainer, SyntheticMultiSlot(num_slots=40, vocab_per_slot=100_000,
-                                       history_length=20, batch_size=8192,
-                                       seed=0)
+                                       history_length=20,
+                                       batch_size=batch_size, seed=0)
 
 
 #: bench.py's configs at full width: name -> (steps_per_dispatch=1,
-#: async_optimize=False, record_touch=False, tiered=False) -> (trainer on
-#: the card, data stream); chip_smoke.py drives the same two (deepfm also
-#: with a table ttl, `ttl_seconds=`)
+#: EngineConfig settings) -> (trainer on the card, data stream);
+#: chip_smoke.py drives the same two (deepfm also with a table ttl,
+#: `ttl_seconds=`; multislot_bf16 also at another `batch_size` and
+#: `unique_cap`)
 CONFIGS = {"deepfm": _deepfm, "multislot_bf16": _multislot_bf16}
 #: a serving replica's unique ids per predict at batch 8192, by config
 SERVE_UNIQUE_CAP = {"deepfm": 32768, "multislot_bf16": 49152}

@@ -22,6 +22,10 @@ row in use), params and slots as separate f32 arrays. The prefix is sliced
 on the device and only that is copied to the host; restore uploads only the
 prefix and makes the rows above it on the device (`table.state_from_np`),
 so neither direction moves or holds a full-capacity pool on the host.
+The files are the same for a packed pool and a structure-of-arrays state
+(`EngineConfig(packed="off")`), so a checkpoint restores into either
+layout, as the JAX package's restore rebuilds whichever layout the
+trainer holds.
 
 A trainer of S > 1 shards (one process a rank: `parallel.MultiHostTrainer`,
 `parallel.ShardedTrainer`) saves from every rank (`save`, or its JAX name
@@ -140,7 +144,8 @@ def _save_table(trainer, tname, spec, path, shard: int) -> None:
     fids, rows, tss, counts = store.save()
     hw = int(rows.max()) + 1 if len(rows) else 0
     # the live prefix: sliced on the device, only it comes back
-    live = {k: v[:hw].cpu() for k, v in trainer.table_states[tname].items()}
+    live = table_lib.map_state(lambda a: a[:hw].cpu(),
+                               trainer.table_states[tname])
     arrays = {"pool": table_lib.params_np(spec, live),
               "fids": fids, "rows": rows, "tss": tss, "counts": counts}
     for name, arr in table_lib.slot_items_np(spec, live):
@@ -342,7 +347,7 @@ def _restore_table(trainer, tname, spec, path, old_shards: int) -> None:
     # device as a fresh pool has them (params zero, slots at their
     # optimizer's init value)
     trainer.table_states[tname] = table_lib.state_from_np(
-        spec, pool, slots, trainer.device)
+        spec, pool, slots, trainer.device, packed=engine.packed)
 
 
 def _entries(path, tname, spec, old_shards: int):

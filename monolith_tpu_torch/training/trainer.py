@@ -11,6 +11,19 @@ Per step:
           stochastic rounding for a bf16 pool that asks for it, K2
           scatter)
 
+The multi-array path (`engine.fuse_wire` False: unique caps above 65535,
+`EngineConfig(compact_wire=False)`, or `packed="off"`, the
+structure-of-arrays state whose bf16 tables keep f32 optimizer slots)
+takes the same single upload: `prepare_batch` (Python over the same C++)
+and `engine.pack_arrays` fill the pinned buffer's engine region with int32
+words, which `engine.decode_arrays` reads on the device. A packed engine
+then steps as above; a structure-of-arrays one runs `admit_rows` (new rows
+initialised, and revived, before the forward reads them) ->
+`lookup_unique` (`index_select`) -> forward and backward -> the dense
+update -> `engine.apply_gradients` (per-array update; K3 narrows a bf16
+table's params), as the JAX trainer's multi-array step does. As in the
+JAX package, only the fused wire runs blocks.
+
 The module runs in `train()` mode in every training step (per step and in
 blocks of either kind) and in `eval()` mode in `predict`, `evaluate` and
 every other forward-only pass, as the JAX trainer passes `training=True`
@@ -83,7 +96,6 @@ from monolith_tpu_torch.embedding import table as table_lib
 from monolith_tpu_torch.embedding.engine import (EmbeddingEngine,
                                                  EngineConfig, _init_seed,
                                                  pad_rows)
-from monolith_tpu_torch.embedding.tiered import state_width
 from monolith_tpu_torch.layers.draws import set_generator
 from monolith_tpu_torch.metrics import (StreamingAUC, StreamingMean,
                                         device_metrics_init,
@@ -184,25 +196,37 @@ class Trainer:
             items.append((k, v.dtype.str, v.shape))
         return tuple(items)
 
+    def _engine_words(self, batch_size: int) -> int:
+        """Words of the engine's region of a step's wire: the 16-bit wire
+        (`wire_capable`) or the multi-array path's int32 arrays."""
+        if self.engine.wire_capable:
+            return self.engine.wire_words(batch_size)
+        return self.engine.array_words(batch_size)
+
     def _full_wire_words(self, layout) -> int:
-        return (self.engine.wire_words(layout[0][2][0])
+        return (self._engine_words(layout[0][2][0])
                 + sum(int(np.prod(s)) for _, _, s in layout) + 1)
 
     def _pack_full_wire(self, fid_batch, batch, layout, ts, stepno, out):
         """Host side of _decode, into the int32 buffer `out` [W]. Returns
         (stats, revive): revive is None, or for a tiered engine the step's
-        revived rows {table: (positions, values)} (`prepare_batch`'s
+        revived rows {table: (positions or rows, values)} (`prepare_batch`'s
         arrays), which travel beside the wire."""
-        ew = self.engine.wire_words(layout[0][2][0])
+        engine = self.engine
+        ew = self._engine_words(layout[0][2][0])
         revive = None
-        if self.engine.config.tiered:
-            inputs, stats = self.engine.prepare_batch(fid_batch, ts=ts)
-            out[:ew] = self.engine.pack_wire(inputs)
-            revive = {t: (tin["revive_pos"], tin["revive_values"])
-                      for t, tin in inputs.items()}
+        if engine.fuse_wire:
+            _, stats = engine.prepare_wire(fid_batch, ts=ts, out=out[:ew])
         else:
-            _, stats = self.engine.prepare_wire(fid_batch, ts=ts,
-                                                out=out[:ew])
+            inputs, stats = engine.prepare_batch(fid_batch, ts=ts)
+            if engine.wire_capable:
+                out[:ew] = engine.pack_wire(inputs)
+            else:
+                engine.pack_arrays(inputs, out[:ew])
+            if engine.config.tiered:
+                key = "revive_pos" if engine.packed else "revive_rows"
+                revive = {t: (tin[key], tin["revive_values"])
+                          for t, tin in inputs.items()}
         off = ew
         for k, _, shape in layout:
             n = int(np.prod(shape))
@@ -220,9 +244,10 @@ class Trainer:
         result must be dispatched before any other step runs. Returns
         (wires [K, W] on the device, K stats, batch layout, K revives)."""
         if len(pairs) > 1 and not self._block_capable():
-            raise ValueError("a tiered trainer steps one by one: its "
-                             "revived rows are taken from the archive at "
-                             "each step's prepare")
+            raise ValueError("blocks need the fused wire: a trainer on "
+                             "the multi-array path, and a tiered trainer "
+                             "(its revived rows are taken from the archive "
+                             "at each step's prepare), steps one by one")
         layout = self._batch_layout(pairs[0][1])
         words = self._full_wire_words(layout)
         key = (layout, len(pairs), words)
@@ -247,8 +272,11 @@ class Trainer:
         word, the step number, stays unread: the host knows it. Returns
         (decoded engine inputs, batch tensors)."""
         bsz = layout[0][2][0]
-        off = self.engine.wire_words(bsz)
-        inputs = self.engine.decode_wire(wire[:off], bsz)
+        off = self._engine_words(bsz)
+        if self.engine.wire_capable:
+            inputs = self.engine.decode_wire(wire[:off], bsz)
+        else:
+            inputs = self.engine.decode_arrays(wire[:off], bsz)
         batch_t = {}
         for k, dstr, shape in layout:
             n = int(np.prod(shape))
@@ -266,12 +294,13 @@ class Trainer:
         self._attach_revive(inputs, self._upload_revive(revives[0]))
         return inputs, batch_t, stats[0]
 
-    @staticmethod
-    def _attach_revive(inputs, revive) -> None:
-        """Lay a step's uploaded revived rows ({table: (positions,
-        values)}, `_upload_revive`) into its decoded inputs."""
+    def _attach_revive(self, inputs, revive) -> None:
+        """Lay a step's uploaded revived rows ({table: (positions or rows,
+        values)}, `_upload_revive`) into its decoded inputs, as
+        "revive_pos" (packed) or "revive_rows" (structure of arrays)."""
+        key = "revive_pos" if self.engine.packed else "revive_rows"
         for tname, (pos, values) in revive.items():
-            inputs[tname]["revive_pos"] = pos
+            inputs[tname][key] = pos
             inputs[tname]["revive_values"] = values
 
     def _upload_revive(self, revive) -> Dict[str, Tuple[torch.Tensor,
@@ -390,6 +419,16 @@ class Trainer:
         backward, dense update, row optimize and write-back (K2).
         Nothing here waits for the device. Returns (loss, preds, aux)."""
         engine, seed = self.engine, self.config.seed
+        if not engine.packed:
+            # structure of arrays: init (and revive) the new rows first, so
+            # that the forward reads them initialised
+            engine.admit_rows(self.table_states, inputs, seed, step)
+            unique = engine.lookup_unique(self.table_states, inputs)
+            loss, preds, aux, gu = self._dense_step(inputs, batch_t, unique,
+                                                    step)
+            engine.apply_gradients(self.table_states, inputs, gu, step,
+                                   seed=seed)
+            return loss, preds, aux
         prows, unique = engine.fused_lookup(self.table_states, inputs, seed,
                                             step)
         loss, preds, aux, gu = self._dense_step(inputs, batch_t, unique, step)
@@ -482,7 +521,9 @@ class Trainer:
             ts = int(time.time()) if ts is None else ts
             wires, stats, layout, revives = self._pack_block(pairs, ts)
             revives = [self._upload_revive(r) for r in revives]
-        stale = self.config.engine.async_optimize
+        # the 1-step-stale schedule runs on packed rows (as in the JAX
+        # package); a structure-of-arrays block steps synchronously
+        stale = self.config.engine.async_optimize and self.engine.packed
         pending = None
         losses, preds, auxes = [], [], []
         for i in range(K):
@@ -540,11 +581,11 @@ class Trainer:
             freed[tname] = rows.astype(np.int64)
             spilled[tname] = 0
             if len(rows):
-                values = table_lib.gather_packed(
+                values = table_lib.full_rows(
                     spec, self.table_states[tname],
                     torch.from_numpy(pad_rows(rows)).to(self.device))
                 spilled[tname] = self.engine.archive_of(tname).spill(
-                    fids, values[:len(rows), :state_width(spec)].cpu().numpy(),
+                    fids, values[:len(rows)].cpu().numpy(),
                     ts=expire_before)
         self.engine.zero_rows(self.table_states, freed)
         return spilled
@@ -599,18 +640,18 @@ class Trainer:
         return {"auc": auc.result(), "loss": loss_mean.result()}
 
     def _block_capable(self) -> bool:
-        """Whether train() may run blocks at all: not for a tiered engine,
-        whose steps revive rows at their own prepare (the JAX package's
-        `fuse_wire` is off when tiered). A trainer whose steps cannot be
-        packed ahead (a later multi-device one) overrides this."""
-        return not self.engine.config.tiered
+        """Whether train() may run blocks at all: as in the JAX package,
+        only on the fused wire (`engine.fuse_wire`): not for a tiered
+        engine, whose steps revive rows at their own prepare, nor on the
+        multi-array path. The sharded trainers override this."""
+        return self.engine.fuse_wire
 
     def _stage_capable(self) -> bool:
         """Whether this trainer implements stage_block(). A subclass that
         overrides train_step_block either brings its own stage_block or
         returns False here, so that _train_blocked never hands it a block
         staged by another trainer's rules."""
-        return not self.engine.config.tiered
+        return self.engine.fuse_wire
 
     def _block_eligible(self, batch) -> bool:
         """Whether this batch's arrays can ride the wire (all 4-byte)."""

@@ -208,9 +208,13 @@ def test_port_trainer_config_carries_the_jax_settings():
                             async_optimize=True),
         clip_norm=2.5, seed=3, log_every=7, metrics_enabled=False,
         steps_per_dispatch=8)
-    with pytest.raises(ValueError, match="packed='off'"):
-        convert.port_trainer_config(JaxTrainerConfig(
-            engine=JaxEngineConfig(num_shards=2, packed="off")))
+    # the structure-of-arrays state and the int32 index matrices are
+    # carried as they are (once refused)
+    for kw in (dict(packed="off"), dict(compact_wire=False),
+               dict(packed="off", compact_wire=False)):
+        got = convert.port_trainer_config(JaxTrainerConfig(
+            engine=JaxEngineConfig(num_shards=2, **kw))).engine
+        assert got == EngineConfig(num_shards=2, **kw)
 
 
 def test_sync_block_matches_jax_with_clipping():
@@ -380,13 +384,27 @@ def test_per_table_caps_wire_is_bit_identical_to_jax():
 
 
 def test_caps_above_the_16_bit_wire_are_refused():
-    with pytest.raises(ValueError, match="65535"):
-        EmbeddingEngine(
-            [TableSpec(name="t", capacity_per_shard=64,
-                       segments=(TableSegment(dim=4),))],
-            [FeatureConfig(name="f", table="t", max_length=1, combiner="sum")],
-            EngineConfig(unique_cap=64, unique_caps=(("t", 70000),)),
-            device="cpu")
+    """The JAX package's contract (tests/test_engine.py,
+    test_prepare_wire_rejects_oversized_cap): an engine with a cap above
+    65535 builds, takes the multi-array path (fuse_wire False) and refuses
+    the wire; caps in (32768, 65535] ride the unsigned decode;
+    compact_wire=False turns the wire off."""
+    tables = [TableSpec(name="t", capacity_per_shard=256,
+                        segments=(TableSegment(dim=4),))]
+    feats = [FeatureConfig(name="f", table="t", max_length=2,
+                           combiner="sum")]
+
+    def engine(**cfg):
+        return EmbeddingEngine(tables, feats, EngineConfig(**cfg),
+                               device="cpu")
+    for cfg in (dict(unique_cap=81920),
+                dict(unique_cap=64, unique_caps=(("t", 70000),))):
+        eng = engine(**cfg)
+        assert not eng.fuse_wire and not eng.wire_capable
+        with pytest.raises(ValueError, match="65535"):
+            eng.prepare_wire({"f": np.zeros((2, 2), np.int64)}, ts=1)
+    assert engine(unique_cap=40960).fuse_wire
+    assert not engine(unique_cap=1024, compact_wire=False).fuse_wire
 
 
 def test_async_block_with_per_table_caps_matches_jax():

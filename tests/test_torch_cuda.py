@@ -266,7 +266,7 @@ def test_staged_buffer_is_refilled_only_after_its_copys_event(card):
     tr = _small_deepfm(card)
     tr.train_step(*batches[0])
     a = tr.stage_block(batches[1:5])
-    key = (a["layout"], 4)
+    key = (a["layout"], 4, tr._full_wire_words(a["layout"]))
     staging = tr._wires[key]
     assert all(b.is_pinned() for b in staging.bufs)
     assert staging.events[0] is not None and staging.events[1] is None
@@ -534,3 +534,82 @@ def test_tiered_card_steps_match_cpu(card):
     np.testing.assert_allclose(ag["sparse"]["values"],
                                ac["sparse"]["values"], atol=1e-5, rtol=0)
     assert gpu.engine.archives["sparse"].revived == 64
+
+
+# ----------------------------------------------------------------------
+# the multi-array step and the structure-of-arrays state
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(49152, 17), (13, 17), (135_168, 128)])
+def test_stochastic_round_at_the_multi_array_shapes(card, shape):
+    """K3 on a structure-of-arrays table's concatenated [U, 17] params (no
+    whole 16-byte vector a row; [13, 17] leaves a ragged tail) and on the
+    packed rows of a step above 65535 unique ids."""
+    g = torch.Generator(device=card).manual_seed(shape[0])
+    x = torch.randn(shape, generator=g, device=card)
+    out = rounding.stochastic_round_bf16(x, 0xFEDCBA9876543210)
+    ref = rounding.stochastic_round_bf16_plain(x, 0xFEDCBA9876543210)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.parametrize("n", [65_536, 70_000, 135_168])
+def test_row_kernels_above_the_16_bit_cap(card, n):
+    """K1 and K2 on a bf16 pool [17 x 2^18, 128] at more than 65535 rows
+    a call (multislot at batch 32768), ~1% of them -1."""
+    g = torch.Generator(device=card).manual_seed(n)
+    cap = 17 * (1 << 18)
+    pool = torch.randn((cap, 128), generator=g, device=card).to(
+        torch.bfloat16)
+    rows = torch.randperm(cap, generator=g, device=card)[:n].int()
+    rows[torch.rand(n, generator=g, device=card) < 0.01] = -1
+    out = ops.gather_rows(pool, rows)
+    assert torch.equal(out.view(torch.int16),
+                       ops.gather_rows_plain(pool, rows).view(torch.int16))
+    a, b = pool.clone(), pool.clone()
+    ops.scatter_rows(a, rows, out + 1)
+    ops.scatter_rows_plain(b, rows, out + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def _soa_deepfm(device, **engine):
+    return Trainer(DeepFMTask(capacity_per_shard=4096, hidden=(32, 16),
+                              init_scale=0.0),
+                   TrainerConfig(engine=EngineConfig(**dict(
+                       dict(unique_cap=512, new_cap=512), **engine)),
+                       log_every=0),
+                   device=device)
+
+
+@pytest.mark.parametrize("engine", [dict(packed="off"),
+                                    dict(compact_wire=False),
+                                    dict(unique_cap=70000, new_cap=70000)],
+                         ids=["soa", "int32", "cap70000"])
+def test_multi_array_card_steps_match_cpu(card, engine):
+    """The multi-array path on the card against the CPU from one carried
+    state: losses rtol 1e-5 under deterministic algorithms; a
+    structure-of-arrays step launches no kernel (f32 table), a packed one
+    K1 and K2 once."""
+    from monolith_tpu_torch import ops as port_ops
+    data = SyntheticCTR(num_users=400, num_items=300, batch_size=64, seed=11)
+    batches = [data.batch() for _ in range(6)]
+    cpu = _soa_deepfm("cpu", **engine)
+    for i in range(3):
+        cpu.train_step(*batches[i], ts=500 + i)
+    gpu = _soa_deepfm(card, **engine)
+    convert.load_state(gpu, convert.export_state(cpu))
+    assert not gpu.engine.fuse_wire
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for i in range(3, 6):
+            port_ops.reset_launch_counts()
+            lg = gpu.train_step(*batches[i], ts=500 + i)["loss"].item()
+            counts = port_ops.launch_counts()
+            lc = cpu.train_step(*batches[i], ts=500 + i)["loss"].item()
+            np.testing.assert_allclose(lg, lc, rtol=1e-5)
+            k = 0 if engine.get("packed") == "off" else 1
+            assert counts == {"gather_rows": k, "scatter_rows": k,
+                              "stochastic_round_bf16": 0}, counts
+    finally:
+        torch.use_deterministic_algorithms(False)

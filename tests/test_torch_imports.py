@@ -164,3 +164,11 @@ def test_multihost_rank_worker_imports_no_jax():
     path = "tests/torch_multihost_worker.py"
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_soa_rank_worker_imports_no_jax():
+    """The rank processes of the structure-of-arrays sharded tests run the
+    port alone."""
+    path = "tests/torch_soa_worker.py"
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path} imports {bad}"

@@ -218,10 +218,12 @@ def test_port_trainer_config_carries_the_sharded_settings():
         engine=EngineConfig(num_shards=4, unique_cap=256, new_cap=64,
                             exchange="a2a", bucket_cap=96),
         clip_norm=1.5, seed=3, steps_per_dispatch=4)
-    for bad in (dict(packed="off"), dict(compact_wire=False)):
-        with pytest.raises(ValueError, match="does not run"):
-            convert.port_trainer_config(JaxTrainerConfig(
-                engine=JaxEngineConfig(num_shards=2, **bad)))
+    # the structure-of-arrays state and the int32 index matrices are
+    # carried (once refused)
+    for kw in (dict(packed="off"), dict(compact_wire=False)):
+        got = convert.port_trainer_config(JaxTrainerConfig(
+            engine=JaxEngineConfig(num_shards=2, **kw))).engine
+        assert got == EngineConfig(num_shards=2, **kw)
 
 
 # ----------------------------------------------------------------------
