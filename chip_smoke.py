@@ -324,6 +324,38 @@ failures is caught:
      "multi_array"). Every launch of 18a, 18e and 18f counts as path "soa"
      of its config's kernels, of 18b and 18c as "multi_array".
 
+ 19. tiered storage and deltas on the sharded trainer, and the ranks that
+     `parallel.launch` starts, run after phase 18, all on the deepfm_f32
+     cell (batch 8192, embedding_dim 16, hidden (256, 128, 64), unique_cap
+     = new_cap = 32768, init_scale 0.0, ttl 8, ts = step):
+     19a. a tiered ShardedTrainer on one NCCL rank (capacity 2^21), each
+       exchange, beside the tiered Trainer under deterministic algorithms:
+       16 steps, spill_expired(8) (archived = K1's plain gather bit for
+       bit, the rows zeroed), 2 steps and a synchronous block of 4 whose
+       user ids were spilled (every revived row handed to the model is its
+       archived state bit for bit), 1 eval batch: losses, spilled counts,
+       pools and dense params bit for bit equal to the Trainer's; then
+       save_delta restored into a fresh rank (rows equal by id) and a
+       checkpoint with its archive restored into another (archive and live
+       rows equal); K1 24 / K2 23 an exchange, the delta K1 2 / K2 1;
+     19b. the same sequence on two gloo ranks sharing cuda:0 through
+       `parallel.launch` (2^20 rows a shard), both exchanges, the delta
+       restored into two fresh ranks: equal to the same two ranks on the
+       CPU within 1e-5 (losses, dense params, each shard's live rows by
+       id), spilled and revived counts exactly;
+     19c. `train.rank_main` (train.main's body) under `launch(backend=
+       "gloo", device="cuda:0")` with --num_shards 2 (2^20 rows a shard):
+       6 steps, 2 eval batches, the per-shard checkpoint restored 2 -> 1
+       into the Trainer, equal by id;
+     19d. `dryrun_multichip` on one NCCL rank and on two gloo ranks sharing
+       the card (K3 in its bf16 multislot);
+     19e. `scaling_bench --gloo-one-card --sizes 1,2`: its lines and JSON.
+     Each sub-phase prints ms/step (reviving steps apart), rows spilled
+     and revived, delta bytes and seconds; the launches count as paths
+     "sharded_tiered" (19a and 19b's card ranks), "delta" (their deltas)
+     and "launch" (19c-19e's ranks and 19e's one-rank run; K3 under the
+     multislot_bf16 entry).
+
 TF32 is off for matrix products and convolutions (torch.backends), so the
 card's f32 dense towers run in full f32 like the CPU's. The second-to-last
 line is the kernels' JSON (one entry per kernel and path); the last is
@@ -1323,12 +1355,11 @@ class Launches:
         self.total = {}
 
     def run(self, fn):
-        import torch
         from monolith_tpu_torch import ops
-        torch.cuda.synchronize()
+        _sync()
         ops.reset_launch_counts()
         out = fn()
-        torch.cuda.synchronize()
+        _sync()
         self.add(ops.launch_counts())
         return out
 
@@ -1337,16 +1368,23 @@ class Launches:
             self.total[k] = self.total.get(k, 0) + v
 
 
+def _sync():
+    """Wait for the card, in a process that uses it (a rank process on the
+    CPU never does)."""
+    import torch
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
 def _steps(trainer, batches, ts0, launches):
     """Train steps at ts = ts0, ts0 + 1, ...; returns (losses, median ms a
     step with a synchronize after each)."""
-    import torch
     losses, times = [], []
     for i, (fb, b) in enumerate(batches):
         def one():
             t0 = time.perf_counter()
             out = trainer.train_step(fb, b, ts=ts0 + i)
-            torch.cuda.synchronize()
+            _sync()
             times.append((time.perf_counter() - t0) * 1e3)
             return out
         out = launches.run(one)
@@ -4665,6 +4703,595 @@ def phase_soa(floor):
                                                          "multi_array": ma_x}
 
 
+# ----------------------------------------------------------------------
+# phase 19: tiered storage and deltas on the sharded trainer, and the
+# ranks that parallel.launch starts
+# ----------------------------------------------------------------------
+
+# 19a/19b: capacity a shard, steps, ttl (ts = step), spill point, revive
+# steps, the block that revives; 19b's tolerance against the CPU ranks
+ST_CAP, ST2_CAP = 1 << 21, 1 << 20
+ST_STEPS, ST_TTL, ST_SPILL, ST_REVIVE, ST_K = 16, 8, 8, 2, 4
+ST2_RTOL = 1e-5
+#: 19c's run of train.main's rank body: steps, eval batches
+CLI19_STEPS, CLI19_EVAL = 6, 2
+
+
+def _st_sizes(cap):
+    """The deepfm_f32 cell's sizes for phase 19 (passed to its rank
+    processes, so that a rehearsal that shrinks them shrinks those too)."""
+    return {"cap": cap, "U": SHARD_U, "B": SHARD_B, "users": CTR_USERS,
+            "items": CTR_ITEMS}
+
+
+def _st_task(sz):
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    return DeepFMTask(embedding_dim=16, capacity_per_shard=sz["cap"],
+                      hidden=(256, 128, 64), init_scale=0.0,
+                      ttl_seconds=ST_TTL)
+
+
+def _st_config(sz, num_shards=1, **engine):
+    from monolith_tpu_torch.embedding.engine import EngineConfig
+    from monolith_tpu_torch.training.trainer import TrainerConfig
+    engine.setdefault("tiered", True)
+    return TrainerConfig(engine=EngineConfig(
+        num_shards=num_shards, unique_cap=sz["U"], new_cap=sz["U"],
+        **engine), log_every=0)
+
+
+def _st_data(sz):
+    from monolith_tpu_torch.data.synthetic import SyntheticCTR
+    return SyntheticCTR(num_users=sz["users"], num_items=sz["items"],
+                        batch_size=sz["B"], seed=0)
+
+
+def _archived(archive):
+    """{fid: archived row} of an archive."""
+    fids, rows, _, _ = archive.map.save()
+    return {f: archive.values[r].copy()
+            for f, r in zip(fids.tolist(), rows.tolist())}
+
+
+def _revive_batches(data, users, n, seed):
+    """n batches of the stream whose user_id column holds the given
+    (spilled) user ids."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        fb, b = data.batch()
+        out.append((dict(fb, user_id=rng.choice(
+            users, (len(b["label"]), 1), replace=False)), b))
+    return out
+
+
+def _rows_of(trainer, rows):
+    """Packed rows of the trainer's own pool, read by K1's plain version."""
+    import torch
+    from monolith_tpu_torch.ops import scatter as ops
+    return ops.gather_rows_plain(
+        trainer.table_states["sparse"]["data"],
+        torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to(
+            trainer.device)).cpu().numpy()
+
+
+def _check_handed(trainer, seen, archived, width):
+    """Every revived row that fused_lookup handed the model (records of
+    `_spy_lookup`) is its archived state bit for bit, the columns after it
+    zero. Returns the revived rows a step."""
+    fids, rows = trainer.engine.store_of("sparse").save()[:2]
+    fid_of_row = dict(zip(rows.tolist(), fids.tolist()))
+    counts = []
+    for prows, inputs in seen:
+        tin = inputs["sparse"]
+        pos = tin.get("revive_pos")
+        pos = (pos[pos >= 0].long() if pos is not None
+               else pos)
+        counts.append(0 if pos is None else len(pos))
+        if not counts[-1]:
+            continue
+        handed = prows["sparse"][pos].cpu().numpy()
+        for r, h in zip(tin["rows"][pos].cpu().tolist(), handed):
+            want = archived[fid_of_row[r]]
+            assert np.array_equal(h[:width].view(np.int32),
+                                  want.view(np.int32)), r
+            assert not h[width:].any(), r
+    return counts
+
+
+def _st_sequence(trainer, data, launches):
+    """19a/19b's sequence on a tiered sharded trainer (every rank of a
+    group calls it): ST_STEPS steps at ts = step, spill_expired(ST_SPILL),
+    ST_REVIVE steps whose user ids were spilled, a synchronous block of
+    ST_K that revives; every revived row handed to the model checked
+    against its archived state. Returns the numbers and the batches."""
+    from monolith_tpu_torch.embedding.tiered import state_width
+    width = state_width(trainer.engine.tables["sparse"])
+    archive = trainer.engine.archive_of("sparse")
+    r = {"batches": [data.batch() for _ in range(ST_STEPS)]}
+    r["losses"], r["ms"] = _steps(trainer, r["batches"], 0, launches)
+    # the expiring rows of the trainer's own shard, by K1's plain version
+    fids, rows, tss, _ = trainer.engine.store_of("sparse").save()
+    old = tss < ST_SPILL
+    want = dict(zip(fids[old].tolist(), _rows_of(trainer, rows[old])[:, :width]))
+    # every shard's expiring user ids: the same on every rank
+    users = []
+    for st in trainer.engine.shard_stores["sparse"]:
+        f, _, t, _ = st.save()
+        users.append(f[(t < ST_SPILL) & ((f >> 54) == 1)])
+    users = np.sort(np.concatenate(users))
+    t0 = time.perf_counter()
+    r["spilled"] = launches.run(lambda: trainer.spill_expired(ST_SPILL))
+    _sync()
+    r["spill_s"] = time.perf_counter() - t0
+    a_fids, a_rows, _, _ = archive.map.save()
+    assert len(a_fids) == int(old.sum()), (len(a_fids), int(old.sum()))
+    for f, v in zip(a_fids.tolist(), archive.values[a_rows]):
+        assert np.array_equal(v.view(np.int32), want[f].view(np.int32)), f
+    assert not _rows_of(trainer, rows[old]).any(), "spilled rows not zero"
+    r["archive_entries"] = len(a_fids)
+    # steps whose user ids were spilled: they revive
+    r["revive_batches"] = _revive_batches(data, users, ST_REVIVE, 5)
+    archived = _archived(archive)
+    seen, real = _spy_lookup(trainer)
+    before = archive.revived
+    r["revive_losses"], r["revive_ms"] = _steps(
+        trainer, r["revive_batches"], ST_STEPS, launches)
+    r["revived"] = _check_handed(trainer, seen, archived, width)
+    assert archive.revived - before == sum(r["revived"]) > 0, (
+        archive.revived, before, r["revived"])
+    # a synchronous block of ST_K that revives spilled user ids the steps
+    # did not (the same on every rank)
+    archived = _archived(archive)
+    taken = np.concatenate([fb["user_id"].ravel()
+                            for fb, _ in r["revive_batches"]])
+    r["block_batches"] = _revive_batches(data, np.setdiff1d(users, taken),
+                                         ST_K, 6)
+    seen.clear()
+    before = archive.revived
+    t0 = time.perf_counter()
+    out = launches.run(lambda: trainer.train_step_block(
+        r["block_batches"], ts=ST_STEPS + ST_REVIVE))
+    _sync()
+    r["block_ms"] = (time.perf_counter() - t0) * 1e3 / ST_K
+    trainer.engine.fused_lookup = real
+    r["block_losses"] = out["loss"].cpu().numpy()
+    assert np.isfinite(r["block_losses"]).all(), r["block_losses"]
+    r["block_revived"] = _check_handed(trainer, seen, archived, width)
+    assert archive.revived - before == sum(r["block_revived"]) > 0
+    r["seen"] = [(trainer.table_states, seen[-1][1])]
+    return r
+
+
+def _delta_round(trainer, fresh, work, since_ts, launches):
+    """save_delta(since_ts) from `trainer` (every rank), restore_delta into
+    `fresh` (as many ranks): the fresh pool's rows equal the delta's values
+    and the trainer's rows by id, bit for bit. Returns the numbers."""
+    from monolith_tpu_torch.training import checkpoint
+    r = {}
+    t0 = time.perf_counter()
+    path = launches.run(lambda: checkpoint.save_delta(trainer, work,
+                                                      since_ts=since_ts))
+    r["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    applied = launches.run(lambda: checkpoint.restore_delta(fresh, path))
+    _sync()
+    r["restore_s"] = time.perf_counter() - t0
+    r["bytes"] = _tree_bytes(path)
+    own = trainer.engine.shard
+    z = np.load(os.path.join(path, f"sparse-s{own}.npz"))
+    dim = trainer.engine.tables["sparse"].dim
+    got = _rows_of(fresh, fresh.engine.store_of("sparse").lookup(z["fids"]))
+    mine = _rows_of(trainer,
+                    trainer.engine.store_of("sparse").lookup(z["fids"]))
+    assert len(z["fids"]) > 0
+    assert np.array_equal(got[:, :dim], z["values"]), "restored delta rows"
+    assert np.array_equal(mine[:, :dim], z["values"]), "saved delta rows"
+    r["rows"], r["applied"] = len(z["fids"]), applied
+    return r
+
+
+def _ckpt_round(trainer, fresh, work):
+    """A checkpoint with the archive, restored into `fresh`: its archive
+    and its live rows by id equal the trainer's."""
+    from monolith_tpu_torch.training import checkpoint
+    t0 = time.perf_counter()
+    path = checkpoint.save(trainer, work)
+    save_s = time.perf_counter() - t0
+    checkpoint.restore(fresh, work)
+    a, b = (t.engine.archive_of("sparse") for t in (trainer, fresh))
+    (af, ar, _, _), (bf, br, _, _) = a.map.save(), b.map.save()
+    oa, ob = np.argsort(af), np.argsort(bf)
+    assert len(af) > 0 and np.array_equal(af[oa], bf[ob])
+    assert np.array_equal(a.values[ar[oa]], b.values[br[ob]])
+    f1, r1 = trainer.engine.store_of("sparse").save()[:2]
+    f2, r2 = fresh.engine.store_of("sparse").save()[:2]
+    o1, o2 = np.argsort(f1), np.argsort(f2)
+    assert np.array_equal(f1[o1], f2[o2])
+    assert np.array_equal(_rows_of(trainer, r1[o1]), _rows_of(fresh, r2[o2]))
+    return save_s, _tree_bytes(path), len(af)
+
+
+def _st_hold(exchange, mesh, tiered, delta, work):
+    """19a for one exchange on a world of one: the tiered ShardedTrainer
+    beside the tiered Trainer on the same batches, under deterministic
+    algorithms, equal bit for bit; then its delta and its checkpoint."""
+    import torch
+    from monolith_tpu_torch.parallel import ShardedTrainer
+    from monolith_tpu_torch.training.trainer import Trainer
+    sz = _st_sizes(ST_CAP)
+
+    def make():
+        return ShardedTrainer(_st_task(sz), _st_config(sz, exchange=exchange),
+                              mesh)
+    sharded = make()
+    single = Trainer(_st_task(sz), _st_config(sz), device=mesh.device)
+
+    def gap():
+        return max(_gap(sharded.table_states["sparse"]["data"],
+                        single.table_states["sparse"]["data"]),
+                   _dense_gap(sharded, single))
+    with _Deterministic():
+        r = _st_sequence(sharded, _st_data(sz), tiered)
+        want, _ = _steps(single, r["batches"], 0, Launches())
+        assert want == r["losses"], (want, r["losses"])
+        assert single.spill_expired(ST_SPILL) == r["spilled"]
+        want, _ = _steps(single, r["revive_batches"], ST_STEPS, Launches())
+        assert want == r["revive_losses"], (want, r["revive_losses"])
+        want = [float(single.train_step(*p, ts=ST_STEPS + ST_REVIVE)["loss"])
+                for p in r["block_batches"]]
+        assert np.array_equal(np.float32(want), r["block_losses"]), want
+        r["gap"] = gap()
+        assert r["gap"] == 0.0, r["gap"]
+        evals = [_st_data(sz).batch()]
+        r["eval"] = tiered.run(lambda: sharded.evaluate(iter(evals)))
+        assert r["eval"] == single.evaluate(iter(evals)), r["eval"]
+    r["valid_rows"] = _hold_kernels_on(sharded, r.pop("seen"))
+    del single
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    r["delta"] = _delta_round(sharded, make(), os.path.join(work, "delta"),
+                              ST_STEPS, delta)
+    r["ckpt"] = _ckpt_round(sharded, make(), os.path.join(work, "ckpt"))
+    return r
+
+
+def rank_19b(rank, work, sz):
+    """One rank of 19b (started by parallel.launch, two gloo ranks on
+    cuda:0 or on the CPU): 19a's sequence on a tiered ShardedTrainer of 2
+    shards of 2^20 rows, both exchanges, then its delta restored into 2
+    fresh ranks and its checkpoint into 2 more. Returns, by exchange, the
+    losses, dense params, the rank's live rows by id, the spilled and
+    revived counts and the numbers logged, and the launches of the
+    sequence and of the delta."""
+    import torch
+    from monolith_tpu_torch.embedding import table as table_lib
+    from monolith_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from monolith_tpu_torch.parallel.launch import rank_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(device=rank_device())
+    out = {}
+    for exchange in ("allgather", "a2a"):
+        tiered, delta = Launches(), Launches()
+
+        def make():
+            return ShardedTrainer(_st_task(sz), _st_config(
+                sz, num_shards=2, exchange=exchange), mesh)
+        tr = make()
+        r = _st_sequence(tr, _st_data(sz), tiered)
+        r.pop("seen")
+        for k in ("batches", "revive_batches", "block_batches"):
+            r.pop(k)
+        r["delta"] = _delta_round(tr, make(), os.path.join(
+            work, f"delta-{exchange}"), ST_STEPS, delta)
+        r["ckpt"] = _ckpt_round(tr, make(), os.path.join(
+            work, f"ckpt-{exchange}"))
+        fids, rows = tr.engine.store_of("sparse").save()[:2]
+        order = np.argsort(fids)
+        r["fids"] = fids[order]
+        r["live"] = table_lib.full_rows(
+            tr.engine.tables["sparse"], tr.table_states["sparse"],
+            torch.from_numpy(rows[order]).to(tr.device)).cpu().numpy()
+        r["dense"] = {k: p.detach().cpu().numpy()
+                      for k, p in tr.module.named_parameters()}
+        r["launches"] = {"sharded_tiered": tiered.total,
+                         "delta": delta.total}
+        out[exchange] = r
+        del tr
+    return out
+
+
+def _hold_19b(card, cpu):
+    """Two card ranks against two CPU ranks: losses, dense params and each
+    shard's live rows by id within ST2_RTOL, spilled and revived counts
+    exactly. Returns the largest gap over the largest magnitude."""
+    gaps = []
+    for g, c in zip(card, cpu):
+        for exchange in g:
+            x, y = g[exchange], c[exchange]
+            for k in ("losses", "revive_losses", "block_losses"):
+                np.testing.assert_allclose(x[k], y[k], rtol=ST2_RTOL)
+            for k in ("spilled", "revived", "block_revived",
+                      "archive_entries"):
+                assert x[k] == y[k], (exchange, k, x[k], y[k])
+            assert x["delta"]["rows"] == y["delta"]["rows"]
+            np.testing.assert_array_equal(x["fids"], y["fids"])
+            pairs = [(x["live"], y["live"])] + [
+                (x["dense"][k], y["dense"][k]) for k in x["dense"]]
+            for a, b in pairs:
+                den = float(np.abs(b).max()) or 1.0
+                gaps.append(float(np.abs(a - b).max()) / den)
+    assert max(gaps) <= ST2_RTOL, max(gaps)
+    return max(gaps)
+
+
+def rank_19c(rank, argv):
+    """train.main's rank body (`train.rank_main`) in a rank that
+    parallel.launch started; returns its results, its launches and the ms
+    of each train step (synchronized)."""
+    from monolith_tpu_torch import ops, train
+    from monolith_tpu_torch.parallel import ShardedTrainer
+    times, real = [], ShardedTrainer.train_step
+
+    def timed(self, *a, **k):
+        t0 = time.perf_counter()
+        out = real(self, *a, **k)
+        _sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    ShardedTrainer.train_step = timed
+    ops.reset_launch_counts()
+    try:
+        out = train.rank_main(rank, argv)
+    finally:
+        ShardedTrainer.train_step = real
+    return out, ops.launch_counts(), times
+
+
+def rank_19d(rank, n):
+    """`dryrun_multichip(rank, n)` in a launched rank; returns its losses
+    and its launches."""
+    from monolith_tpu_torch import ops
+    from monolith_tpu_torch.parallel.dryrun import dryrun_multichip
+    ops.reset_launch_counts()
+    out = dryrun_multichip(rank, n)
+    return out, ops.launch_counts()
+
+
+def _phase_19a(device, work):
+    import torch.distributed as dist
+    tiered, delta = Launches(), Launches()
+    mesh = _world_of_one(device)
+    rs = {}
+    try:
+        for exchange in ("allgather", "a2a"):
+            r = rs[exchange] = _st_hold(exchange, mesh, tiered, delta,
+                                        os.path.join(work, exchange))
+            log(f"19a deepfm_f32 tiered {exchange} (one {mesh.backend} "
+                f"rank, capacity 2^21, ttl {ST_TTL}, ts = step): "
+                f"{ST_STEPS} steps, spill_expired({ST_SPILL}), "
+                f"{ST_REVIVE} steps and a synchronous block of {ST_K} "
+                f"whose user ids were spilled, 1 eval batch, bit for bit "
+                f"equal to the tiered Trainer under deterministic "
+                f"algorithms (largest gap {r['gap']}; losses, spilled "
+                f"counts, pools, dense params, eval {r['eval']}); spilled "
+                f"{r['spilled']['sparse']} rows in {r['spill_s']:.3f} s "
+                f"(archived = K1's plain gather bit for bit, rows zeroed); "
+                f"revived rows a step {r['revived']}, in the block "
+                f"{r['block_revived']}, each handed to the model as its "
+                f"archived state bit for bit; ms/step (median, "
+                f"synchronized, deterministic algorithms): steps "
+                f"{r['ms']:.3f}, reviving steps {r['revive_ms']:.3f}, the "
+                f"reviving block {r['block_ms']:.3f}; save_delta "
+                f"{r['delta']['rows']} rows, {r['delta']['bytes']} bytes in "
+                f"{r['delta']['save_s']:.3f} s, restore_delta into a fresh "
+                f"rank {r['delta']['restore_s']:.3f} s (rows equal by id); "
+                f"checkpoint with the archive ({r['ckpt'][2]} entries, "
+                f"{r['ckpt'][1]} bytes, save {r['ckpt'][0]:.3f} s) restored "
+                f"equal; K1/K2 bit for bit on its pool ({r['valid_rows']} "
+                f"valid rows)")
+    finally:
+        dist.destroy_process_group()
+    # per exchange: 16 + 2 steps, the spill's gather and zeroing, the
+    # block of 4, the eval batch; the delta's gather, restore's K1 + K2
+    _expect_launches(tiered.total, {
+        "gather_rows": 2 * (ST_STEPS + ST_REVIVE + 1 + ST_K + 1),
+        "scatter_rows": 2 * (ST_STEPS + ST_REVIVE + 1 + ST_K)}, "19a")
+    _expect_launches(delta.total, {"gather_rows": 2 * 2,
+                                   "scatter_rows": 2 * 1}, "19a delta")
+    return tiered, delta
+
+
+def _phase_19b(device, work):
+    from monolith_tpu_torch.parallel.launch import launch
+    t0 = time.time()
+    sz = _st_sizes(ST2_CAP)
+    card = launch(rank_19b, 2, backend="gloo", device=device,
+                  args=(os.path.join(work, "card"), sz))
+    t1 = time.time()
+    cpu = launch(rank_19b, 2, device="cpu",
+                 args=(os.path.join(work, "cpu"), sz))
+    gap = _hold_19b(card, cpu)
+    tiered, delta = Launches(), Launches()
+    for g in card:
+        for exchange, r in g.items():
+            tiered.add(r["launches"]["sharded_tiered"])
+            delta.add(r["launches"]["delta"])
+    a = card[0]["a2a"]
+    log(f"19b deepfm_f32 tiered, two gloo ranks sharing {device} through "
+        f"parallel.launch (2^20 rows a shard), both exchanges: 19a's "
+        f"sequence equal to two CPU ranks within {ST2_RTOL} (largest gap "
+        f"over the largest magnitude {gap:.3g}: losses, dense params, each "
+        f"shard's live rows by id; spilled and revived counts exactly); "
+        + "; ".join(
+            f"{x}: spilled {card[0][x]['spilled']['sparse']} (all ranks), "
+            f"revived rows a step by rank "
+            f"{[g[x]['revived'] for g in card]}, in the block "
+            f"{[g[x]['block_revived'] for g in card]}, ms/step steps "
+            f"{[round(g[x]['ms'], 3) for g in card]}, reviving "
+            f"{[round(g[x]['revive_ms'], 3) for g in card]}, block "
+            f"{[round(g[x]['block_ms'], 3) for g in card]}; delta "
+            f"{[g[x]['delta']['rows'] for g in card]} rows a shard, "
+            f"{card[0][x]['delta']['bytes']} bytes, save "
+            f"{[round(g[x]['delta']['save_s'], 3) for g in card]} s, "
+            f"restored into 2 fresh ranks "
+            f"{[round(g[x]['delta']['restore_s'], 3) for g in card]} s"
+            for x in card[0])
+        + f"; {t1 - t0:.1f} s on the card, {time.time() - t1:.1f} s on the "
+          f"CPU")
+    assert a["delta"]["applied"] == sum(g["a2a"]["delta"]["rows"]
+                                        for g in card)
+    return tiered, delta
+
+
+def _phase_19c(device, work):
+    """train.main's rank body on two gloo ranks sharing the card: train,
+    eval and a per-shard checkpoint, which the one-rank Trainer restores
+    by id."""
+    import torch
+    from monolith_tpu_torch.models.deepfm import DeepFMTask
+    from monolith_tpu_torch.parallel.launch import launch
+    from monolith_tpu_torch.training import checkpoint
+    from monolith_tpu_torch.training.trainer import Trainer
+    model_dir = os.path.join(work, "model")
+    args = {"embedding_dim": 16, "capacity_per_shard": ST2_CAP,
+            "hidden": [256, 128, 64], "init_scale": 0.0}
+    sz = _st_sizes(ST2_CAP)
+    argv = ["--task", "deepfm", "--task_args", json.dumps(args),
+            "--batch_size", str(sz["B"]), "--unique_cap", str(sz["U"]),
+            "--new_cap", str(sz["U"]), "--steps", str(CLI19_STEPS),
+            "--eval_steps", str(CLI19_EVAL), "--mode", "train_and_eval",
+            "--log_every", "0", "--num_shards", "2",
+            "--model_dir", model_dir]
+    t0 = time.time()
+    ranks = launch(rank_19c, 2, backend="gloo", device=device, args=(argv,))
+    wall = time.time() - t0
+    out = ranks[0][0]
+    for res, _, _ in ranks:  # every rank returns the global loss and AUC
+        for phase in ("train", "eval"):
+            for k in ("loss", "auc"):
+                assert res[phase][k] == out[phase][k], (phase, k, ranks)
+    for phase in ("train", "eval"):
+        assert np.isfinite(out[phase]["loss"]), out
+    launches = Launches()
+    for _, counts, _ in ranks:
+        launches.add(counts)
+    assert all(len(t) == CLI19_STEPS for _, _, t in ranks)
+    single = Trainer(DeepFMTask(**dict(args, capacity_per_shard=2 * ST2_CAP,
+                                       hidden=tuple(args["hidden"]))),
+                     _st_config(sz, tiered=False), device=device)
+    assert checkpoint.restore(single, model_dir) == CLI19_STEPS
+    step_dir = os.path.join(model_dir, f"ckpt-{CLI19_STEPS}", "tables")
+    rows_checked = 0
+    for s in range(2):
+        z = np.load(os.path.join(step_dir, f"sparse-s{s}.npz"))
+        rows = single.engine.stores["sparse"].lookup(z["fids"])
+        assert (rows >= 0).all()
+        got = _rows_of(single, rows)[:, :z["pool"].shape[1]]
+        assert np.array_equal(got, z["pool"][z["rows"]]), s
+        rows_checked += len(rows)
+    del single
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    ms = [float(np.median(t[2:])) for _, _, t in ranks]
+    log(f"19c train.main's rank body, --num_shards 2 on two gloo ranks "
+        f"sharing {device} (parallel.launch; deepfm_f32, 2^20 rows a shard, "
+        f"the CLI's synthetic stream): {CLI19_STEPS} steps, {CLI19_EVAL} "
+        f"eval batches: {out}; ms/step by rank (median of steps 3-"
+        f"{CLI19_STEPS}, synchronized) {np.round(ms, 3).tolist()}; "
+        f"the per-shard checkpoint restored into the one-rank Trainer "
+        f"(2 -> 1), {rows_checked} rows equal by id; {wall:.1f} s for the "
+        f"launch")
+    return launches
+
+
+def _phase_19d(device):
+    """dryrun_multichip on one NCCL rank and on two gloo ranks sharing the
+    card (on the CPU for a rehearsal)."""
+    from monolith_tpu_torch.parallel.launch import launch
+    launches = Launches()
+    where = ({"device": "cpu"} if device == "cpu" else {})
+    for n, kw in ((1, where), (2, {"backend": "gloo", "device": device}
+                                   if device != "cpu" else where)):
+        t0 = time.time()
+        ranks = launch(rank_19d, n, args=(n,), **kw)
+        for res, counts in ranks:
+            launches.add(counts)
+            assert all(np.isfinite(v) for c in res.values()
+                       for v in c.values()), res
+        log(f"19d dryrun_multichip({n}) on {n} "
+            f"{'NCCL' if n == 1 and device != 'cpu' else 'gloo'} rank(s): "
+            f"{ranks[0][0]}; {time.time() - t0:.1f} s")
+    assert all(launches.total.get(k, 0) > 0 for k in (
+        "gather_rows", "scatter_rows", "stochastic_round_bf16")), \
+        launches.total
+    return launches
+
+
+def _phase_19e(device):
+    """scaling_bench at S = 1 (in this process) and 2 (two gloo ranks on
+    the card); returns the one-rank run's launches."""
+    import io
+    from contextlib import redirect_stdout
+
+    from monolith_tpu_torch import scaling_bench
+    argv = ["--sizes", "1,2"] + (["--cpu"] if device == "cpu"
+                                 else ["--gloo-one-card"])
+    launches = Launches()
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        out = launches.run(lambda: scaling_bench.main(argv))
+    for line in buf.getvalue().strip().splitlines()[:-1]:
+        log(f"19e {line}")
+    log(f"19e scaling_bench JSON: {json.dumps(out)}")
+    for n in (1, 2):
+        cell = out[f"mesh{n}"]
+        assert np.isfinite(cell["examples_per_sec"]) and \
+            cell["examples_per_sec"] > 0, cell
+    assert out["ranks_share_one_device"]
+    return launches
+
+
+def phase_launch_and_tiered(device="cuda"):
+    """Phase 19; returns the launches by path ("sharded_tiered": 19a and
+    19b's card ranks; "delta": their deltas; "launch": 19c-19e's ranks and
+    19e's one-rank run)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    t0 = time.time()
+    card = "cuda:0" if device == "cuda" else "cpu"
+    work = tempfile.mkdtemp(prefix="chip_smoke_19_")
+    try:
+        tiered, delta = _phase_19a(device, os.path.join(work, "a"))
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t1 = time.time()
+        b_tiered, b_delta = _phase_19b(card, os.path.join(work, "b"))
+        tiered.add(b_tiered.total)
+        delta.add(b_delta.total)
+        t2 = time.time()
+        launched = _phase_19c(card, os.path.join(work, "c"))
+        t3 = time.time()
+        launched.add(_phase_19d(card).total)
+        t4 = time.time()
+        launched.add(_phase_19e(device).total)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    paths = {"sharded_tiered": tiered.total, "delta": delta.total,
+             "launch": launched.total}
+    for path, counts in paths.items():
+        assert counts.get("gather_rows", 0) > 0 and \
+            counts.get("scatter_rows", 0) > 0, (path, counts)
+    log(f"phase 19: {time.time() - t0:.1f} s (19a {t1 - t0:.1f}, 19b "
+        f"{t2 - t1:.1f}, 19c {t3 - t2:.1f}, 19d {t4 - t3:.1f}, 19e "
+        f"{time.time() - t4:.1f}); launches {paths}")
+    return paths
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4723,6 +5350,8 @@ def main():
     torch.cuda.empty_cache()
     soa_kernels, soa_launches, soa_cases, soa_x = phase_soa(floor)
     torch.cuda.empty_cache()
+    launch_paths = phase_launch_and_tiered()
+    torch.cuda.empty_cache()
     for k in kernels:
         # each path was driven with the counts set to 0 just before it;
         # "serving" is the export and the trainer's eval predictions (both
@@ -4746,6 +5375,15 @@ def main():
             k["launches_by_path"]["realtime"] = realtime_launches[k["name"]]
             k["launches_by_path"]["zoo"] = zoo_launches[k["name"]]
             k["launches_by_path"]["library"] = library_launches[k["name"]]
+            # phase 19: the tiered sharded runs, their deltas, and the
+            # launched ranks' K1/K2 (19d's bf16 multislot included)
+            for path in ("sharded_tiered", "delta", "launch"):
+                k["launches_by_path"][path] = launch_paths[path].get(
+                    k["name"], 0)
+        elif k["name"] == "stochastic_round_bf16":
+            # K3 runs in phase 19 only in 19d's bf16 multislot
+            k["launches_by_path"]["launch"] = launch_paths["launch"][
+                k["name"]]
         k["launches"] = sum(k["launches_by_path"].values())
     # "cli": 12d's train.main (MovieRanking, two tables)
     for k in mr_kernels:

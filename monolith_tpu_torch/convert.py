@@ -39,7 +39,9 @@ reads the JAX package's trainer into the format with numpy alone, and
 same settings (clip_norm, steps_per_dispatch, per-table caps,
 async_optimize, record_touch, tiered, ...). `jax_archives` and
 `load_archives` carry a tiered trainer's host archives across, so that the
-two packages can start a tiered run from identical state.
+two packages can start a tiered run from identical state: a JAX sharded
+trainer's archive of shard r goes to rank r of a port `ShardedTrainer` or
+`MultiHostTrainer`, which holds that archive alone.
 
 Row optimizer slots travel inside the packed pool, at the offsets that
 `table._layout` gives them in both packages, so no row optimizer needs
@@ -312,8 +314,8 @@ def _state_dict(x):
 
 def jax_archives(jax_trainer, shard: int = 0) -> Dict:
     """A tiered JAX trainer's host archives of one shard (0: a
-    single-device trainer's one; r: what rank r of a port multi-host run
-    holds) in numpy: {table: {"fids", "rows", "map_tss", "tss", "values",
+    single-device trainer's one; r: what rank r of a port sharded or
+    multi-host run holds) in numpy: {table: {"fids", "rows", "map_tss", "tss", "values",
     "spilled", "revived", "dropped"}}: the archive map's entries (with the
     map's timestamps, which order recycling), and each entry's spill
     timestamp and archived row."""

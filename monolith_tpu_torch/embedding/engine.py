@@ -47,8 +47,9 @@ them into the wire `prepare_wire` writes, byte for byte, and the revived
 rows travel beside it: only the n revived rows, padded to a power of two
 with position -1. `fused_lookup` lays them over the gathered rows (a
 structure-of-arrays engine's `admit_rows` writes them with
-restore_packed_rows). As in the JAX package, a tiered trainer steps one by
-one (no blocks).
+restore_packed_rows). As in the JAX package, a tiered single-device
+trainer steps one by one (no blocks); the sharded trainers take each
+step's revived rows at its pack and run blocks.
 
 Sharded tables (`num_shards = S > 1`, one rank a shard): the engine's
 device functions serve shard `self.shard`, which keys their new-row init
@@ -57,13 +58,18 @@ rank holds all S host stores and runs the same host prepare over the whole
 global batch, as the JAX package's one host engine does for its S devices:
 `prepare_shards` (allgather exchange) and `prepare_batch_a2a` (bucketed
 all-to-all) return the JAX package's arrays with their leading shard axis.
-With `local_shards` (the multi-host trainer, parallel/multihost.py) the
-engine holds the host stores, and when tiered the archives, of those shards
-only (None for the others) and `shard` is the first of them; the trainer
-then maps ids in its own store. The sharded steps do not take the 16-bit
-wire, so their caps are not held to 65535. `stores` and `archives` are the
-single-shard views (empty when S > 1); `store_of` / `archive_of` give the
-engine's own shard's at any S.
+A tiered engine holds an archive for each shard it serves: every shard's
+when built without a `shard`, as the JAX package's one host engine does,
+and only its own when the caller names its shard (a sharded trainer's
+rank: one archive holds 4x a shard's rows, so a rank cannot keep S of
+them); the other shards' archives are None and their revives are left to
+the ranks that hold them. With `local_shards` (the multi-host trainer,
+parallel/multihost.py) the engine holds the host stores, and when tiered
+the archives, of those shards only (None for the others) and `shard` is
+the first of them; the trainer then maps ids in its own store. The
+sharded steps do not take the 16-bit wire, so their caps are not held to
+65535. `stores` and `archives` are the single-shard views (empty when S >
+1); `store_of` / `archive_of` give the engine's own shard's at any S.
 
 Decoded inputs and table states carry no shard axis (the JAX package's
 carry a leading one). Table states are updated in place by fused_apply,
@@ -252,10 +258,12 @@ class EmbeddingEngine:
     def __init__(self, tables: Sequence[TableSpec],
                  features: Sequence[FeatureConfig],
                  config: EngineConfig = EngineConfig(),
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, shard: Optional[int] = None):
         S = config.num_shards
         if S < 1:
             raise ValueError(f"num_shards must be >= 1 (got {S})")
+        if shard is not None and not 0 <= shard < S:
+            raise ValueError(f"shard {shard} is not a shard of 0..{S - 1}")
         if config.exchange not in ("allgather", "a2a"):
             raise ValueError(f"exchange must be 'allgather' or 'a2a' (got "
                              f"{config.exchange!r})")
@@ -304,15 +312,18 @@ class EmbeddingEngine:
         self.stores: Dict[str, HostStore] = (
             {name: st[0] for name, st in self.shard_stores.items()}
             if S == 1 else {})
-        # the table shard the device functions serve (a trainer on rank r
-        # of a sharded run sets r)
-        self.shard = local[0] if local else 0
-        # a tiered table's archive a held shard, seeded with seed + s as
-        # the JAX package seeds shard s's
+        # the table shard the device functions serve: the first held one,
+        # or the caller's (a sharded trainer's rank)
+        self.shard = local[0] if local else (shard or 0)
+        # a tiered table's archive a served shard (local_shards', the
+        # caller's shard alone, or all), seeded with seed + s as the JAX
+        # package seeds shard s's
+        served = (local if local is not None
+                  else None if shard is None else [shard])
         self.shard_archives: Dict[str, List[Optional[RowArchive]]] = (
             {name: [RowArchive(t, config.archive_capacity
                                or 4 * t.capacity_per_shard, seed=seed + s)
-                    if local is None or s in local else None
+                    if served is None or s in served else None
                     for s in range(S)]
              for name, t in self.tables.items()} if config.tiered else {})
         self.archives: Dict[str, RowArchive] = (
@@ -453,7 +464,8 @@ class EmbeddingEngine:
         inputs, stats = self.prepare_shards(fid_batch, ts)
         if self.config.num_shards == 1:
             for tin in inputs.values():
-                for k in ("rows", "new_mask", "new_pos", "new_rows"):
+                for k in ("rows", "new_mask", "new_pos", "new_rows",
+                          "revive_pos", "revive_rows", "revive_values"):
                     if k in tin:
                         tin[k] = tin[k][0]
                 tin["index"] = {f: i.astype(np.int32)
@@ -485,16 +497,19 @@ class EmbeddingEngine:
                      shard's unique rows, -1 invalid; int16 when
                      compact_wire and S*U <= 32768, else int32}}
 
-        (and a tiered single-shard table's revives, as prepare_batch
-        describes them). Ids route to shards by `shard_of`; each shard's
-        host store maps its own."""
+        and, tiered, "revive_pos" (packed) or "revive_rows" (structure of
+        arrays) [S, m] int32 and "revive_values" [S, m, state_width] f32:
+        shard s's revived ids from its archive, -1 padded to m = the next
+        power of two of the most any shard revived (m = 0 when none); a
+        shard whose archive the engine does not hold revives nothing here.
+        Ids route to shards by `shard_of`; each shard's host store maps its
+        own."""
         cfg = self.config
         S = cfg.num_shards
-        if cfg.local_shards is not None or (S > 1 and cfg.tiered):
+        if cfg.local_shards is not None:
             raise ValueError("an engine that holds only its local shards' "
-                             "stores, or a tiered engine of S > 1 shards, "
-                             "maps ids through the multi-host trainer "
-                             "(parallel.MultiHostTrainer)")
+                             "stores maps ids through the multi-host "
+                             "trainer (parallel.MultiHostTrainer)")
         inputs = {}
         stats = {"overflow": {}, "new": {}, "unique": {}, "filtered": {},
                  "new_rejected": {}}
@@ -513,11 +528,6 @@ class EmbeddingEngine:
                 unique, index, counts, overflow = self.batchers[tname].dedup(
                     flat, S, U)
             tin = self._new_channels(tname, S)
-            if cfg.tiered:
-                width = state_width(self.tables[tname])
-                tin["revive_pos" if self.packed else "revive_rows"] = \
-                    np.empty(0, np.int32)
-                tin["revive_values"] = np.zeros((0, width), np.float32)
             n_new, n_rej, n_filtered = self._map_shards(
                 tname, unique, counts, occ, ts, K, tin)
             idt = _index_dtype(cfg.compact_wire, S, U)
@@ -539,15 +549,17 @@ class EmbeddingEngine:
                     occ: Optional[np.ndarray], ts: int, K: int, tin: Dict
                     ) -> Tuple[int, int, int]:
         """Map each shard's unique ids in its host store into tin["rows"]
-        [S, U] and the new-row channel; a tiered table's revives into
-        tin["revive_pos"] (or ["revive_rows"]) / ["revive_values"]. As in
-        the JAX package, `map_train` maps where neither positions nor
+        [S, U] and the new-row channel; a tiered table's revives, from the
+        archives the engine holds, into tin["revive_pos"] (or
+        ["revive_rows"]) / ["revive_values"] (prepare_shards' [S, m]). As
+        in the JAX package, `map_train` maps where neither positions nor
         occurrence counts are wanted (structure of arrays, no compact wire,
         no admission), `map_train_pos` elsewhere. Returns (new,
         budget-rejected, admission-filtered) summed over the shards."""
         cfg = self.config
         use_pos = self.packed or cfg.compact_wire or occ is not None
         n_new = n_rej = n_filtered = 0
+        revived = {}
         for s, store in enumerate(self.shard_stores[tname]):
             c = int(counts[s])
             if c == 0:
@@ -572,14 +584,22 @@ class EmbeddingEngine:
             # -1 rows are admission-filtered or budget-rejected ids; the
             # rejected ones are counted in new_rejected already
             n_filtered += int((r == -1).sum()) - store.last_rejected
-            if cfg.tiered and len(nf):
-                ok, vals = self.shard_archives[tname][s].revive(nf)
+            archive = (self.shard_archives[tname][s] if cfg.tiered
+                       else None)
+            if archive is not None and len(nf):
+                ok, vals = archive.revive(nf)
                 if ok.any():
-                    key = "revive_pos" if self.packed else "revive_rows"
-                    pos = pad_rows((npos if self.packed else nr)[ok])
-                    values = np.zeros((len(pos), vals.shape[1]), np.float32)
-                    values[:ok.sum()] = vals[ok]
-                    tin[key], tin["revive_values"] = pos, values
+                    revived[s] = ((npos if self.packed else nr)[ok], vals[ok])
+        if cfg.tiered:
+            n = max((len(p) for p, _ in revived.values()), default=0)
+            m = 1 << (n - 1).bit_length() if n else 0
+            pos = np.full((len(counts), m), -1, np.int32)
+            values = np.zeros((len(counts), m,
+                               state_width(self.tables[tname])), np.float32)
+            for s, (p, v) in revived.items():
+                pos[s, :len(p)], values[s, :len(p)] = p, v
+            tin["revive_pos" if self.packed else "revive_rows"] = pos
+            tin["revive_values"] = values
         return n_new, n_rej, n_filtered
 
     def prepare_batch_a2a(self, fid_batch: Dict[str, np.ndarray], ts: int
@@ -596,15 +616,15 @@ class EmbeddingEngine:
                      overflowed; int16 when compact_wire and
                      S*cap <= 32768, else int32}}
 
-        with D = S batch shards (the batch must divide by S) and cap =
+        and a tiered table's revives, as prepare_shards', with D = S batch
+        shards (the batch must divide by S) and cap =
         effective_bucket_cap; stats as prepare_batch's without
         "filtered"."""
         cfg = self.config
-        if cfg.tiered or cfg.local_shards is not None:
-            raise ValueError("prepare_batch_a2a: a tiered engine prepares "
-                             "with prepare_batch, one that holds only its "
-                             "local shards' stores through the multi-host "
-                             "trainer")
+        if cfg.local_shards is not None:
+            raise ValueError("prepare_batch_a2a: an engine that holds only "
+                             "its local shards' stores maps ids through the "
+                             "multi-host trainer")
         S, U, K = cfg.num_shards, cfg.unique_cap, cfg.new_cap
         D = S
         cap = cfg.effective_bucket_cap

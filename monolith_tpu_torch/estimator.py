@@ -4,14 +4,22 @@ export_saved_model over a task, with RunnerConfig (ref runner_utils.py:148)
 collapsed to the knobs that apply.
 
 `RunnerConfig` keeps the JAX package's fields and defaults, so that
-`config.extract_flags` gives both packages' CLIs the same flags. The port
-builds the single-device `Trainer`, on the card unless the caller passes
-`device="cpu"`. Under an initialised torch.distributed group of more than
-one rank (the launcher, e.g. `torchrun`, initialises it; the CLI takes no
-flag for it, as in the JAX package) it builds a `MultiHostTrainer` with
-one shard a rank, whatever `num_shards` says; its checkpoints and exports
-are written per shard. Without such a group `num_shards != 1` is refused:
-the port has no single-process multi-device mode.
+`config.extract_flags` gives both packages' CLIs the same flags. The
+trainer follows the JAX package's rule, in the port's terms of one process
+a rank:
+- a rank started by `parallel.launch` (the port's counterpart of the JAX
+  package's one process over S local devices; `train.main` starts S of
+  them for `--num_shards S`) is handed its `mesh`, and builds a
+  `ShardedTrainer` of S shards: every rank reads the same global batch;
+- under a torch.distributed group of more than one rank that another
+  launcher started (e.g. `torchrun`; the CLI takes no flag for it, as in
+  the JAX package) it builds a `MultiHostTrainer` with one shard a rank,
+  whatever `num_shards` says, as the JAX package does for a multi-process
+  run;
+- otherwise the single-device `Trainer`, on the card unless the caller
+  passes `device="cpu"`; `num_shards != 1` in one process is refused
+  (`train.main` or `parallel.launch` start the ranks).
+Checkpoints and exports of the sharded trainers are written per shard.
 
 A restore is decided at construction (a checkpoint under `model_dir`) and
 made when the first batch arrives, as in the JAX package. The port's
@@ -52,16 +60,24 @@ class RunnerConfig:
 
 class Estimator:
     def __init__(self, task: RecTask, config: RunnerConfig = RunnerConfig(),
-                 device=None):
+                 device=None, mesh=None):
+        """`mesh`: this rank's `parallel.Mesh` when `parallel.launch`
+        started the ranks (a ShardedTrainer over it); `device` is then the
+        mesh's."""
         world = (dist.get_world_size()
                  if dist.is_available() and dist.is_initialized() else 1)
-        if world == 1 and config.num_shards != 1:
+        if mesh is not None:
+            world = mesh.size
+            if config.num_shards != world:
+                raise ValueError(f"num_shards={config.num_shards} on a mesh "
+                                 f"of {world} ranks")
+        elif world == 1 and config.num_shards != 1:
             raise ValueError(
-                f"num_shards={config.num_shards} without a process group of "
-                f"as many ranks: the port runs one process a rank (the "
-                f"launcher initialises torch.distributed; the Estimator "
-                f"then builds a MultiHostTrainer) and has no single-process "
-                f"multi-device mode")
+                f"num_shards={config.num_shards} in one process: the port "
+                f"runs one process a rank; start the ranks with "
+                f"monolith_tpu_torch.train.main (--num_shards "
+                f"{config.num_shards}) or parallel.launch.launch, whose "
+                f"ranks build a ShardedTrainer over their mesh")
         self.task = task
         self.config = config
         tc = TrainerConfig(
@@ -73,7 +89,10 @@ class Estimator:
             clip_norm=config.clip_norm, seed=config.seed,
             log_every=config.log_every,
             steps_per_dispatch=config.steps_per_dispatch)
-        if world > 1:
+        if mesh is not None:
+            from monolith_tpu_torch.parallel import ShardedTrainer
+            self.trainer = ShardedTrainer(task, tc, mesh)
+        elif world > 1:
             from monolith_tpu_torch.parallel import MultiHostTrainer, make_mesh
             self.trainer = MultiHostTrainer(task, tc,
                                             make_mesh(device=device))

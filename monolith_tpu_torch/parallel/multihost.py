@@ -87,7 +87,8 @@ from monolith_tpu_torch.metrics import (StreamingAUC, StreamingMean,
 from monolith_tpu_torch.parallel.mesh import Mesh
 from monolith_tpu_torch.parallel.sharded import ShardedTrainer
 from monolith_tpu_torch.training.task import RecTask
-from monolith_tpu_torch.training.trainer import _WIRE_DTYPES, TrainerConfig
+from monolith_tpu_torch.training.trainer import (_WIRE_DTYPES, Trainer,
+                                                 TrainerConfig)
 
 
 def _split64(a: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -115,8 +116,6 @@ class MultiHostTrainer(ShardedTrainer):
     """A trainer whose rank `mesh.rank` holds table shard `mesh.rank` of S
     = mesh.size and its host store alone, and feeds its own batch slice.
     Requires config.engine.num_shards == S."""
-
-    _holds_archives = True
 
     def __init__(self, task: RecTask, config: TrainerConfig, mesh: Mesh):
         config = dataclasses.replace(config, engine=dataclasses.replace(
@@ -398,6 +397,12 @@ class MultiHostTrainer(ShardedTrainer):
                                   hist[auc.num_thresholds:])
             loss_mean.update(float(self._mean(loss)))
         return {"auc": auc.result(), "loss": loss_mean.result()}
+
+    def spill_expired(self, expire_before: int) -> Dict[str, int]:
+        """Two-tier expiry on this rank's own host store and archive (the
+        Trainer's spill of its one shard); returns this rank's spilled
+        counts."""
+        return Trainer.spill_expired(self, expire_before)
 
     def evict_expired(self, expire_before: int) -> Dict[str, np.ndarray]:
         """Expiry on this rank's own host store; its freed rows are zeroed

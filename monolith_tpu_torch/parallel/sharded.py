@@ -45,11 +45,21 @@ of the mask, and the step is the Trainer's multi-array one (admit_rows,
 every shard with one key a step (ROADMAP §3 R6). Its blocks step
 synchronously, as the JAX package's do on that layout.
 
-Checkpoints, exports and the streaming push run per shard (every rank
-calls them): rank r writes and pushes shard r, and restores every host
-store it holds with its own pool (training/checkpoint.py). Tiered storage
-runs on the multi-host trainer (parallel/multihost.py), whose rank holds
-its own shard's store and archive alone.
+Checkpoints, deltas, exports and the streaming push run per shard (every
+rank calls them): rank r writes and pushes shard r, and restores every
+host store it holds with its own pool (training/checkpoint.py).
+
+Tiered storage (`EngineConfig(tiered=True)`): rank r holds every shard's
+host store but only its own shard's archive (an archive holds 4x a shard's
+rows). Every rank's prepare maps the whole batch in every store, as
+before; the revives of shard r's newly admitted ids come from rank r's
+archive alone and travel beside its wire as the Trainer's do ("revive_pos"
+or, structure of arrays, "revive_rows", with "revive_values"), laid over
+the init in the step, blocks included. `spill_expired` evicts the expired
+ids from every store on every rank, so the stores stay identical; rank r
+gathers its own shard's expired rows with one K1, archives them and zeroes
+them (K2), and every rank returns the spilled counts summed over the ranks,
+as the JAX trainer's `spill_expired` returns every shard's.
 
 The collectives reduce in another order than JAX's `psum_scatter`: the
 sparse gradients and the dense mean agree with the JAX trainer to f32
@@ -76,19 +86,11 @@ class ShardedTrainer(Trainer):
     Requires config.engine.num_shards == S and a batch that divides by
     S."""
 
-    #: whether a rank holds its shard's archive (tiered storage)
-    _holds_archives = False
-
     def __init__(self, task: RecTask, config: TrainerConfig, mesh: Mesh):
         e = config.engine
         if e.num_shards != mesh.size:
             raise ValueError(f"engine.num_shards ({e.num_shards}) must equal "
                              f"mesh size ({mesh.size})")
-        if e.tiered and not self._holds_archives:
-            raise ValueError("tiered storage runs on the multi-host trainer "
-                             "(parallel.MultiHostTrainer: an archive a "
-                             "rank); the sharded trainer's ranks hold every "
-                             "shard's host store and no archive")
         if e.unique_caps or e.new_caps:
             raise ValueError("the sharded trainers use the global caps "
                              "(no per-table unique_caps/new_caps)")
@@ -96,7 +98,9 @@ class ShardedTrainer(Trainer):
         self._eval_wire = False
         self._host_group = None
         super().__init__(task, config, device=mesh.device)
-        self.engine.shard = mesh.rank
+
+    def _own_shard(self) -> int:
+        return self.mesh.rank
 
     @property
     def host_group(self):
@@ -148,12 +152,21 @@ class ShardedTrainer(Trainer):
 
     def _pack_full_wire(self, fid_batch, batch, layout, ts, stepno, out):
         """The host prepare of the whole batch (every rank makes the same
-        decisions), then this rank's part of it into `out`."""
+        decisions), then this rank's part of it into `out`. Returns (stats,
+        revive): a tiered engine's revived rows of this rank's shard
+        {table: (positions or rows, values)}, else None."""
         if self._a2a_wire():
             inputs, stats = self.engine.prepare_batch_a2a(fid_batch, ts=ts)
         else:
             inputs, stats = self.engine.prepare_shards(fid_batch, ts=ts)
         r, b = self.mesh.rank, self._slice_rows(layout)
+        revive = None
+        if self.config.engine.tiered:
+            key = "revive_pos" if self.engine.packed else "revive_rows"
+            # the engine holds this rank's archive alone, so only row r
+            # revives: its n rows padded to a power of two
+            revive = {t: (tin[key][r], tin["revive_values"][r])
+                      for t, tin in inputs.items()}
         off = 0
 
         def put(a):
@@ -173,7 +186,7 @@ class ShardedTrainer(Trainer):
         for k, _, _ in layout:
             put(np.ascontiguousarray(batch[k][r * b:(r + 1) * b]
                                      ).view(np.int32))
-        return stats, None
+        return stats, revive
 
     def _decode(self, wire: torch.Tensor, layout):
         """The rank's inputs {table: {"rows" [U], the new-row channel
@@ -338,6 +351,30 @@ class ShardedTrainer(Trainer):
             mine[tname] = rows[rows // cap == self.mesh.rank] % cap
         self.engine.zero_rows(self.table_states, mine)
         return freed
+
+    @torch.no_grad()
+    def spill_expired(self, expire_before: int) -> Dict[str, int]:
+        """Two-tier expiry: every shard's host store evicts its expired
+        ids on every rank (the stores stay identical); this rank gathers
+        its own shard's expired rows with one K1 a table, archives them in
+        its own archive and zeroes them (K2). Returns the rows spilled by
+        table, summed over the ranks (one all_reduce on the host group), as
+        the JAX trainer returns every shard's."""
+        if not self.config.engine.tiered:
+            raise ValueError("spill_expired requires EngineConfig(tiered=True)")
+        r = self.mesh.rank
+        tnames = sorted(self.engine.tables)
+        spilled, mine = torch.zeros(len(tnames), dtype=torch.int64), {}
+        for i, tname in enumerate(tnames):
+            for s, store in enumerate(self.engine.shard_stores[tname]):
+                rows, fids = store.evict_expired(expire_before,
+                                                 return_fids=True)
+                if s == r:
+                    mine[tname] = rows.astype(np.int64)
+                    spilled[i] = self._spill(tname, rows, fids, expire_before)
+        self.engine.zero_rows(self.table_states, mine)
+        dist.all_reduce(spilled, group=self.host_group)
+        return {t: int(n) for t, n in zip(tnames, spilled)}
 
 
 def _new_channel(tin: Dict) -> str:

@@ -17,6 +17,18 @@ zoo task by name or imports `module:Class`; --task_args passes JSON
 kwargs; --data selects "synthetic" (default; the task-matched generator),
 "files:<glob>" (with --data_fmt for the payload codec), "parquet:<path>"
 or "movielens:<ratings file>". It prints the JAX CLI's one JSON line.
+
+`--num_shards S > 1` in a process outside a torch.distributed group runs
+the CLI's body in S ranks that `parallel.launch` starts (NCCL, rank r on
+`cuda:r`, S at most the cards; with `--cpu`, gloo ranks on the CPU): each
+rank builds the same data from the same argv, its Estimator builds a
+`ShardedTrainer` of S shards over the global batch (the JAX CLI's
+single-process mesh), and rank 0 prints the JSON line. Checkpoints and
+exports are written per shard. Under a group another launcher started
+(`torchrun`) the Estimator builds a `MultiHostTrainer`, as before:
+
+    python -m monolith_tpu_torch.train --num_shards 4 --steps 1000 \
+        --batch_size 4096 --model_dir /tmp/m
 """
 
 from __future__ import annotations
@@ -26,6 +38,8 @@ import importlib
 import json
 import sys
 from typing import Iterable
+
+import torch.distributed as dist
 
 from monolith_tpu_torch.config import extract_flags, parse_into
 from monolith_tpu_torch.estimator import Estimator, RunnerConfig
@@ -95,7 +109,7 @@ def build_data(task, spec: str, fmt: str, batch_size: int,
     return BatchedDataset(src, batch_size, lengths)
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="monolith_tpu_torch.train",
         description="Train / evaluate / export a task with the PyTorch port",
@@ -117,11 +131,37 @@ def main(argv=None):
                         help="run on the CPU (default: the card; without "
                              "CUDA the run fails)")
     extract_flags(RunnerConfig, parser)
-    args, _ = parser.parse_known_args(argv)
+    return parser
 
+
+def main(argv=None):
+    """The CLI: runs its body here, or in `--num_shards` ranks that it
+    launches (see the module docstring). Returns the printed results."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args, _ = _parser().parse_known_args(argv)
+    if args.num_shards > 1 and not dist.is_initialized():
+        from monolith_tpu_torch.parallel.launch import launch
+        return launch(rank_main, args.num_shards,
+                      device="cpu" if args.cpu else None, args=(argv,))[0]
+    return run(argv)
+
+
+def rank_main(rank: int, argv) -> dict:
+    """The CLI's body in rank `rank` of ranks `parallel.launch` started:
+    a ShardedTrainer over the mesh of those ranks, on the rank's device."""
+    from monolith_tpu_torch.parallel import make_mesh
+    from monolith_tpu_torch.parallel.launch import rank_device
+    return run(argv, mesh=make_mesh(device=rank_device()))
+
+
+def run(argv, mesh=None) -> dict:
+    """The CLI's body in this process (one rank of `mesh` when given);
+    prints the JSON line unless it is a rank other than 0."""
+    args, _ = _parser().parse_known_args(argv)
     task = build_task(args.task, json.loads(args.task_args))
     run_cfg = parse_into(RunnerConfig, argv)
-    est = Estimator(task, run_cfg, device="cpu" if args.cpu else None)
+    est = Estimator(task, run_cfg, device="cpu" if args.cpu else None,
+                    mesh=mesh)
     data = build_data(task, args.data, args.data_fmt, args.batch_size,
                       run_cfg.seed)
 
@@ -134,9 +174,11 @@ def main(argv=None):
         if not args.export_dir:
             raise SystemExit("--export_dir required for --mode export")
         out["export_path"] = est.export_saved_model(args.export_dir)
-    print(json.dumps({k: (v if isinstance(v, str)
-                          else {m: round(float(x), 6) for m, x in v.items()})
-                      for k, v in out.items()}))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps({k: (v if isinstance(v, str)
+                              else {m: round(float(x), 6)
+                                    for m, x in v.items()})
+                          for k, v in out.items()}))
     return out
 
 

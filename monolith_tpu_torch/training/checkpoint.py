@@ -51,11 +51,18 @@ is `Trainer.model_state`, `{"batch_stats": ...}`. Restore reads
 `model_state.msgpack` into a model that has such state, as the JAX package
 does (a model without ignores the file).
 
-Deltas (`save_delta` / `restore_delta`, one shard) carry only the rows
-touched since a timestamp, as (fids, tss, counts, values); `restore_delta`
-assigns rows through the host map and writes the values with
-`table.assign_rows`, which on the card is K1, an overwrite of the params
-columns, and K2.
+Deltas (`save_delta` / `restore_delta`) carry only the rows touched since
+a timestamp, as (fids, tss, counts, values), one `<table>-s<k>.npz` a
+shard as the JAX package writes them; `restore_delta` assigns rows through
+the host map and writes the values with `table.assign_rows`, which on the
+card is K1, an overwrite of the params columns, and K2. Every rank of a
+`ShardedTrainer` calls both: rank r writes shard r's files from its own
+pool, rank 0 `meta.json` after a barrier; on restore every rank assigns
+each shard file's ids into its copy of that shard's store (the stores stay
+identical) and writes only its own shard's rows into its pool. A delta of
+another shard count is refused, and so is a `MultiHostTrainer` (its ranks
+hold one store each; the JAX package's `save_delta` cannot run on such a
+trainer either).
 
 `save(..., evict_before_save=True)` first runs expiry on every table with
 a ttl (`trainer.evict_expired(now - ttl)`), as the JAX package does.
@@ -188,21 +195,36 @@ def _restore_archives(trainer, path) -> None:
             trainer.engine.archive_of(tname).restore(p)
 
 
+def _delta_capable(trainer) -> None:
+    """Refuse a trainer whose ranks do not hold every shard's store."""
+    if trainer.engine.config.local_shards is not None:
+        raise ValueError(
+            "deltas of a multi-host trainer are not supported: its ranks "
+            "hold one shard's host store each, and the JAX package's "
+            "save_delta fails on such a trainer too; save a checkpoint "
+            "(save / save_distributed) instead")
+
+
 def save_delta(trainer, directory: str, since_ts: int,
                base_step: Optional[int] = None) -> str:
     """Incremental checkpoint: save only rows whose last update ts >=
-    since_ts. Layout: <dir>/delta-<step>/<table>-s0.npz with (fids, tss,
-    counts, values); row indices are NOT saved, restore_delta re-assigns
-    rows through the host map. Only the delta rows are gathered on the
-    device (K1 on the card) and copied back, never the pool."""
-    step = trainer.step
+    since_ts. Layout: <dir>/delta-<step>/<table>-s<k>.npz with (fids, tss,
+    counts, values) a shard k, and meta.json; row indices are NOT saved,
+    restore_delta re-assigns rows through the host map. Only the delta
+    rows are gathered on the device (K1 on the card) and copied back, never
+    the pool. Every rank of a sharded trainer calls it: rank r writes shard
+    r's file, rank 0 `meta.json` once every file is written."""
+    _delta_capable(trainer)
+    step, engine = trainer.step, trainer.engine
+    own = engine.shard
     path = os.path.join(directory, f"delta-{step}")
     os.makedirs(path, exist_ok=True)
     meta = {"step": step, "since_ts": int(since_ts), "base_step": base_step,
             "ts": int(time.time()), "tables": {}}
-    for tname, spec in trainer.engine.tables.items():
-        meta["tables"][tname] = {"shards": 1, "dim": spec.dim}
-        fids, rows, tss, counts = trainer.engine.stores[tname].save()
+    for tname, spec in engine.tables.items():
+        meta["tables"][tname] = {"shards": engine.config.num_shards,
+                                 "dim": spec.dim}
+        fids, rows, tss, counts = engine.store_of(tname).save()
         sel = tss >= np.uint32(since_ts)
         fids, rows, tss, counts = fids[sel], rows[sel], tss[sel], counts[sel]
         if len(rows):
@@ -211,10 +233,13 @@ def save_delta(trainer, directory: str, since_ts: int,
                 _rows_tensor(rows, trainer.device)).cpu().numpy()
         else:
             values = np.zeros((0, spec.dim), np.float32)
-        np.savez(os.path.join(path, f"{tname}-s0.npz"),
+        np.savez(os.path.join(path, f"{tname}-s{own}.npz"),
                  fids=fids, tss=tss, counts=counts, values=values)
-    with open(os.path.join(path, "meta.json"), "w") as f:
-        json.dump(meta, f)
+    trainer._barrier()
+    if own == 0:
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
+    trainer._barrier()
     return path
 
 
@@ -224,24 +249,38 @@ def restore_delta(trainer, delta_path: str) -> int:
     admitted through the host map, existing ids overwritten. Optimizer slot
     state is NOT in deltas (full checkpoints carry it); rows newly admitted
     here keep freshly-initialized slots. Ids the store refuses (out of
-    capacity) map to row -1 and drop. Returns the number of rows applied."""
+    capacity) map to row -1 and drop. Shard k's file goes into shard k's
+    store on every rank and into rank k's pool. Returns the number of rows
+    applied over every shard. A delta of another shard count than the
+    trainer's raises ValueError (the JAX package would put shard k's ids
+    into store k whatever the count)."""
+    _delta_capable(trainer)
+    engine = trainer.engine
     with open(os.path.join(delta_path, "meta.json")) as f:
         meta = json.load(f)
+    S = engine.config.num_shards
+    for tname, tmeta in meta["tables"].items():
+        if tmeta["shards"] != S:
+            raise ValueError(
+                f"delta {delta_path}: table '{tname}' has {tmeta['shards']} "
+                f"shards and the trainer {S}; a delta restores into a "
+                f"trainer of its own shard count (restore a full checkpoint "
+                f"to change it)")
     applied = 0
     for tname, tmeta in meta["tables"].items():
-        spec = trainer.engine.tables[tname]
-        for s in range(tmeta["shards"]):
+        spec = engine.tables[tname]
+        for s, store in enumerate(engine.shard_stores[tname]):
             z = np.load(os.path.join(delta_path, f"{tname}-s{s}.npz"))
             fids = z["fids"]
             if len(fids) == 0:
                 continue
-            rows, _, _ = trainer.engine.stores[tname].assign(
-                fids, ts=int(meta["ts"]))
-            values = torch.from_numpy(
-                np.ascontiguousarray(z["values"], np.float32))
-            table_lib.assign_rows(spec, trainer.table_states[tname],
-                                  _rows_tensor(rows, trainer.device),
-                                  values.to(trainer.device))
+            rows, _, _ = store.assign(fids, ts=int(meta["ts"]))
+            if s == engine.shard:
+                values = torch.from_numpy(
+                    np.ascontiguousarray(z["values"], np.float32))
+                table_lib.assign_rows(spec, trainer.table_states[tname],
+                                      _rows_tensor(rows, trainer.device),
+                                      values.to(trainer.device))
             applied += int((rows >= 0).sum())
     trainer.step = meta["step"]
     return applied

@@ -65,8 +65,9 @@ table gathers just those rows into the host archive, then the zeroing K2)
 and revives them when their ids come back. Its steps take the engine's
 host path (`prepare_batch` + `pack_wire` write the same wire), with the
 revived rows as a second small upload beside it, and it steps one by one:
-as in the JAX package, a tiered trainer runs no blocks (the multi-host
-trainer's do: its revived rows are taken at each step's pack).
+as in the JAX package, a tiered trainer runs no blocks (the sharded and
+multi-host trainers' do: their revived rows are taken at each step's
+pack).
 
 Loss and AUC accumulate on the device (metrics.device_metrics_update) and
 are read back only by `_drain_metrics`. A task whose batch carries no
@@ -165,7 +166,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.engine = EmbeddingEngine(task.tables(), task.features(),
                                       config.engine, seed=config.seed,
-                                      device=self.device)
+                                      device=self.device,
+                                      shard=self._own_shard())
         generator = torch.Generator().manual_seed(config.seed)
         self.module = task.build_module(generator=generator).to(self.device)
         self._draws = torch.Generator(device=self.device)
@@ -179,6 +181,11 @@ class Trainer:
         self.loss_mean = StreamingMean()
         self._dev_metrics = None
         self._wires: Dict[tuple, _PinnedWires] = {}
+
+    def _own_shard(self) -> Optional[int]:
+        """The table shard this trainer serves, for its engine (None: the
+        single-device Trainer's whole table)."""
+        return None
 
     # ------------------------------------------------------------------
     # the wire: engine region, batch arrays' 4-byte words, step number
@@ -575,20 +582,26 @@ class Trainer:
         if not self.config.engine.tiered:
             raise ValueError("spill_expired requires EngineConfig(tiered=True)")
         spilled, freed = {}, {}
-        for tname, spec in self.engine.tables.items():
+        for tname in self.engine.tables:
             rows, fids = self.engine.store_of(tname).evict_expired(
                 expire_before, return_fids=True)
             freed[tname] = rows.astype(np.int64)
-            spilled[tname] = 0
-            if len(rows):
-                values = table_lib.full_rows(
-                    spec, self.table_states[tname],
-                    torch.from_numpy(pad_rows(rows)).to(self.device))
-                spilled[tname] = self.engine.archive_of(tname).spill(
-                    fids, values[:len(rows)].cpu().numpy(),
-                    ts=expire_before)
+            spilled[tname] = self._spill(tname, rows, fids, expire_before)
         self.engine.zero_rows(self.table_states, freed)
         return spilled
+
+    def _spill(self, tname: str, rows: np.ndarray, fids: np.ndarray,
+               ts: int) -> int:
+        """Gather `rows` of the trainer's own pool with ONE K1 launch
+        (`pad_rows`) and archive their first `state_width` columns under
+        `fids` in its own shard's archive. Returns the rows archived."""
+        if not len(rows):
+            return 0
+        values = table_lib.full_rows(
+            self.engine.tables[tname], self.table_states[tname],
+            torch.from_numpy(pad_rows(rows)).to(self.device))
+        return self.engine.archive_of(tname).spill(
+            fids, values[:len(rows)].cpu().numpy(), ts=ts)
 
     def _drain_metrics(self):
         """Read back and reset the on-device metric accumulator (the only

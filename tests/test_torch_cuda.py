@@ -613,3 +613,65 @@ def test_multi_array_card_steps_match_cpu(card, engine):
                               "stochastic_round_bf16": 0}, counts
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+# ----------------------------------------------------------------------
+# two ranks sharing the card through parallel.launch
+# ----------------------------------------------------------------------
+
+def _tiered_sharded_rank(rank, exchange, directory):
+    """A small tiered ShardedTrainer of 2 shards on the rank's device: 4
+    steps, a spill, 2 steps that revive, a delta restored into a fresh
+    rank. Returns the losses, spilled and revived counts and the delta's
+    rows."""
+    from monolith_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from monolith_tpu_torch.parallel.launch import rank_device
+    from monolith_tpu_torch.training import checkpoint
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    mesh = make_mesh(device=rank_device())
+
+    def make():
+        return ShardedTrainer(
+            DeepFMTask(embedding_dim=8, capacity_per_shard=1024, hidden=(16,),
+                       init_scale=0.0, ttl_seconds=10),
+            TrainerConfig(engine=EngineConfig(
+                num_shards=2, unique_cap=256, new_cap=256, tiered=True,
+                exchange=exchange), log_every=0), mesh)
+    tr = make()
+    data = SyntheticCTR(num_users=60, num_items=40, batch_size=64, seed=3)
+    losses = [float(tr.train_step(*data.batch(), ts=i)["loss"])
+              for i in range(4)]
+    spilled = tr.spill_expired(2)
+    losses += [float(tr.train_step(*data.batch(), ts=4 + i)["loss"])
+               for i in range(2)]
+    path = checkpoint.save_delta(tr, directory, since_ts=4)
+    applied = checkpoint.restore_delta(make(), path)
+    return {"losses": losses, "spilled": spilled,
+            "revived": tr.engine.archive_of("sparse").revived,
+            "applied": applied}
+
+
+@pytest.mark.parametrize("exchange", ["allgather", "a2a"])
+def test_two_gloo_ranks_on_the_card_launch_tiered_like_the_cpu(
+        card, exchange, tmp_path):
+    """parallel.launch with backend='gloo', device='cuda:0': two ranks of a
+    tiered ShardedTrainer on the card against the same two on the CPU
+    (losses within 1e-5; spilled, revived and delta counts exactly)."""
+    from monolith_tpu_torch.parallel.launch import launch
+    got = launch(_tiered_sharded_rank, 2, backend="gloo", device="cuda:0",
+                 args=(exchange, str(tmp_path / "card")))
+    want = launch(_tiered_sharded_rank, 2, device="cpu",
+                  args=(exchange, str(tmp_path / "cpu")))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["losses"], w["losses"], rtol=1e-5)
+        assert (g["spilled"], g["revived"], g["applied"]) == (
+            w["spilled"], w["revived"], w["applied"])
+    assert sum(g["revived"] for g in got) > 0
+
+
+def test_dryrun_on_two_gloo_ranks_sharing_the_card(card, capsys):
+    from monolith_tpu_torch.parallel import dryrun
+    out = dryrun.main(["--gloo-one-card", "2"])
+    assert len(out) == 4
+    assert capsys.readouterr().out.count(": OK") == 4

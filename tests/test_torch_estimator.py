@@ -13,7 +13,8 @@ demo, and the MovieRanking task that the CLI's real-data command trains.
   metrics, whose AUC takes a rating label as JAX's does.
 - `Estimator.predict` from carried state equals JAX's (rtol 1e-5).
 - What the port refuses: a task name outside the zoo (every task of the
-  JAX CLI's zoo is ported), `num_shards=2` (ROADMAP item 11), `--realtime`
+  JAX CLI's zoo is ported), `num_shards=2` in one process (the CLI starts
+  the ranks itself), `--realtime`
   (item 9b), and the card's default where CUDA is missing.
 """
 
@@ -173,14 +174,19 @@ def test_zoo_refuses_a_model_not_ported_yet():
 
 
 def test_sharded_runs_are_refused():
-    """Without a process group there is no sharded run: the port has no
-    single-process multi-device mode (a group of N ranks gets a
-    MultiHostTrainer: tests/test_torch_multihost.py)."""
-    with pytest.raises(ValueError, match="no single-process multi-device"):
+    """An Estimator of several shards in one process, with no group, is
+    refused and names what starts the ranks; the CLI starts them itself
+    (`--num_shards 2 --cpu`: two gloo ranks of a ShardedTrainer,
+    tests/test_torch_launch.py; a group of N ranks from another launcher
+    gets a MultiHostTrainer: tests/test_torch_multihost.py)."""
+    with pytest.raises(ValueError, match="train.main .* parallel.launch"):
         Estimator(DeepFMTask(**TASK), RunnerConfig(num_shards=2),
                   device="cpu")
-    with pytest.raises(ValueError, match="no single-process multi-device"):
-        pcli.main(["--num_shards", "2", "--cpu", "--steps", "1"])
+    out = pcli.main(["--num_shards", "2", "--cpu", "--steps", "1",
+                     "--batch_size", str(B), "--unique_cap", "512",
+                     "--new_cap", "512", "--log_every", "0", "--task_args",
+                     json.dumps({**TASK, "hidden": list(TASK["hidden"])})])
+    assert np.isfinite(out["train"]["loss"])
 
 
 def test_the_card_is_the_default():

@@ -168,9 +168,11 @@ def test_single_shard_prepare_keeps_its_layout():
 
 def test_refusals_that_remain():
     """The local shards and the per-shard archives that the multi-host
-    trainer runs on (once refused), and the refusals that remain: the
-    per-table caps, an unknown exchange, the single-shard wire of a
-    sharded engine, a sharded Estimator without a process group."""
+    trainer runs on, and the tiered prepare of S shards (once refused),
+    and the refusals that remain: the per-table caps, an unknown
+    exchange, the single-shard wire of a sharded engine, a sharded
+    Estimator in one process (the ranks are started by train.main or
+    parallel.launch)."""
     task = DeepFMTask(embedding_dim=4, capacity_per_shard=64)
 
     def engine(**cfg):
@@ -191,10 +193,15 @@ def test_refusals_that_remain():
     assert local.store_of("sparse") is local.shard_stores["sparse"][1]
     assert local.archive_of("sparse") is local.shard_archives["sparse"][1]
     fb = random_fids(np.random.default_rng(0))
-    for prepare in (local.prepare_shards, local.prepare_batch_a2a,
-                    engine(num_shards=2, tiered=True).prepare_shards):
+    for prepare in (local.prepare_shards, local.prepare_batch_a2a):
         with pytest.raises(ValueError, match="multi-host trainer"):
             prepare(fb, ts=0)
+    # a tiered engine of S shards now prepares (its revives with a shard
+    # axis; tests/test_torch_sharded_tiered.py holds them against JAX's)
+    tiered = engine(num_shards=2, tiered=True, unique_cap=64, new_cap=64)
+    inputs, _ = tiered.prepare_shards(fb, ts=0)
+    assert inputs["sparse"]["revive_pos"].shape == (2, 0)
+    assert inputs["sparse"]["revive_values"].shape[:2] == (2, 0)
     with pytest.raises(ValueError, match="local_shards"):
         engine(num_shards=2, local_shards=(2,))
     with pytest.raises(ValueError, match="per-table"):
@@ -205,7 +212,7 @@ def test_refusals_that_remain():
     assert sharded.stores == {} and len(sharded.shard_stores["sparse"]) == 2
     with pytest.raises(ValueError, match="prepare_shards"):
         sharded.prepare_wire(random_fids(np.random.default_rng(0)), ts=0)
-    with pytest.raises(ValueError, match="no single-process multi-device"):
+    with pytest.raises(ValueError, match="parallel.launch"):
         Estimator(task, RunnerConfig(num_shards=2), device="cpu")
 
 
