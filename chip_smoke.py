@@ -16,7 +16,11 @@ failures is caught:
      -1), and K3 (stochastic_round_bf16) at [49152, 128] f32: bit-exact;
      each timed (kernel, plain version, one library call) beside its bound,
      by CUDA events around each launch after an L2 flush; beside that the
-     event floor (an empty kernel timed the same way);
+     event floor (an empty kernel timed the same way). K3's earlier
+     one-group design (csrc/baselines/rounding_one_group.cu, built beside
+     the kernels and on no path) is held bit for bit against the same
+     plain version and timed in turns with K3, beside an empty kernel on
+     K3's grid;
   3b. K1 and K2 against their plain versions, bit for bit, at the lengths
      phase 10 gives them on the same pools: a sync round's power-of-two
      lengths with a -1 tail (2^15, 2^18, 2^20 rows), a delta's and an
@@ -65,7 +69,10 @@ failures is caught:
      the card: eval AUC inside NORTHSTAR_BAND;
   9. each kernel's own duration from a torch.profiler window over 20
      flushed launches at phase 3's shapes, read by kernel name (last, so
-     that no timed phase runs after the profiler has been on);
+     that no timed phase runs after the profiler has been on); for each
+     K3 entry (and its ragged shapes) K3 and the one-group design in turns,
+     the empty kernel on K3's grid and x.to(bf16), after the protocol's
+     flush and after one that reads (lines "K3 redesigned [<path>] ...");
  10. the model's way out of the trainer, at full width, run before phases
      5d-9 on the trainers that phases 5b and 5c leave (the DeepFM one
      records touched ids from its first step):
@@ -320,9 +327,10 @@ failures is caught:
      then K3 on [49152, 17] f32 (18a's params, 4-element groups that
      straddle rows) and a ragged [13, 17], and K1/K2/K3 at 18c's shapes
      (the trained pool, the last step's rows), each against its plain
-     version bit for bit and timed as phase 3 (entries of paths "soa" and
-     "multi_array"). Every launch of 18a, 18e and 18f counts as path "soa"
-     of its config's kernels, of 18b and 18c as "multi_array".
+     version bit for bit and timed as phase 3, K3 beside its one-group
+     design (entries of paths "soa" and "multi_array"). Every launch of
+     18a, 18e and 18f counts as path "soa" of its config's kernels, of 18b
+     and 18c as "multi_array".
 
  19. tiered storage and deltas on the sharded trainer, and the ranks that
      `parallel.launch` starts, run after phase 18, all on the deepfm_f32
@@ -371,11 +379,6 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet (bench_rows.py's too)
-# peak f32 rate outside the tensor cores (H100 SXM data sheet), the peak
-# used for K3's integer operations: a lower bound, as no 32-bit ALU
-# operation issues faster
-ALU_OPS_PER_S = 67e12
 # the multislot bf16 path: pool rows, row width, rows per step
 MS_CAP, WIDTH, MS_U = 17 * (1 << 18), 128, 49152
 
@@ -404,9 +407,14 @@ def phase_build():
         except Exception as e:  # re-raised below, after every build ends
             errors.append(e)
 
+    from monolith_tpu_torch.bench_rounding import BASELINE, BASELINE_SRC
+    # the earlier K3 design, on no path: phase 3's timing baseline
+    baseline = f"rounding_{BASELINE}"
     jobs = [("host", build.build_host_library)] + [
         (f"lib{k}", lambda k=k: build.build_kernel_library(k))
-        for k in build.KERNEL_SOURCES]
+        for k in build.KERNEL_SOURCES] + [
+        (f"lib{baseline}",
+         lambda: build.build_kernel_library(baseline, BASELINE_SRC))]
     threads = [threading.Thread(target=run, args=job) for job in jobs]
     for t in threads:
         t.start()
@@ -416,7 +424,7 @@ def phase_build():
         raise errors[0]
     for name, (path, secs) in results.items():
         log(f"built {name}: {os.path.relpath(path)} in {secs:.1f} s")
-    for k in build.KERNEL_SOURCES:
+    for k in (*build.KERNEL_SOURCES, baseline):
         log(f"ptxas lib{k}: " + " | ".join(
             ln.strip() for ln in build.build_log(f"lib{k}").splitlines()
             if "registers" in ln or "Compiling" in ln))
@@ -554,44 +562,53 @@ def phase_rows_out_of_step(path):
 def phase_rounding(path, floor, x=None, ragged=()):
     """K3 against its plain version: at the multislot path's shape, or on
     `x` (f32 on the card); each shape of `ragged` is held bit for bit too
-    (not timed)."""
+    (timed in phase 9 only). The earlier one-group design
+    (csrc/baselines/rounding_one_group.cu, on no path) is held against the
+    same plain version at the same shapes and timed in turns with the
+    kernel (events here, the profiler in phase 9); beside them an empty
+    kernel on the same grid."""
     import torch
+    from monolith_tpu_torch import bench_rounding
     from monolith_tpu_torch.ops import rounding
     from monolith_tpu_torch.timing import time_ms
     g = torch.Generator(device="cuda").manual_seed(1)
     if x is None:
         x = torch.randn((MS_U, WIDTH), generator=g, device="cuda")
     seed = 0x0123456789ABCDEF
+    one_group = {bench_rounding.BASELINE: bench_rounding.baseline_library()}
     for shape in ragged:
         small = torch.randn(shape, generator=g, device="cuda")
         assert torch.equal(
             rounding.stochastic_round_bf16(small, seed).view(torch.int16),
             rounding.stochastic_round_bf16_plain(small, seed).view(
                 torch.int16)), f"stochastic_round_bf16 differs at {shape}"
+        bench_rounding.check_builds(one_group, small, seed)
     out = rounding.stochastic_round_bf16(x, seed)
     ref = rounding.stochastic_round_bf16_plain(x, seed)
     torch.cuda.synchronize()
     assert torch.equal(out.view(torch.int16), ref.view(torch.int16)), \
         "stochastic_round_bf16 differs from its plain version"
+    bench_rounding.check_builds(one_group, x, seed)
     mean_gap = float((out.float().mean(dtype=torch.float64)
                       - x.mean(dtype=torch.float64)).abs())
     assert mean_gap < 2 ** -10, mean_gap
     n = x.numel()
-    # Philox4x32-10 for each 4 elements: 10 rounds of 2 mul-hi, 2 mul-lo,
-    # 4 xor and 2 key adds; then an add and two shifts per element
-    ops_count = (n // 4) * 10 * 10 + n * 3
-    bytes_ms = n * (4 + 2) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops_count / ALU_OPS_PER_S * 1e3
+    bytes_ms, ops_ms = bench_rounding.bounds_ms(n)
     shape = "x [" + ",".join(map(str, x.shape)) + "] f32 -> bf16" + "".join(
         f"; bit-exact at [{','.join(map(str, r))}] too" for r in ragged)
+    turns = bench_rounding.time_in_turns(
+        {**one_group, "here": rounding.kernel_library()}, x, seed=seed)
     k3 = {"name": "stochastic_round_bf16", "path": path, "route": "cuda",
           "source": "monolith_tpu_torch/csrc/rounding.cu",
           "replaces": "monolith_tpu/ops/rounding.py:33",
-          "shape": shape,
+          "shape": shape, "geometry": rounding.kernel_geometry(n),
+          "ragged_shapes": [list(r) for r in ragged],
           "max_abs_err": float((out.float() - ref.float()).abs().max()),
           "mean_gap": mean_gap,
           **kernel_times(lambda: rounding.stochastic_round_bf16(x, seed)),
           "event_floor_ms": floor,
+          "in_turns_ms": turns,
+          "empty_grid_ms": time_ms(lambda: bench_rounding.empty_launch(n)),
           "plain_ms": time_ms(
               lambda: rounding.stochastic_round_bf16_plain(x, seed)),
           "bound_ms": max(bytes_ms, ops_ms),
@@ -600,13 +617,69 @@ def phase_rounding(path, floor, x=None, ragged=()):
           # stochastically, so this is a yardstick, not the same function
           "library_ms": time_ms(lambda: x.to(torch.bfloat16)),
           "library_call": "x.to(torch.bfloat16) (round to nearest)"}
-    log(f"stochastic_round_bf16 [{path}]: bit-exact, mean gap {mean_gap:.3e}; "
-        f"{k3['ms']:.4f} ms by events (median {k3['ms_median']:.4f}, floor "
-        f"{floor:.4f}; plain "
+    log(f"stochastic_round_bf16 [{path}]: bit-exact (and the one-group "
+        f"design too), mean gap {mean_gap:.3e}; {k3['ms']:.4f} ms by events "
+        f"(median {k3['ms_median']:.4f}, floor {floor:.4f}; in turns with "
+        f"the one-group design {_turns_text(turns)}; an empty kernel on "
+        f"the same grid {k3['empty_grid_ms']:.4f}; plain "
         f"{k3['plain_ms']:.4f}, x.to(bf16) "
         f"{k3['library_ms']:.4f}, bound {k3['bound_ms']:.4f} by "
-        f"{k3['bound_by']}; ops bound {ops_ms:.4f}); {shape}")
+        f"{k3['bound_by']}; ops bound {ops_ms:.4f}); {shape}; grid "
+        f"{k3['geometry']['grid']} x {k3['geometry']['threads']} threads, "
+        f"{k3['geometry']['octets']} octets a thread a trip")
     return [k3]
+
+
+def _turns_text(turns):
+    """'here a, b; one_group c, d' of bench_rounding.time_in_turns."""
+    return "; ".join(f"{name} " + ", ".join(f"{t:.5f}" for t in ts)
+                     for name, ts in turns.items())
+
+
+def rounding_durations(k, x):
+    """Phase 9's readings of a K3 entry on its input x: the kernel and the
+    one-group design in turns by the profiler, after the protocol's flush
+    (an L2 full of dirty lines) and after one that reads (clean lines),
+    beside an empty kernel on the same grid and x.to(bf16) read the same
+    ways; the ragged shapes the same. Prints the comparison line."""
+    import torch
+    from monolith_tpu_torch import bench_rounding
+    from monolith_tpu_torch.ops import rounding
+    libs = {bench_rounding.BASELINE: bench_rounding.baseline_library(),
+            "here": rounding.kernel_library()}
+
+    def readings(x):
+        return {flush: bench_rounding.profiler_readings(libs, x, flush)
+                for flush in bench_rounding.FLUSHES}
+
+    def mean(ts):
+        return float(np.mean(ts))
+
+    k["profiler_in_turns_ms"] = r = readings(x)
+    k["one_group_ms_profiler"] = before = mean(
+        r["write"][bench_rounding.BASELINE])
+    k["kernel_ms_profiler_in_turns"] = now = mean(r["write"]["here"])
+    line = (f"K3 redesigned [{k['path']}] {k['shape'].split(';')[0]}: "
+            f"{now:.7f} ms by the profiler against the one-group design's "
+            f"{before:.7f} (in turns: "
+            f"{_turns_text({n: r['write'][n] for n in libs})}); bound "
+            f"{k['bound_ms']:.7f}: {k['bound_ms'] / now:.1%} of it now, "
+            f"{k['bound_ms'] / before:.1%} before; an empty kernel on the "
+            f"same grid "
+            f"{r['write']['empty_grid']:.7f}; x.to(bf16) "
+            f"{r['write']['to_bf16']:.7f}. After a flush that reads: "
+            f"{_turns_text({n: r['read'][n] for n in libs})}; empty grid "
+            f"{r['read']['empty_grid']:.7f}; x.to(bf16) "
+            f"{r['read']['to_bf16']:.7f}")
+    k["ragged"] = []
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for shape in k.get("ragged_shapes", []):
+        rr = readings(torch.randn(shape, generator=g, device="cuda"))
+        k["ragged"].append({"shape": shape, "profiler_in_turns_ms": rr})
+        line += (f". Ragged {shape}: "
+                 f"{_turns_text({n: rr['write'][n] for n in libs})}; empty "
+                 f"grid {rr['write']['empty_grid']:.7f}")
+    log(line)
 
 
 def phase_kernel_durations(kernels, cases, rounding_cases=None):
@@ -644,6 +717,10 @@ def phase_kernel_durations(kernels, cases, rounding_cases=None):
                f"{ms:.4f} ms by the profiler's kernel duration ({k['ms']:.4f} "
                f"by events, floor {k['event_floor_ms']:.4f}, bound "
                f"{k['bound_ms']:.4f})"))
+    rounding_x = {"multislot_bf16": x, **(rounding_cases or {})}
+    for k in kernels:
+        if k["name"] == "stochastic_round_bf16":
+            rounding_durations(k, rounding_x[k["path"]])
 
 
 def drive_path(name, trainer, batches, steps, evals, expect):

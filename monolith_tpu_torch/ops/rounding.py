@@ -27,18 +27,25 @@ versions are held against each other by handing them the same noise
 (`round_with_noise`), and by distribution.
 
 On the card the wrapper launches csrc/rounding.cu (sm_90a, built at first
-use by build.py, bound through ctypes): one thread per four elements, a
-16-byte load, one Philox call, an 8-byte store. It is bytes-bound: 6 B per
-element, 37.7 MB at [49152, 128], ~11 us at 3.35 TB/s. On a CPU tensor
-the wrapper runs the plain version; on a CUDA tensor it launches the
-kernel or raises, never falls back. `stochastic_round_bf16.launches`
+use by build.py, bound through ctypes). It is bytes-bound: 6 B per
+element, 37.7 MB at [49152, 128], ~11 us at 3.35 TB/s. Its design (the
+note in the source): a persistent grid of `THREADS`-thread blocks, as many
+as the card holds at once (queried once per device and process) or fewer
+where n does not fill them; each thread takes `OCTETS` octets (8 elements,
+two Philox groups) a trip, issues all their 16-byte loads before its first
+Philox chain and writes each octet with one 16-byte store; the grid's last
+thread rounds the n % 8 elements of the tail. `grid_size` and
+`octet_walk` mirror that arithmetic for the CPU tests; `kernel_geometry`
+reads the C side's, for the card tests to hold the two equal. On a CPU
+tensor the wrapper runs the plain version; on a CUDA tensor it launches
+the kernel or raises, never falls back. `stochastic_round_bf16.launches`
 counts the launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -49,16 +56,67 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def declare_rounding(lib: ctypes.CDLL) -> None:
+    """The C interface of K3, which every build of it keeps."""
     vp = ctypes.c_void_p
     lib.mt_stochastic_round_bf16.restype = ctypes.c_int
     lib.mt_stochastic_round_bf16.argtypes = [vp, ctypes.c_int64,
                                              ctypes.c_uint64, vp, vp]
 
 
+def _declare(lib: ctypes.CDLL) -> None:
+    i64 = ctypes.c_int64
+    declare_rounding(lib)
+    lib.mt_stochastic_round_bf16_geometry.restype = ctypes.c_int
+    lib.mt_stochastic_round_bf16_geometry.argtypes = [i64,
+                                                      ctypes.POINTER(i64)]
+    lib.mt_stochastic_round_bf16_empty.restype = ctypes.c_int
+    lib.mt_stochastic_round_bf16_empty.argtypes = [i64, ctypes.c_void_p]
+
+
 def kernel_library() -> ctypes.CDLL:
     """The built K3 library (compiled with nvcc at first use)."""
     return build.load_kernel_library("rounding", _declare)
+
+
+#: csrc/rounding.cu's constants: threads a block, octets (8 elements) a
+#: thread takes a trip
+THREADS, OCTETS = 512, 2
+
+
+def grid_size(n: int, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of the persistent grid for n elements: one per THREADS whole
+    octets, at least one (the tail), at most what the card holds at
+    once."""
+    return min(max(-(-(n // 8) // THREADS), 1), blocks_per_sm * sms)
+
+
+def octet_walk(n: int, grid: int) -> Iterator[Tuple[int, int, int, int]]:
+    """The kernel's walk: (block, thread, trip, octet) for every whole
+    octet, in each thread's order. With T = grid * THREADS threads, thread
+    t of block b (number i = b * THREADS + t) takes, on trip k, the
+    octets (k * OCTETS + j) * T + i (j < OCTETS) below n // 8. The n % 8
+    elements after the last octet go to the grid's last thread."""
+    octets, total = n // 8, grid * THREADS
+    for block in range(grid):
+        for thread in range(THREADS):
+            i = block * THREADS + thread
+            for trip, first in enumerate(range(i, octets, total * OCTETS)):
+                for j in range(OCTETS):
+                    if first + j * total < octets:
+                        yield block, thread, trip, first + j * total
+
+
+def kernel_geometry(n: int) -> Dict[str, int]:
+    """What csrc/rounding.cu launches for n elements on the current card
+    (needs the card)."""
+    out = (ctypes.c_int64 * 5)()
+    err = kernel_library().mt_stochastic_round_bf16_geometry(n, out)
+    if err:
+        raise RuntimeError(f"mt_stochastic_round_bf16_geometry failed (CUDA "
+                           f"error {err})")
+    keys = ("threads", "octets", "blocks_per_sm", "sms", "grid")
+    return dict(zip(keys, out))
 
 
 def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -122,6 +180,21 @@ def stochastic_round_bf16_plain(x: torch.Tensor, seed: int) -> torch.Tensor:
     return round_with_noise(x, philox_noise16(seed, x.numel(), x.device))
 
 
+def launch(lib: ctypes.CDLL, x: torch.Tensor, seed: int,
+           out: torch.Tensor) -> None:
+    """Launch `lib`'s K3 on checked tensors (x f32 and out bf16 on one
+    card, contiguous, 16-byte aligned, x.numel() > 0; bench_rounding.py
+    passes another build's library here); raises if the launch is
+    refused."""
+    with torch.cuda.device(x.device):
+        err = lib.mt_stochastic_round_bf16(
+            x.data_ptr(), x.numel(), seed, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"stochastic_round_bf16: kernel launch failed "
+                           f"(CUDA error {err})")
+
+
 def stochastic_round_bf16(x: torch.Tensor, seed: int) -> torch.Tensor:
     """Stochastically round f32 `x` (any shape) to bf16 with the Philox
     noise of `seed` (an int in [0, 2^64))."""
@@ -138,17 +211,12 @@ def stochastic_round_bf16(x: torch.Tensor, seed: int) -> torch.Tensor:
         raise ValueError("stochastic_round_bf16: x must be contiguous and "
                          "16-byte aligned")
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    n = x.numel()
-    if n == 0:
+    if x.numel() == 0:
         return out
-    lib = kernel_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mt_stochastic_round_bf16(x.data_ptr(), n, seed,
-                                           out.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"stochastic_round_bf16: kernel launch failed "
-                           f"(CUDA error {err})")
+    if out.data_ptr() % 16:  # the kernel writes 16-byte vectors
+        raise RuntimeError("stochastic_round_bf16: the output is not 16-byte "
+                           "aligned")
+    launch(kernel_library(), x, seed, out)
     stochastic_round_bf16.launches += 1
     return out
 

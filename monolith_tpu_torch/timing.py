@@ -3,7 +3,9 @@ bench_rows.py.
 
 Two clocks over the same protocol (3 warm-up calls, then `reps` calls, each
 after a 256 MB write that evicts the 50 MB L2, since the main path finds
-its rows cold):
+its rows cold; `flush="read"` reads the 256 MB instead, which leaves the L2
+holding clean lines, so that a kernel's reads evict nothing that must be
+written back first):
 
 - `event_times_ms` / `time_ms` (their mean): two CUDA events around every
   call. The reading holds a fixed cost of the events and the launch beside
@@ -21,7 +23,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-FLUSH_WORDS = 64 << 20   # 256 MB of int32
+FLUSH_WORDS = 64 << 20   # 256 MB of f32
 
 
 def warm_up(seconds: float = 1.0) -> None:
@@ -41,17 +43,20 @@ def _first_calls(fn: Callable[[], object]) -> None:
     torch.cuda.synchronize()
 
 
-def _flushed_calls(fn: Callable[[], object], reps: int, between=None):
-    flush = torch.empty(FLUSH_WORDS, dtype=torch.int32, device="cuda")
+def _flushed_calls(fn: Callable[[], object], reps: int, between=None,
+                   flush: str = "write"):
+    buf = torch.zeros(FLUSH_WORDS, dtype=torch.float32, device="cuda")
+    evict = {"write": buf.zero_, "read": buf.sum}[flush]
     out = []
     for _ in range(reps):
-        flush.zero_()
+        evict()
         out.append(between() if between is not None else fn())
     torch.cuda.synchronize()
     return out
 
 
-def event_times_ms(fn: Callable[[], object], reps: int = 20) -> List[float]:
+def event_times_ms(fn: Callable[[], object], reps: int = 20,
+                   flush: str = "write") -> List[float]:
     """Device time of each of `reps` calls of fn() by CUDA events, each
     call after an L2 flush."""
     def bracket():
@@ -63,16 +68,18 @@ def event_times_ms(fn: Callable[[], object], reps: int = 20) -> List[float]:
         return start, end
 
     _first_calls(fn)
-    return [s.elapsed_time(e) for s, e in _flushed_calls(fn, reps, bracket)]
+    return [s.elapsed_time(e)
+            for s, e in _flushed_calls(fn, reps, bracket, flush)]
 
 
-def time_ms(fn: Callable[[], object], reps: int = 20) -> float:
+def time_ms(fn: Callable[[], object], reps: int = 20,
+            flush: str = "write") -> float:
     """Mean of `event_times_ms`."""
-    return sum(event_times_ms(fn, reps)) / reps
+    return sum(event_times_ms(fn, reps, flush)) / reps
 
 
-def profiler_ms(fn: Callable[[], object], kernel: str,
-                reps: int = 20) -> Optional[float]:
+def profiler_ms(fn: Callable[[], object], kernel: str, reps: int = 20,
+                flush: str = "write") -> Optional[float]:
     """Mean duration of the kernels whose name contains `kernel`, from a
     torch.profiler window over `reps` flushed calls of fn(); None where the
     profiler recorded no device time for that name."""
@@ -80,7 +87,7 @@ def profiler_ms(fn: Callable[[], object], kernel: str,
     _first_calls(fn)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _flushed_calls(fn, reps)
+        _flushed_calls(fn, reps, flush=flush)
     total_us, count = 0.0, 0
     for a in prof.key_averages():
         us = getattr(a, "self_device_time_total",

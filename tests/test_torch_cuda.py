@@ -553,6 +553,94 @@ def test_stochastic_round_at_the_multi_array_shapes(card, shape):
     assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
 
 
+# ----------------------------------------------------------------------
+# K3's persistent grid: octets a trip, 16-byte stores, the tail
+# ----------------------------------------------------------------------
+
+#: element counts: around a group (4) and an octet (8); the ragged [13,
+#: 17]; [49152, 17] of the structure-of-arrays step; [49152, 128] of the
+#: packed multislot step; [135040, 128] of the multi-array step
+K3_SIZES = [1, 3, 4, 5, 7, 8, 9, 221, 835_584, 6_291_456, 17_285_120]
+#: two keys whose low words are equal and whose high words differ
+K3_SEEDS = [0x0000_0001_2345_6789, 0xFFFF_FFFE_2345_6789]
+
+
+@pytest.mark.parametrize("seed", K3_SEEDS)
+@pytest.mark.parametrize("n", K3_SIZES)
+def test_stochastic_round_bit_for_bit_at_every_size(card, n, seed):
+    g = torch.Generator(device=card).manual_seed(n)
+    x = torch.randn(n, generator=g, device=card) * 100
+    before = rounding.stochastic_round_bf16.launches
+    out = rounding.stochastic_round_bf16(x, seed)
+    ref = rounding.stochastic_round_bf16_plain(x, seed)
+    torch.cuda.synchronize()
+    assert rounding.stochastic_round_bf16.launches == before + 1
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+def test_the_seeds_high_word_changes_every_group(card):
+    """The key's high word reaches the kernel: two seeds that differ only
+    there round 835,584 elements differently, each as the plain version."""
+    x = torch.rand(835_584, device=card) + 1.0   # no exact bf16 values
+    outs = []
+    for seed in K3_SEEDS:
+        out = rounding.stochastic_round_bf16(x, seed)
+        ref = rounding.stochastic_round_bf16_plain(x, seed)
+        assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+        outs.append(out.view(torch.int16))
+    differ = (outs[0] != outs[1]).float().mean().item()
+    # a pair of independent draws rounds apart with chance 2p(1 - p), p
+    # the dropped fraction: 1/3 on average over uniform fractions
+    assert 0.32 < differ < 0.35, differ
+
+
+def test_stochastic_round_refuses_what_the_kernel_cannot_read(card):
+    """A non-contiguous or misaligned input is refused, as before: the
+    caller copies it. The copy rounds as the plain version rounds the
+    view."""
+    base = torch.randn(64, 34, device=card)
+    view = base[:, :17]
+    with pytest.raises(ValueError, match="contiguous"):
+        rounding.stochastic_round_bf16(view, 5)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rounding.stochastic_round_bf16(base.view(-1)[1:], 5)
+    out = rounding.stochastic_round_bf16(view.contiguous(), 5)
+    ref = rounding.stochastic_round_bf16_plain(view, 5)
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 221, 8192, 8200, 835_584, 6_291_456,
+                               17_285_120])
+def test_rounding_geometry_mirrors_the_kernel(card, n):
+    """ops/rounding.py's grid arithmetic (the CPU tests' subject) is what
+    csrc/rounding.cu launches with; an empty kernel on that grid runs."""
+    from monolith_tpu_torch import bench_rounding
+    got = rounding.kernel_geometry(n)
+    assert (got["threads"], got["octets"]) == (rounding.THREADS,
+                                               rounding.OCTETS)
+    assert got["sms"] == torch.cuda.get_device_properties(
+        card).multi_processor_count
+    assert got["blocks_per_sm"] >= 1
+    assert got["grid"] == rounding.grid_size(n, got["blocks_per_sm"],
+                                             got["sms"])
+    bench_rounding.empty_launch(n)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", K3_SIZES)
+def test_stochastic_round_equals_the_one_group_design(card, n):
+    """The redesign changes no bit: it equals the earlier one-group kernel
+    (csrc/baselines/rounding_one_group.cu) on the same input."""
+    from monolith_tpu_torch import bench_rounding
+    g = torch.Generator(device=card).manual_seed(n + 1)
+    x = torch.randn(n, generator=g, device=card)
+    old = torch.empty(n, dtype=torch.bfloat16, device=card)
+    rounding.launch(bench_rounding.baseline_library(), x, K3_SEEDS[1], old)
+    new = rounding.stochastic_round_bf16(x, K3_SEEDS[1])
+    torch.cuda.synchronize()
+    assert torch.equal(new.view(torch.int16), old.view(torch.int16))
+
+
 @pytest.mark.parametrize("n", [65_536, 70_000, 135_168])
 def test_row_kernels_above_the_16_bit_cap(card, n):
     """K1 and K2 on a bf16 pool [17 x 2^18, 128] at more than 65535 rows
