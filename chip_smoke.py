@@ -363,6 +363,31 @@ failures is caught:
      "sharded_tiered" (19a and 19b's card ranks), "delta" (their deltas)
      and "launch" (19c-19e's ranks and 19e's one-rank run; K3 under the
      multislot_bf16 entry).
+ 20. bench.py's default multislot (no MT_BENCH_DTYPE; profile_step's
+     `multislot`): 16 + 1 tables merged into one f32 pool of [4456448,
+     128], 2,281,701,376 B, whose rows from 4,194,304 on start past byte
+     2^31; f32 tower (256, 128, 64), no rounding, unique_cap 49152, batch
+     8192:
+     20a. (run after phase 3b) K1/K2 at that pool's bench_rows case (49152
+       rows of 512 B, ~10% -1) bit for bit and timed as phase 3, with at
+       least 2,000 valid rows past byte 2^31; then K2 of fresh values into
+       exactly the top 8,192 rows and K1 of them, bit for bit against the
+       plain versions (two copies of the pool: ~6.9 GB on the card);
+     20b. (20b-20f run after phase 19) 4 train steps + 1 eval batch: K1 5,
+       K2 4, K3 0;
+     20c. the synchronous block (steps_per_dispatch=8) run as 5b: K1 26,
+       K2 25, K3 0; losses within rtol 1e-4 of 20b's over its 4 steps, and
+       falling;
+     20d. the asynchronous block (MT_BENCH_ASYNC=1) run as 5c: K1 50, K2
+       25, K3 0; the first two losses within rtol 1e-4 of 20b's, falling;
+     20e. the small variant with f32 pools and tower on the card and on
+       the CPU from one carried state, 3 steps: losses rtol 1e-4;
+     20f. the per-step path binned at 1 GiB (MT_BENCH_MERGE_MAX_GB=1):
+       pools [2^21, 128], [2^21, 128] and [2^18, 128] f32, 3 K1 and 3 K2 a
+       step (K1 15, K2 12 over 4 steps + 1 eval), finite losses, an eval
+       AUC in [0, 1].
+     Phase 20's launches count as the multislot_f32 entries' paths
+     "per_step", "block", "block_async" and "binned".
 
 TF32 is off for matrix products and convolutions (torch.backends), so the
 card's f32 dense towers run in full f32 like the CPU's. The second-to-last
@@ -1042,32 +1067,33 @@ def small_multislot(device, async_optimize=False, clip_norm=0.0, **kw):
         clip_norm=clip_norm, log_every=0), device=device)
 
 
-def phase_multislot_card_vs_cpu():
+def phase_multislot_card_vs_cpu(name="bf16", rtol=1e-3, **task):
     """The small bf16 variant (bf16 pools, stochastic rounding, bf16
     tower): one carried state, 3 steps on the card and on the CPU, with
     init_scale=0.0 (new rows draw their init from the device's generator,
     whose numbers differ between card and CPU). K3 draws the plain
     version's bits, but the pooling backward's atomics and the card's bf16
     matrix products change bits, which can flip a rounding: losses agree
-    to rtol 1e-3."""
+    to rtol 1e-3. `task` overrides the variant's task settings (20e: the
+    f32 pool and tower, rtol 1e-4)."""
     from monolith_tpu_torch import convert
     from monolith_tpu_torch.data.synthetic import SyntheticMultiSlot
     data = SyntheticMultiSlot(num_slots=10, vocab_per_slot=300,
                               history_length=6, batch_size=256, seed=11)
     batches = [data.batch() for _ in range(6)]
-    cpu = small_multislot("cpu", init_scale=0.0)
+    cpu = small_multislot("cpu", init_scale=0.0, **task)
     for i in range(3):
         cpu.train_step(*batches[i], ts=500 + i)
-    card = small_multislot("cuda", init_scale=0.0)
+    card = small_multislot("cuda", init_scale=0.0, **task)
     convert.load_state(card, convert.export_state(cpu))
     lc, lg = [], []
     for i in range(3, 6):
         lc.append(cpu.train_step(*batches[i], ts=500 + i)["loss"].item())
         lg.append(card.train_step(*batches[i], ts=500 + i)["loss"].item())
     gap = float(np.max(np.abs(np.array(lg) / np.array(lc) - 1)))
-    log(f"multislot bf16 card vs cpu losses: {lg} vs {lc}; worst relative "
+    log(f"multislot {name} card vs cpu losses: {lg} vs {lc}; worst relative "
         f"gap {gap:.3e}")
-    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+    np.testing.assert_allclose(lg, lc, rtol=rtol)
 
 
 def phase_multislot_trains():
@@ -5369,6 +5395,125 @@ def phase_launch_and_tiered(device="cuda"):
     return paths
 
 
+# ----------------------------------------------------------------------
+# phase 20: bench.py's default multislot, one f32 pool of 2,281,701,376 B
+# ----------------------------------------------------------------------
+
+#: the first row of the f32 multislot pool that starts past byte 2^31
+MS_F32_PAST_2GIB = (1 << 31) // (WIDTH * 4)     # 4,194,304
+MS_F32_TOP = 8192                                # 20a's round trip
+
+
+def phase_rows_past_2gib(floor):
+    """20a: K1/K2 on the f32 multislot pool [4456448, 128] (2,281,701,376
+    B) at bench_rows' case, bit for bit and timed as phase 3, with at
+    least 2,000 of the case's valid rows past byte 2^31; then K2 of fresh
+    values into exactly the top 8,192 rows (row 4,456,447 included) and K1
+    of the same rows, each bit for bit against its plain version on a
+    copy of the pool. Returns the K1/K2 entries."""
+    import torch
+    from monolith_tpu_torch.bench_rows import SHAPES, make_case
+    from monolith_tpu_torch.ops import scatter as ops
+    cap, width, dtype, u = SHAPES["multislot_f32"]
+    pool, rows, values = make_case(cap, width, dtype, u)
+    assert pool.numel() * pool.element_size() == 2_281_701_376
+    past = int((rows >= MS_F32_PAST_2GIB).sum())
+    assert past >= 2000, past
+    kernels = phase_rows("multislot_f32", floor, (pool, rows, values))
+    del values
+    top = torch.arange(cap - MS_F32_TOP, cap, dtype=torch.int32,
+                       device="cuda")
+    fresh = torch.randn((MS_F32_TOP, width), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+    plain = pool.clone()
+    ops.scatter_rows(pool, top, fresh)
+    ops.scatter_rows_plain(plain, top, fresh)
+    out = ops.gather_rows(pool, top)
+    torch.cuda.synchronize()
+    assert torch.equal(pool.view(torch.int32), plain.view(torch.int32)), \
+        "scatter_rows differs from its plain version on the top rows"
+    assert torch.equal(out.view(torch.int32), ops.gather_rows_plain(
+        plain, top).view(torch.int32)), \
+        "gather_rows differs from its plain version on the top rows"
+    assert torch.equal(out.view(torch.int32), fresh.view(torch.int32))
+    log(f"20a K1/K2 past 2 GiB: {past} of the case's {int((rows >= 0).sum())} "
+        f"valid rows start past byte 2^31 (row {MS_F32_PAST_2GIB} on); K2 "
+        f"of fresh values into the top {MS_F32_TOP} rows ({cap - MS_F32_TOP}"
+        f"..{cap - 1}, the last at byte {(cap - 1) * width * 4}), then K1 of "
+        f"them: bit for bit against the plain versions")
+    return kernels
+
+
+def phase_multislot_f32():
+    """20b-20f, bench.py:224-242 without MT_BENCH_DTYPE (profile_step's
+    `multislot`: one f32 pool [4456448, 128], f32 tower, no rounding) at
+    full width: 20b the per-step path, 20c the synchronous block, 20d the
+    asynchronous block (MT_BENCH_ASYNC=1), 20e the small f32 variant on
+    the card against the CPU, 20f the per-step path binned at 1 GiB
+    (MT_BENCH_MERGE_MAX_GB=1: pools of 2^21, 2^21 and 2^18 rows). Returns
+    the launches by path."""
+    import gc
+
+    import torch
+    from monolith_tpu_torch.profile_step import CONFIGS
+    t0 = time.time()
+    steps, evals, n = PATH_STEPS, PATH_EVALS, BLOCK_K * BLOCKS
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    trainer, data = CONFIGS["multislot"]()
+    pool = trainer.table_states["table_all"]["data"]
+    assert pool.dtype == torch.float32 and tuple(pool.shape) == \
+        (MS_CAP, WIDTH), (pool.dtype, pool.shape)
+    batches = [data.batch() for _ in range(steps + evals)]
+    per_step, losses = drive_path(
+        "20b multislot_f32", trainer, batches, steps, evals,
+        {"gather_rows": steps + evals, "scatter_rows": steps,
+         "stochastic_round_bf16": 0})
+    del trainer, data, pool, batches
+    free()
+    trainer, data = CONFIGS["multislot"](steps_per_dispatch=BLOCK_K)
+    block = drive_block_path(
+        "20c multislot_f32 synchronous", trainer, data,
+        {"gather_rows": 1 + n + 1, "scatter_rows": 1 + n,
+         "stochastic_round_bf16": 0},
+        losses, same=PATH_STEPS, rtol=1e-4, falling=True)["launches"]
+    del trainer, data
+    free()
+    trainer, data = CONFIGS["multislot"](steps_per_dispatch=BLOCK_K,
+                                         async_optimize=True)
+    block_async = drive_block_path(
+        "20d multislot_f32 asynchronous", trainer, data,
+        {"gather_rows": 1 + 2 * n + 1, "scatter_rows": 1 + n,
+         "stochastic_round_bf16": 0},
+        losses, same=2, rtol=1e-4, falling=True)["launches"]
+    del trainer, data
+    free()
+    phase_multislot_card_vs_cpu("f32 (20e)", 1e-4, table_dtype=torch.float32,
+                                stochastic_rounding=False, dense_dtype=None)
+    trainer, data = CONFIGS["multislot"](merge_max_gb=1.0)
+    pools = {t: (st["data"].dtype, tuple(st["data"].shape))
+             for t, st in trainer.table_states.items()}
+    table_rows = MS_CAP // 17            # 2^18 rows a table
+    assert pools == {"table_all_0": (torch.float32, (8 * table_rows, WIDTH)),
+                     "table_all_1": (torch.float32, (8 * table_rows, WIDTH)),
+                     "table_hist": (torch.float32, (table_rows, WIDTH))}, \
+        pools
+    batches = [data.batch() for _ in range(steps + evals)]
+    binned, _ = drive_path(
+        "20f multislot_f32 binned at 1 GiB", trainer, batches, steps, evals,
+        {"gather_rows": 3 * (steps + evals), "scatter_rows": 3 * steps,
+         "stochastic_round_bf16": 0})
+    del trainer, data, batches
+    free()
+    paths = {"per_step": per_step, "block": block,
+             "block_async": block_async, "binned": binned}
+    log(f"phase 20: {time.time() - t0:.1f} s; launches {paths}")
+    return paths
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5396,6 +5541,8 @@ def main():
     for path in OUT_OF_STEP_SHAPES:
         phase_rows_out_of_step(path)
         torch.cuda.empty_cache()
+    f32_kernels = phase_rows_past_2gib(floor)
+    torch.cuda.empty_cache()
     launches, losses = {}, {}
     launches["deepfm_f32"], losses["deepfm_f32"] = phase_deepfm_path()
     torch.cuda.empty_cache()
@@ -5429,6 +5576,7 @@ def main():
     torch.cuda.empty_cache()
     launch_paths = phase_launch_and_tiered()
     torch.cuda.empty_cache()
+    f32_launches = phase_multislot_f32()
     for k in kernels:
         # each path was driven with the counts set to 0 just before it;
         # "serving" is the export and the trainer's eval predictions (both
@@ -5465,7 +5613,13 @@ def main():
     # "cli": 12d's train.main (MovieRanking, two tables)
     for k in mr_kernels:
         k["launches"] = sum(k["launches_by_path"].values())
-    kernels += mr_kernels + soa_kernels
+    # phase 20's paths ("binned": 20f's three pools, [2^21, 128] f32 twice
+    # and [2^18, 128])
+    for k in f32_kernels:
+        k["launches_by_path"] = {p: c[k["name"]]
+                                 for p, c in f32_launches.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+    kernels += mr_kernels + soa_kernels + f32_kernels
     phase_block_card_vs_cpu()
     phase_card_vs_cpu()
     phase_multislot_card_vs_cpu()

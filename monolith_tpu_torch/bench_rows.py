@@ -9,7 +9,9 @@ commit's rows.cu, unpacked into a gitignored directory with `git archive`,
 or a second design under trial; same `mt_gather_rows` / `mt_scatter_rows`
 interface, same nvcc command). At each main path's shapes (chip_smoke.py's:
 DeepFM f32, 32768 rows of 512 B from a pool of 2^21; multislot bf16, 49152
-rows of 256 B from a pool of 17 x 2^18; ~10% of rows -1) it holds every
+rows of 256 B from a pool of 17 x 2^18; multislot f32, 49152 rows of 512 B
+from a pool of 17 x 2^18, 2,281,701,376 B, whose last 262,144 rows start
+past byte 2^31; ~10% of rows -1) it holds every
 build's K1 and K2 bit for bit against the plain versions, then times them
 in turns (others, here, here, others reversed), since two processes may
 land on two cards: CUDA events around each launch after an L2 flush, and
@@ -38,7 +40,8 @@ from monolith_tpu_torch.ops import scatter as ops
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 #: path -> (pool rows, row width in elements, pool dtype, rows per call)
 SHAPES = {"deepfm_f32": (1 << 21, 128, torch.float32, 32768),
-          "multislot_bf16": (17 * (1 << 18), 128, torch.bfloat16, 49152)}
+          "multislot_bf16": (17 * (1 << 18), 128, torch.bfloat16, 49152),
+          "multislot_f32": (17 * (1 << 18), 128, torch.float32, 49152)}
 
 
 def make_case(cap: int, width: int, dtype: torch.dtype, u: int):

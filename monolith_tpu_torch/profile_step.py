@@ -1,6 +1,7 @@
 """Where the time of a full-width train step of the port goes, on the card.
 
-    python -m monolith_tpu_torch.profile_step [--config deepfm|multislot_bf16]
+    python -m monolith_tpu_torch.profile_step [--config deepfm|multislot|
+                                                        multislot_bf16]
                                               [--steps 20] [--trace PATH]
                                               [--block K] [--async]
     python -m monolith_tpu_torch.profile_step --serve [--config ...]
@@ -10,10 +11,12 @@ Builds the trainer of one of bench.py's configs at full width:
 
 - `deepfm` (default): capacity 2^21, unique_cap 32768, batch 8192, hidden
   (256, 128, 64), f32 pool;
-- `multislot_bf16` (MT_BENCH_DTYPE=bf16): 16 + 1 tables merged into one
-  bf16 pool of 17 x 2^18 rows with stochastic rounding, 40 slots + a
-  20-long DIN history, bf16 dense tower (256, 128, 64), unique_cap 49152,
-  batch 8192;
+- `multislot` (bench.py's default multislot): 16 + 1 tables merged into
+  one f32 pool of 17 x 2^18 rows (2,281,701,376 B), 40 slots + a 20-long
+  DIN history, f32 dense tower (256, 128, 64), unique_cap 49152, batch
+  8192;
+- `multislot_bf16` (MT_BENCH_DTYPE=bf16): the same with a bf16 pool
+  (stochastic rounding) and a bf16 dense tower;
 
 warms it up, then runs four windows of `--steps` train steps each, on
 fresh batches:
@@ -42,7 +45,7 @@ blocking copy of a pinned [K, W] buffer) and the device operations
 
 With `--serve` it measures a serving replica instead: the trainer takes 25
 full-width steps, is exported, and a `ServingModel` loads the export on the
-card (unique_cap 32768 for deepfm, 49152 for multislot_bf16, batch 8192).
+card (unique_cap 32768 for deepfm, 49152 for the multislots, batch 8192).
 After 3 warm-up predicts: window 1, `--steps` predicts through
 `ServingModel.predict` (ms per predict, it returns numpy and so waits for
 the card); window 2, the same number split into host prepare (dedup + id ->
@@ -121,30 +124,44 @@ def _deepfm(ttl_seconds=0, **cfg):
                                  batch_size=8192, seed=0)
 
 
-def _multislot_bf16(batch_size=8192, unique_cap=49152, **cfg):
+def _multislot(merge_max_gb=0.0, batch_size=8192, unique_cap=49152,
+               capacity_per_shard=1 << 18, table_dtype=torch.float32,
+               device=None, **cfg):
+    """bench.py:224-242: 16 + 1 tables merged into one pool (bins of at
+    most `merge_max_gb` GiB, as MT_BENCH_MERGE_MAX_GB; 0 = one pool).
+    An f32 pool has an f32 tower and no rounding; a bf16 pool
+    (MT_BENCH_DTYPE=bf16) rounds stochastically and has a bf16 tower."""
     from monolith_tpu_torch.data.synthetic import SyntheticMultiSlot
     from monolith_tpu_torch.models.multislot import MultiSlotTask
     from monolith_tpu_torch.training.trainer import Trainer
+    bf16 = table_dtype == torch.bfloat16
     trainer = Trainer(
         MultiSlotTask(num_tables=16, num_slots=40, embedding_dim=16,
-                      capacity_per_shard=1 << 18, history_length=20,
-                      hidden=(256, 128, 64), merge=True,
-                      table_dtype=torch.bfloat16, stochastic_rounding=True,
-                      dense_dtype=torch.bfloat16),
-        _trainer_config(unique_cap, **cfg))
+                      capacity_per_shard=capacity_per_shard,
+                      history_length=20, hidden=(256, 128, 64), merge=True,
+                      merge_max_bytes=int(merge_max_gb * (1 << 30)),
+                      table_dtype=table_dtype, stochastic_rounding=bf16,
+                      dense_dtype=torch.bfloat16 if bf16 else None),
+        _trainer_config(unique_cap, **cfg), device=device)
     return trainer, SyntheticMultiSlot(num_slots=40, vocab_per_slot=100_000,
                                        history_length=20,
                                        batch_size=batch_size, seed=0)
 
 
+def _multislot_bf16(**kw):
+    return _multislot(table_dtype=torch.bfloat16, **kw)
+
+
 #: bench.py's configs at full width: name -> (steps_per_dispatch=1,
 #: EngineConfig settings) -> (trainer on the card, data stream);
-#: chip_smoke.py drives the same two (deepfm also with a table ttl,
+#: chip_smoke.py drives the same three (deepfm also with a table ttl,
 #: `ttl_seconds=`; multislot_bf16 also at another `batch_size` and
-#: `unique_cap`)
-CONFIGS = {"deepfm": _deepfm, "multislot_bf16": _multislot_bf16}
+#: `unique_cap`; multislot also binned, `merge_max_gb=1.0`)
+CONFIGS = {"deepfm": _deepfm, "multislot": _multislot,
+           "multislot_bf16": _multislot_bf16}
 #: a serving replica's unique ids per predict at batch 8192, by config
-SERVE_UNIQUE_CAP = {"deepfm": 32768, "multislot_bf16": 49152}
+SERVE_UNIQUE_CAP = {"deepfm": 32768, "multislot": 49152,
+                    "multislot_bf16": 49152}
 BACKWARD_NODE = "autograd::engine::evaluate_function: "
 #: name fragments of the kernels in csrc/ (K1, K2, K3)
 PORT_KERNELS = ("gather_rows_kernel", "scatter_rows_kernel",

@@ -78,24 +78,34 @@ def time_ms(fn: Callable[[], object], reps: int = 20,
     return sum(event_times_ms(fn, reps, flush)) / reps
 
 
+#: profiler windows profiler_ms takes at most for one reading
+PROFILER_WINDOWS = 3
+
+
 def profiler_ms(fn: Callable[[], object], kernel: str, reps: int = 20,
                 flush: str = "write") -> Optional[float]:
     """Mean duration of the kernels whose name contains `kernel`, from a
-    torch.profiler window over `reps` flushed calls of fn(); None where the
-    profiler recorded no device time for that name."""
+    torch.profiler window over `reps` flushed calls of fn(); None where
+    PROFILER_WINDOWS windows in a row recorded no device time for that
+    name. A window can come back without the device's records (seen once
+    in ~60 windows of one process on an H100), so an empty one is taken
+    again."""
     from torch.profiler import ProfilerActivity, profile
     _first_calls(fn)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _flushed_calls(fn, reps, flush=flush)
-    total_us, count = 0.0, 0
-    for a in prof.key_averages():
-        us = getattr(a, "self_device_time_total",
-                     getattr(a, "self_cuda_time_total", 0.0))
-        if kernel in a.key and us > 0:
-            total_us += us
-            count += a.count
-    return total_us / count / 1e3 if count else None
+    for _ in range(PROFILER_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _flushed_calls(fn, reps, flush=flush)
+        total_us, count = 0.0, 0
+        for a in prof.key_averages():
+            us = getattr(a, "self_device_time_total",
+                         getattr(a, "self_cuda_time_total", 0.0))
+            if kernel in a.key and us > 0:
+                total_us += us
+                count += a.count
+        if count:
+            return total_us / count / 1e3
+    return None
 
 
 def event_floor_ms(reps: int = 20) -> float:

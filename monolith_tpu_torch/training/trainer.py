@@ -508,7 +508,9 @@ class Trainer:
         skips the pack and uses the wires already on their way. With
         EngineConfig.async_optimize the steps follow the 1-step-stale
         schedule (_step_async) and the last step's write-back lands at the
-        end of the block, keyed with step number 0 as in the JAX package.
+        end of the block, keyed with the step that would have landed it
+        inside the loop (base step + K): unique to the block, where the
+        JAX package keys every block's with step 0 (fault R9 there).
 
         Returns {"loss": [K], "preds": [K, B] (a dict of them for a task
         whose predictions are a dict), "stats": list of K,
@@ -547,7 +549,8 @@ class Trainer:
             auxes.append(aux)
         if pending is not None:
             with torch.no_grad():
-                self.engine.scatter_rows(self.table_states, *pending, 0,
+                self.engine.scatter_rows(self.table_states, *pending,
+                                         self.step + K,
                                          seed=self.config.seed)
         self.step += K
         if isinstance(preds[0], dict):
