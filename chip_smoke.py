@@ -52,8 +52,9 @@ failures is caught:
      step's lands at the end of its block); finite, falling losses whose
      first two agree with phase 5's;
      both block phases print ms per step of the block path and of the
-     per-step path in the same trainer, the host pack per step and the
-     upload per block;
+     per-step path in the same trainer, and from a recording of the
+     program's spans over the blocks the host prepare and batch copy per
+     step and the upload's start per block;
   5d. the block on the card against the block on the CPU from one carried
      state: a small DeepFM with its vector segment under DC, clip_norm
      0.05 and init_scale 0.0, synchronous and asynchronous (losses rtol
@@ -827,12 +828,14 @@ def drive_block_path(name, trainer, data, expect, per_step_losses, same,
     trainer of the same seed) to `rtol`, and fall (`falling`: the mean of
     the last block under the mean of the first 8 steps) or, on a stream
     whose ids hardly repeat within 25 steps, stay within 0.01 of where
-    they began. Then, outside the counted run: a staged block dispatched out of
-    turn must raise; the per-step path's time in the same trainer; the
-    host pack and upload costs."""
+    they began. The blocks run under a recording of the program's spans,
+    whose host prepare, batch copy and upload start are logged. Then,
+    outside the counted run: a staged block dispatched out of turn must
+    raise; the per-step path's time in the same trainer."""
     import torch
     from monolith_tpu_torch import ops
-    from monolith_tpu_torch.profile_step import block_costs, run_blocks
+    from monolith_tpu_torch.profile_step import run_blocks
+    from monolith_tpu_torch.utils import tracing
     K, n = BLOCK_K, BLOCK_K * BLOCKS
     batches = [data.batch() for _ in range(1 + n + 1)]
     batch = len(batches[0][1]["label"])
@@ -851,9 +854,14 @@ def drive_block_path(name, trainer, data, expect, per_step_losses, same,
     first = trainer.train_step(*batches[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = run_blocks(trainer, batches[1:1 + n], K)
+    with tracing.recording() as rec:
+        outs = run_blocks(trainer, batches[1:1 + n], K)
     torch.cuda.synchronize()
     block_ms = (time.perf_counter() - t0) / n * 1e3
+    spans = rec.totals()
+    prep_ms, copy_ms, upload_ms = (
+        spans[k].seconds / spans[k].count * 1e3
+        for k in ("stage.prepare", "stage.copy_batch", "stage.upload"))
     ev = trainer.evaluate(iter(batches[1 + n:]), max_steps=1)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
@@ -895,13 +903,13 @@ def drive_block_path(name, trainer, data, expect, per_step_losses, same,
         trainer.train_step(fb, b)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / K * 1e3
-    pack_ms, upload_ms, nbytes = block_costs(trainer, more[:K], K)
     log(f"{name} block path: losses {np.round(losses, 5).tolist()}; eval "
         f"{ev}; ms/step {block_ms:.3f} over {BLOCKS} blocks of {K} (host "
         f"clock, one synchronize at the end); per-step path in the same "
         f"trainer {step_ms:.3f} ms/step ({K} steps, one synchronize at the "
-        f"end); host pack {pack_ms:.3f} ms/step; upload {upload_ms:.3f} "
-        f"ms/block ({nbytes} bytes); launches {launches}")
+        f"end); spans of the blocks: host prepare {prep_ms:.3f} ms/step, "
+        f"batch copy {copy_ms:.3f} ms/step, upload start {upload_ms:.3f} "
+        f"ms/block; launches {launches}")
     trainer.train_step_block = block
     return {"launches": launches, "trainer": trainer, "data": data,
             "seen": more[2 * K - 1]}

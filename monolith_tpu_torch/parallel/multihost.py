@@ -89,6 +89,7 @@ from monolith_tpu_torch.parallel.sharded import ShardedTrainer
 from monolith_tpu_torch.training.task import RecTask
 from monolith_tpu_torch.training.trainer import (_WIRE_DTYPES, Trainer,
                                                  TrainerConfig)
+from monolith_tpu_torch.utils.tracing import span
 
 
 def _split64(a: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -249,9 +250,6 @@ class MultiHostTrainer(ShardedTrainer):
         """The host phases of one step (local prepare, a2a#1, the owner's
         map) and the pack of their arrays into `out`. Returns (stats,
         revive)."""
-        wire, index, stats = self._prepare_local(fid_batch)
-        rows, pos, mask, revive = self._map_ids(self._send_ids(wire), ts,
-                                                train=not self._eval_wire)
         off = 0
 
         def put(a):
@@ -260,14 +258,19 @@ class MultiHostTrainer(ShardedTrainer):
             out[off:off + a.size] = a
             off += a.size
 
-        for ti, tname in enumerate(self._tables()):
-            put(rows[ti])
-            put(mask[ti])
-            put(pos[ti])
-            for f in self.engine.table_features[tname]:
-                put(index[tname][f.name])
-        for k, _, _ in layout:
-            put(np.ascontiguousarray(batch[k]).view(np.int32))
+        with span("stage.prepare", stepno):
+            wire, index, stats = self._prepare_local(fid_batch)
+            rows, pos, mask, revive = self._map_ids(
+                self._send_ids(wire), ts, train=not self._eval_wire)
+            for ti, tname in enumerate(self._tables()):
+                put(rows[ti])
+                put(mask[ti])
+                put(pos[ti])
+                for f in self.engine.table_features[tname]:
+                    put(index[tname][f.name])
+        with span("stage.copy_batch", stepno):
+            for k, _, _ in layout:
+                put(np.ascontiguousarray(batch[k]).view(np.int32))
         return stats, revive
 
     def _decode(self, wire: torch.Tensor, layout):

@@ -79,6 +79,7 @@ from monolith_tpu_torch.parallel.mesh import Mesh
 from monolith_tpu_torch.training.task import RecTask
 from monolith_tpu_torch.training.trainer import (_WIRE_DTYPES, Trainer,
                                                  TrainerConfig)
+from monolith_tpu_torch.utils.tracing import span
 
 
 class ShardedTrainer(Trainer):
@@ -155,18 +156,6 @@ class ShardedTrainer(Trainer):
         decisions), then this rank's part of it into `out`. Returns (stats,
         revive): a tiered engine's revived rows of this rank's shard
         {table: (positions or rows, values)}, else None."""
-        if self._a2a_wire():
-            inputs, stats = self.engine.prepare_batch_a2a(fid_batch, ts=ts)
-        else:
-            inputs, stats = self.engine.prepare_shards(fid_batch, ts=ts)
-        r, b = self.mesh.rank, self._slice_rows(layout)
-        revive = None
-        if self.config.engine.tiered:
-            key = "revive_pos" if self.engine.packed else "revive_rows"
-            # the engine holds this rank's archive alone, so only row r
-            # revives: its n rows padded to a power of two
-            revive = {t: (tin[key][r], tin["revive_values"][r])
-                      for t, tin in inputs.items()}
         off = 0
 
         def put(a):
@@ -175,17 +164,32 @@ class ShardedTrainer(Trainer):
             out[off:off + a.size] = a
             off += a.size
 
-        for tname in self._tables():
-            tin = inputs[tname]
-            put(tin["rows"][r])
-            put(tin[_new_channel(tin)][r])
-            if "bucket_idx" in tin:
-                put(tin["bucket_idx"][r])
-            for f in self.engine.table_features[tname]:
-                put(tin["index"][f.name][r * b:(r + 1) * b])
-        for k, _, _ in layout:
-            put(np.ascontiguousarray(batch[k][r * b:(r + 1) * b]
-                                     ).view(np.int32))
+        r, b = self.mesh.rank, self._slice_rows(layout)
+        revive = None
+        with span("stage.prepare", stepno):
+            if self._a2a_wire():
+                inputs, stats = self.engine.prepare_batch_a2a(fid_batch,
+                                                              ts=ts)
+            else:
+                inputs, stats = self.engine.prepare_shards(fid_batch, ts=ts)
+            if self.config.engine.tiered:
+                key = "revive_pos" if self.engine.packed else "revive_rows"
+                # the engine holds this rank's archive alone, so only row
+                # r revives: its n rows padded to a power of two
+                revive = {t: (tin[key][r], tin["revive_values"][r])
+                          for t, tin in inputs.items()}
+            for tname in self._tables():
+                tin = inputs[tname]
+                put(tin["rows"][r])
+                put(tin[_new_channel(tin)][r])
+                if "bucket_idx" in tin:
+                    put(tin["bucket_idx"][r])
+                for f in self.engine.table_features[tname]:
+                    put(tin["index"][f.name][r * b:(r + 1) * b])
+        with span("stage.copy_batch", stepno):
+            for k, _, _ in layout:
+                put(np.ascontiguousarray(batch[k][r * b:(r + 1) * b]
+                                         ).view(np.int32))
         return stats, revive
 
     def _decode(self, wire: torch.Tensor, layout):

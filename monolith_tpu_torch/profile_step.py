@@ -38,10 +38,11 @@ JAX package's bench.py runs it: block k+1 is packed and its upload started
 (`train_step`, always synchronous) and the block path run in turns in the
 same trainer (per-step, block, block, per-step). `--async` turns on
 `EngineConfig.async_optimize` (the 1-step-stale block; it needs `--block`).
-The block path also reports the host pack per step (C++ prepare + batch
-words into the [K, W] buffer, no device work), the upload per block (one
-blocking copy of a pinned [K, W] buffer) and the device operations
-(kernels and copies) per step.
+The block path also reports the device operations (kernels and copies)
+per step, and a fifth window under a recording of the program's spans
+(utils/tracing.py): calls, ms and self ms per step of each span, the
+host prepare (`stage.prepare`), the batch copy and the upload's start
+among them.
 
 With `--serve` it measures a serving replica instead: the trainer takes 25
 full-width steps, is exported, and a `ServingModel` loads the export on the
@@ -71,6 +72,8 @@ import tempfile
 import time
 
 import torch
+
+from monolith_tpu_torch.utils import tracing
 
 
 def _device_intervals(prof):
@@ -183,33 +186,6 @@ def run_blocks(trainer, batches, K):
         if blk + 1 < n:
             staged = trainer.stage_block(batches[(blk + 1) * K:(blk + 2) * K])
     return outs
-
-
-def block_costs(trainer, batches, K, passes=3):
-    """(host pack ms per step, upload ms per block, bytes per block) of a
-    block of K: the
-    pack is the C++ prepare plus the batch arrays' words into a [K, W] host
-    buffer with no device work; the upload is one copy of a pinned [K, W]
-    buffer, waited for. Packs batches the trainer has already seen, as
-    bench.py's host-only pass does."""
-    layout = trainer._batch_layout(batches[0][1])
-    words = trainer._full_wire_words(layout)
-    pinned = torch.empty((K, words), dtype=torch.int32, pin_memory=True)
-    host = pinned.numpy()
-    t0 = time.perf_counter()
-    for _ in range(passes):
-        for i in range(K):
-            fb, b = batches[i]
-            trainer._pack_full_wire(fb, b, layout, int(time.time()),
-                                    trainer.step + i, host[i])
-    pack_ms = (time.perf_counter() - t0) / (passes * K) * 1e3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(passes):
-        pinned.to(trainer.device, non_blocking=True)
-        torch.cuda.synchronize()
-    upload_ms = (time.perf_counter() - t0) / passes * 1e3
-    return pack_ms, upload_ms, pinned.numel() * 4
 
 
 def serve_main(args):
@@ -360,9 +336,13 @@ def main(argv=None):
         print(f"in turns, ms/step over {n} steps each (no profiler): per-step "
               f"path {turns[0]}, block {turns[1]}, block {turns[2]}, per-step "
               f"path {turns[3]}")
-        pack_ms, upload_ms, nbytes = block_costs(trainer, windows[3], K)
-        print(f"block of {K}: host pack {pack_ms} ms/step, upload {upload_ms} "
-              f"ms/block ({nbytes} bytes, one blocking copy)")
+        with tracing.recording() as rec:
+            recorded_ms = run([data.batch() for _ in range(n)])
+        print(f"the program's spans over {n} more steps ({recorded_ms} "
+              f"ms/step recorded): span, calls, ms and self ms per step")
+        for name, t in rec.totals().items():
+            print(f"  {name:18s} {t.count / n:6.3f} {t.seconds / n * 1e3:9.4f}"
+                  f" {t.self_seconds / n * 1e3:9.4f}")
     out = io.StringIO()
     pstats.Stats(host_prof, stream=out).sort_stats("tottime").print_stats(25)
     print("host time by function (cProfile, whole window):")

@@ -9,7 +9,7 @@ What the card changes: the step output's "preds" is a tensor on the
 device. `ThroughputHook` reads its first dimension from the shape, which
 needs no readback; `DeepInsightHook` copies the predictions to the host,
 one readback per call. `ProfilerHook` records with torch.profiler and
-writes a Chrome trace into its `logdir`.
+writes a Chrome trace into its `logdir`, with the program's spans in it.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 
+from monolith_tpu_torch.utils import tracing
 from monolith_tpu_torch.utils.deep_insight import DeepInsightClient
 from monolith_tpu_torch.utils.metrics_client import (MetricClient,
                                                      get_metric_client)
@@ -92,7 +93,12 @@ class ProfilerHook:
     """A torch.profiler trace over the steps [start_step, end_step) (ref
     Tf2ProfilerHook:143, profile_some_steps_from), written into `logdir` as
     a Chrome trace `trace-<start>-<end>.json` when the window closes. The
-    card's activity is recorded when the trainer runs on the card."""
+    card's activity is recorded when the trainer runs on the card.
+
+    Unless one is open already, a recording of the program's spans
+    (utils/tracing.py) is open over the same window, so that the trace
+    shows them as "mt.<span>" ranges beside the device's operations; the
+    spans stay readable in `recording` after the window closes."""
 
     def __init__(self, logdir: str, start_step: int, end_step: int):
         self.logdir = logdir
@@ -100,6 +106,7 @@ class ProfilerHook:
         self.end_step = end_step
         self._prof = None
         self.trace_path: Optional[str] = None
+        self.recording: Optional[tracing.Recording] = None
 
     def __call__(self, trainer, out):
         import torch
@@ -111,6 +118,9 @@ class ProfilerHook:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._prof = torch.profiler.profile(activities=activities)
             self._prof.start()
+            self.recording = None
+            if tracing.active() is None:
+                self.recording = tracing.recording().open()
         elif self._prof is not None and trainer.step >= self.end_step:
             if trainer.device.type == "cuda":
                 torch.cuda.synchronize(trainer.device)
@@ -119,6 +129,8 @@ class ProfilerHook:
                 self.logdir, f"trace-{self.start_step}-{self.end_step}.json")
             self._prof.export_chrome_trace(self.trace_path)
             self._prof = None
+            if self.recording is not None:
+                self.recording.close()
 
 
 class DeepInsightHook:

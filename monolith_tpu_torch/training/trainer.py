@@ -69,6 +69,15 @@ as in the JAX package, a tiered trainer runs no blocks (the sharded and
 multi-host trainers' do: their revived rows are taken at each step's
 pack).
 
+Spans (utils/tracing.py; kept only while a recording is open) mark the
+layers of the loop: `train.fetch`, `train.stage` (its `stage.wait` for the
+pinned buffer, per step `stage.prepare` and `stage.copy_batch`, then
+`stage.upload`), `train.dispatch` holding a `train.step` per step, itself
+holding `step.decode`, `step.lookup`, `step.pool`, `step.forward`,
+`step.backward`, `step.dense_update`, `step.metrics` and `step.apply`, and
+`train.hooks`. The per-step path has a `train.stage` and a `train.step` a
+step; the sharded and multi-host trainers take the same names.
+
 Loss and AUC accumulate on the device (metrics.device_metrics_update) and
 are read back only by `_drain_metrics`. A task whose batch carries no
 "label", or whose predictions are a dict, accumulates the loss alone.
@@ -103,6 +112,7 @@ from monolith_tpu_torch.metrics import (StreamingAUC, StreamingMean,
                                         device_metrics_update)
 from monolith_tpu_torch.ops.clip import clip_by_global_norm
 from monolith_tpu_torch.training.task import RecTask
+from monolith_tpu_torch.utils.tracing import span
 
 _WIRE_DTYPES = {np.dtype(np.float32).str: torch.float32,
                 np.dtype(np.int32).str: torch.int32}
@@ -222,24 +232,27 @@ class Trainer:
         engine = self.engine
         ew = self._engine_words(layout[0][2][0])
         revive = None
-        if engine.fuse_wire:
-            _, stats = engine.prepare_wire(fid_batch, ts=ts, out=out[:ew])
-        else:
-            inputs, stats = engine.prepare_batch(fid_batch, ts=ts)
-            if engine.wire_capable:
-                out[:ew] = engine.pack_wire(inputs)
+        with span("stage.prepare", stepno):
+            if engine.fuse_wire:
+                _, stats = engine.prepare_wire(fid_batch, ts=ts, out=out[:ew])
             else:
-                engine.pack_arrays(inputs, out[:ew])
-            if engine.config.tiered:
-                key = "revive_pos" if engine.packed else "revive_rows"
-                revive = {t: (tin[key], tin["revive_values"])
-                          for t, tin in inputs.items()}
-        off = ew
-        for k, _, shape in layout:
-            n = int(np.prod(shape))
-            out[off:off + n] = np.ascontiguousarray(batch[k]).view(np.int32).ravel()
-            off += n
-        out[off] = stepno
+                inputs, stats = engine.prepare_batch(fid_batch, ts=ts)
+                if engine.wire_capable:
+                    out[:ew] = engine.pack_wire(inputs)
+                else:
+                    engine.pack_arrays(inputs, out[:ew])
+                if engine.config.tiered:
+                    key = "revive_pos" if engine.packed else "revive_rows"
+                    revive = {t: (tin[key], tin["revive_values"])
+                              for t, tin in inputs.items()}
+        with span("stage.copy_batch", stepno):
+            off = ew
+            for k, _, shape in layout:
+                n = int(np.prod(shape))
+                out[off:off + n] = np.ascontiguousarray(
+                    batch[k]).view(np.int32).ravel()
+                off += n
+            out[off] = stepno
         return stats, revive
 
     def _pack_block(self, pairs, ts: int) -> Tuple[torch.Tensor, List[Dict],
@@ -261,7 +274,8 @@ class Trainer:
         if key not in self._wires:
             self._wires[key] = _PinnedWires(len(pairs), words, self.device)
         staging = self._wires[key]
-        host = staging.host()
+        with span("stage.wait", self.step):
+            host = staging.host()
         stats, revives = [], []
         for i, (fid_batch, batch) in enumerate(pairs):
             if i and self._batch_layout(batch) != layout:
@@ -271,7 +285,9 @@ class Trainer:
                                               self.step + i, host[i])
             stats.append(st)
             revives.append(revive)
-        return staging.upload(), stats, layout, revives
+        with span("stage.upload", self.step):
+            wires = staging.upload()
+        return wires, stats, layout, revives
 
     def _decode(self, wire: torch.Tensor, layout):
         """Device-side split of one step's wire [W]: the engine's region,
@@ -371,26 +387,31 @@ class Trainer:
         clip and the dense update. Returns (loss, preds, aux, gradients wrt
         the unique rows {table: [U, dim]})."""
         engine, task = self.engine, self.task
-        # differentiate wrt the gathered unique rows (after the exchange,
-        # which stays outside autograd), not the pool
-        leaves = {t: u.detach().requires_grad_()
-                  for t, u in self._exchange(unique, inputs).items()}
-        pooled = engine.pool_features(engine.retrieve_unique(leaves, step),
-                                      inputs)
-        out = self._forward(pooled, batch_t, step, training=True)
-        loss, aux = task.loss(out, batch_t)
-        named = list(self.module.named_parameters())
-        grads = torch.autograd.grad(
-            loss, [p for _, p in named] + list(leaves.values()))
-        gp = {name: g for (name, _), g in zip(named, grads)}
-        gu = self._exchange_back(dict(zip(leaves, grads[len(named):])),
-                                 inputs)
-        loss, gp = self._reduce_dense(loss.detach(), gp)
-        if self.config.clip_norm > 0:
-            gp, _ = clip_by_global_norm(gp, self.config.clip_norm)
-        self.tx.update_(named, gp, self.opt_state)
-        preds = self._gather(_detach(task.predictions(out)))
-        self._metrics_update(loss, preds, batch_t)
+        with span("step.pool", step):
+            # differentiate wrt the gathered unique rows (after the
+            # exchange, which stays outside autograd), not the pool
+            leaves = {t: u.detach().requires_grad_()
+                      for t, u in self._exchange(unique, inputs).items()}
+            pooled = engine.pool_features(
+                engine.retrieve_unique(leaves, step), inputs)
+        with span("step.forward", step):
+            out = self._forward(pooled, batch_t, step, training=True)
+            loss, aux = task.loss(out, batch_t)
+        with span("step.backward", step):
+            named = list(self.module.named_parameters())
+            grads = torch.autograd.grad(
+                loss, [p for _, p in named] + list(leaves.values()))
+            gp = {name: g for (name, _), g in zip(named, grads)}
+            gu = self._exchange_back(dict(zip(leaves, grads[len(named):])),
+                                     inputs)
+        with span("step.dense_update", step):
+            loss, gp = self._reduce_dense(loss.detach(), gp)
+            if self.config.clip_norm > 0:
+                gp, _ = clip_by_global_norm(gp, self.config.clip_norm)
+            self.tx.update_(named, gp, self.opt_state)
+        with span("step.metrics", step):
+            preds = self._gather(_detach(task.predictions(out)))
+            self._metrics_update(loss, preds, batch_t)
         return loss, preds, _detach(aux), gu
 
     # the sharded trainer's seams (parallel/sharded.py); identities here
@@ -429,17 +450,20 @@ class Trainer:
         if not engine.packed:
             # structure of arrays: init (and revive) the new rows first, so
             # that the forward reads them initialised
-            engine.admit_rows(self.table_states, inputs, seed, step)
-            unique = engine.lookup_unique(self.table_states, inputs)
+            with span("step.lookup", step):
+                engine.admit_rows(self.table_states, inputs, seed, step)
+                unique = engine.lookup_unique(self.table_states, inputs)
             loss, preds, aux, gu = self._dense_step(inputs, batch_t, unique,
                                                     step)
-            engine.apply_gradients(self.table_states, inputs, gu, step,
-                                   seed=seed)
+            with span("step.apply", step):
+                engine.apply_gradients(self.table_states, inputs, gu, step,
+                                       seed=seed)
             return loss, preds, aux
-        prows, unique = engine.fused_lookup(self.table_states, inputs, seed,
-                                            step)
+        with span("step.lookup", step):
+            prows, unique = engine.fused_lookup(self.table_states, inputs,
+                                                seed, step)
         loss, preds, aux, gu = self._dense_step(inputs, batch_t, unique, step)
-        with torch.no_grad():
+        with span("step.apply", step), torch.no_grad():
             engine.fused_apply(self.table_states, inputs, prows, gu, step,
                                seed=seed)
         return loss, preds, aux
@@ -461,15 +485,16 @@ class Trainer:
         nothing; the order is kept for the numerics. Returns (loss, preds,
         aux, pending = (rows, new packed rows) by table)."""
         engine, seed = self.engine, self.config.seed
-        prows_stale, unique_stale = engine.fused_lookup(
-            self.table_states, inputs, seed, step)
+        with span("step.lookup", step):
+            prows_stale, unique_stale = engine.fused_lookup(
+                self.table_states, inputs, seed, step)
         if pending is not None:
-            with torch.no_grad():
+            with span("step.apply", step), torch.no_grad():
                 engine.scatter_rows(self.table_states, *pending, step,
                                     seed=seed)
         loss, preds, aux, gu = self._dense_step(inputs, batch_t,
                                                 unique_stale, step)
-        with torch.no_grad():
+        with span("step.apply", step), torch.no_grad():
             prows_latest, _ = engine.fused_lookup(self.table_states, inputs,
                                                   seed, step)
             new_p = engine.optimize_rows(inputs, prows_latest, gu, step,
@@ -484,8 +509,16 @@ class Trainer:
         batch: dense-side float32/int32 arrays incl. "label". Returns
         {"loss", "preds", "stats", "aux"} with loss/preds on the device."""
         ts = int(time.time()) if ts is None else ts
-        inputs, batch_t, stats = self._upload(fid_batch, batch, ts)
-        loss, preds, aux = self._step_core(inputs, batch_t, self.step)
+        with span("train.stage", self.step):
+            wires, stats, layout, revives = self._pack_block(
+                [(fid_batch, batch)], ts)
+            revive = self._upload_revive(revives[0])
+        with span("train.step", self.step):
+            with span("step.decode", self.step):
+                inputs, batch_t = self._decode(wires[0], layout)
+                self._attach_revive(inputs, revive)
+            loss, preds, aux = self._step_core(inputs, batch_t, self.step)
+        stats = stats[0]
         self.step += 1
         return {"loss": loss, "preds": preds, "stats": stats, "aux": aux}
 
@@ -495,10 +528,11 @@ class Trainer:
         before. The staged block bakes in step numbers and admissions: it
         MUST be the next thing dispatched (train_step_block checks)."""
         ts = int(time.time()) if ts is None else ts
-        wires, stats, layout, revives = self._pack_block(pairs, ts)
-        return {"wires": wires, "stats": stats, "base_step": self.step,
-                "K": len(pairs), "layout": layout,
-                "revives": [self._upload_revive(r) for r in revives]}
+        with span("train.stage", self.step):
+            wires, stats, layout, revives = self._pack_block(pairs, ts)
+            return {"wires": wires, "stats": stats, "base_step": self.step,
+                    "K": len(pairs), "layout": layout,
+                    "revives": [self._upload_revive(r) for r in revives]}
 
     def train_step_block(self, pairs, ts: Optional[int] = None,
                          staged: Optional[Dict] = None) -> Dict:
@@ -523,35 +557,45 @@ class Trainer:
                     f"{staged['base_step'] + staged['K'] - 1}) is not the "
                     f"next dispatch ({K} steps from {self.step}): "
                     f"stage_block must be followed by its own dispatch")
+        with span("train.dispatch", self.step):
+            return self._dispatch_block(pairs, ts, staged)
+
+    def _dispatch_block(self, pairs, ts, staged) -> Dict:
+        """train_step_block's body, inside its "train.dispatch" span."""
+        K, base = len(pairs), self.step
+        if staged is not None:
             wires, stats, layout, revives = (
                 staged["wires"], staged["stats"], staged["layout"],
                 staged["revives"])
         else:
             ts = int(time.time()) if ts is None else ts
-            wires, stats, layout, revives = self._pack_block(pairs, ts)
-            revives = [self._upload_revive(r) for r in revives]
+            with span("train.stage", base):
+                wires, stats, layout, revives = self._pack_block(pairs, ts)
+                revives = [self._upload_revive(r) for r in revives]
         # the 1-step-stale schedule runs on packed rows (as in the JAX
         # package); a structure-of-arrays block steps synchronously
         stale = self.config.engine.async_optimize and self.engine.packed
         pending = None
         losses, preds, auxes = [], [], []
         for i in range(K):
-            # the step number comes from the host, which knows it
-            inputs, batch_t = self._decode(wires[i], layout)
-            self._attach_revive(inputs, revives[i])
-            if stale:
-                loss, p, aux, pending = self._step_async(
-                    inputs, batch_t, self.step + i, pending)
-            else:
-                loss, p, aux = self._step_core(inputs, batch_t, self.step + i)
+            with span("train.step", base + i):
+                # the step number comes from the host, which knows it
+                with span("step.decode", base + i):
+                    inputs, batch_t = self._decode(wires[i], layout)
+                    self._attach_revive(inputs, revives[i])
+                if stale:
+                    loss, p, aux, pending = self._step_async(
+                        inputs, batch_t, base + i, pending)
+                else:
+                    loss, p, aux = self._step_core(inputs, batch_t, base + i)
             losses.append(loss)
             preds.append(p)
             auxes.append(aux)
         if pending is not None:
-            with torch.no_grad():
+            # the last step's deferred write-back
+            with span("step.apply", base + K - 1), torch.no_grad():
                 self.engine.scatter_rows(self.table_states, *pending,
-                                         self.step + K,
-                                         seed=self.config.seed)
+                                         base + K, seed=self.config.seed)
         self.step += K
         if isinstance(preds[0], dict):
             preds = {k: torch.stack([p[k] for p in preds]) for k in preds[0]}
@@ -704,7 +748,9 @@ class Trainer:
                 break
             out = self.train_step(fid_batch, batch)
             examples += len(next(iter(batch.values())))
-            if _call_hooks(hooks, self, out):
+            with span("train.hooks", self.step - 1):
+                stop = _call_hooks(hooks, self, out)
+            if stop:
                 break
             if self.config.log_every and (self.step % self.config.log_every == 0):
                 self._log(t0, examples)
@@ -726,11 +772,12 @@ class Trainer:
 
         def fetch(want):
             pairs = []
-            for _ in range(want):
-                try:
-                    pairs.append(next(it))
-                except StopIteration:
-                    break
+            with span("train.fetch", self.step):
+                for _ in range(want):
+                    try:
+                        pairs.append(next(it))
+                    except StopIteration:
+                        break
             return pairs
 
         def blockable(pairs):
@@ -755,7 +802,8 @@ class Trainer:
             staged = None
             done += len(pairs)
             examples += sum(len(next(iter(b.values()))) for _, b in pairs)
-            stop = _call_hooks(hooks, self, out)
+            with span("train.hooks", self.step - len(pairs)):
+                stop = _call_hooks(hooks, self, out)
             log_now = self.config.log_every and (
                 self.step % self.config.log_every < len(pairs))
             if stop or (steps is not None and done >= steps):
