@@ -40,7 +40,8 @@ package's one process hands its device r. A step:
 
 So a step makes 1 + 2 x (wire dtypes) all-to-alls. The host phases (local
 prepare, a2a#1, owner map, pack) run when the step's wire is packed: in
-`stage_block` a block ahead, as the Trainer's prepare does, so admission
+`stage_block` a block ahead, on the calling thread (`_stage_overlaps` is
+False: a2a#1 must not run beside the step's collectives), so admission
 happens at staging time as in the single-device Trainer (the JAX
 package's callback admits when the device step runs; the host stores see
 the same calls in the same order either way). Blocks (`stage_block` /

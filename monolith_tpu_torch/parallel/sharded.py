@@ -334,6 +334,12 @@ class ShardedTrainer(Trainer):
     def _stage_capable(self) -> bool:
         return True
 
+    def _stage_overlaps(self) -> bool:
+        """Every step packed on the calling thread: the pack runs every
+        shard's prepare, and the multi-host one gloo collectives, which a
+        second thread would interleave with the step's."""
+        return False
+
     def _eval_forward(self, fid_batch, batch):
         """Forward only through the allgather exchange, whatever the
         training one (the JAX trainer's evaluate always all-gathers)."""

@@ -42,7 +42,9 @@ The block path also reports the device operations (kernels and copies)
 per step, and a fifth window under a recording of the program's spans
 (utils/tracing.py): calls, ms and self ms per step of each span, the
 host prepare (`stage.prepare`), the batch copy and the upload's start
-among them.
+among them, the calling thread's spans first, then the stage worker's
+(steps 1..K-1 of each block), with the share of the worker's prepares
+whose wire was ready when its step took it.
 
 With `--serve` it measures a serving replica instead: the trainer takes 25
 full-width steps, is exported, and a `ServingModel` loads the export on the
@@ -69,6 +71,7 @@ import pstats
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
@@ -340,9 +343,21 @@ def main(argv=None):
             recorded_ms = run([data.batch() for _ in range(n)])
         print(f"the program's spans over {n} more steps ({recorded_ms} "
               f"ms/step recorded): span, calls, ms and self ms per step")
-        for name, t in rec.totals().items():
-            print(f"  {name:18s} {t.count / n:6.3f} {t.seconds / n * 1e3:9.4f}"
-                  f" {t.self_seconds / n * 1e3:9.4f}")
+        main = threading.get_ident()
+        for thread in sorted({s.thread for s in rec.spans},
+                             key=lambda t: t != main):
+            if thread != main:
+                print("  on the stage worker's thread:")
+            for name, t in rec.totals(thread=thread).items():
+                print(f"  {name:18s} {t.count / n:6.3f} "
+                      f"{t.seconds / n * 1e3:9.4f} "
+                      f"{t.self_seconds / n * 1e3:9.4f}")
+        worked = sum(s.name == "stage.prepare" and s.thread != main
+                     for s in rec.spans)
+        if worked:
+            late = sum(s.name == "stage.wire_wait" for s in rec.spans)
+            print(f"stage worker: {worked} prepares, {late} wires late: "
+                  f"hit share {1 - late / worked}")
     out = io.StringIO()
     pstats.Stats(host_prof, stream=out).sort_stats("tottime").print_stats(25)
     print("host time by function (cProfile, whole window):")

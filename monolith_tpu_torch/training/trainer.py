@@ -36,15 +36,32 @@ next step draws what the original's would have. (The JAX trainer passes
 no `rngs`, so such a layer cannot train there: ROADMAP fault R3.)
 
 Block dispatch (`TrainerConfig.steps_per_dispatch = K > 1`): `stage_block`
-packs K consecutive batches into one pinned [K, W] buffer and starts ONE
-copy for all of them; `train_step_block` then launches the K steps' device
-work from that buffer with no host-device synchronisation between them.
+packs K consecutive batches into one pinned [K, W] buffer and starts its
+upload; `train_step_block` then launches the K steps' device work from
+that buffer with no host-device synchronisation between them.
 `_train_blocked` stages block k+1 right after dispatching block k, so the
 host's pack and the upload run while the card drains block k's launches.
-The host still makes every launch: a block saves K - 1 uploads and their
+The host still makes every launch: a block saves K - 1 uploads' worth of
 bookkeeping, not the launches. On the CPU a block equals K sequential
 steps bit for bit (the host's id -> row mapping never depends on device
 values).
+
+On the fused wire (`_stage_overlaps`) the stage packs only step 0 and
+sends its row; the trainer's stage worker, a second host thread started
+at the first such block, packs steps 1..K-1 in order into their rows
+while the calling thread dispatches the steps before them (the native
+prepare releases the interpreter lock), and the dispatch of step i waits
+for row i, then sends it: one copy a row, on the stream, before the step's
+decode. The worker touches host memory alone (the host stores, the pinned
+rows); every CUDA call stays on the calling thread. The prepares run in
+the serial pack's order with the same timestamps and step numbers, so the
+wires are the serial pack's byte for byte. Nothing is packed past the
+block being dispatched, and `train_step_block` returns (or raises) only
+once the worker holds nothing, so hooks see the host stores as with the
+serial pack. A pack that raises at step j raises at step j's dispatch,
+after steps 0..j-1 were dispatched; no later step is packed. The sharded
+and multi-host trainers pack every step on the calling thread (their
+packs run collectives), as do the per-step path, evaluate and predict.
 
 With `EngineConfig.async_optimize` the block runs the 1-step-stale
 schedule (`_step_async`): step i's forward gathers its rows before step
@@ -75,8 +92,12 @@ pinned buffer, per step `stage.prepare` and `stage.copy_batch`, then
 `stage.upload`), `train.dispatch` holding a `train.step` per step, itself
 holding `step.decode`, `step.lookup`, `step.pool`, `step.forward`,
 `step.backward`, `step.dense_update`, `step.metrics` and `step.apply`, and
-`train.hooks`. The per-step path has a `train.stage` and a `train.step` a
-step; the sharded and multi-host trainers take the same names.
+`train.hooks`. An overlapped stage holds step 0's prepare and copy; the
+stage worker's thread holds a `stage.worker` a block around the prepares
+and copies of steps 1..K-1, and a step whose row is not packed when it
+needs it opens `stage.wire_wait` first. The per-step path has a
+`train.stage` and a `train.step` a step; the sharded and multi-host
+trainers take the same names.
 
 Loss and AUC accumulate on the device (metrics.device_metrics_update) and
 are read back only by `_drain_metrics`. A task whose batch carries no
@@ -94,8 +115,10 @@ pointer).
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -134,9 +157,10 @@ class TrainerConfig:
 
 class _PinnedWires:
     """Two pinned host buffers [K, W] for the wires of K steps (K = 1: the
-    per-step path), used in turn. A buffer is refilled only after the copy
-    that last read it has finished (its CUDA event), so the host packs the
-    next block while this block's copy may still be in flight."""
+    per-step path), used in turn. A buffer is refilled only after the
+    copies that last read it have finished (its CUDA event), so the host
+    packs the next block while this block's copies may still be in
+    flight."""
 
     def __init__(self, steps: int, words: int, device: torch.device):
         self.device = device
@@ -165,6 +189,67 @@ class _PinnedWires:
         self.i ^= 1
         return wires
 
+    def upload_rows(self) -> Tuple[torch.Tensor, Callable[[int], None]]:
+        """Send the buffer to the device row by row, as its rows are
+        filled. Returns its device buffer [K, W], no row sent yet, and
+        `send(r)`, which issues row r's copy on the current stream
+        (non_blocking from the pinned row, so that a step launched after it
+        reads it) and records the buffer's event after it, so that the
+        event follows the last row sent."""
+        buf = self.bufs[self.i]
+        wires = torch.empty(buf.shape, dtype=buf.dtype, device=self.device)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            event = self.events[self.i] = torch.cuda.Event()
+        self.i ^= 1
+
+        def send(r: int) -> None:
+            wires[r].copy_(buf[r], non_blocking=cuda)
+            if cuda:
+                event.record()
+        return wires, send
+
+
+class _Prepares:
+    """Steps 1..K-1 of one staged block, packed in order by the stage
+    worker (`run`) into their rows of the pinned buffer while the calling
+    thread dispatches the steps before them. `take(r)`, on the dispatching
+    thread, waits for row r and sends it. A pack that raises ends the
+    block there: `take` of that step raises its exception."""
+
+    def __init__(self, pack, args: List[tuple], send: Callable[[int], None],
+                 base: int):
+        self.pack, self.args, self.send, self.base = pack, args, send, base
+        self.ready = [threading.Event() for _ in range(len(args) + 1)]
+        self.results: List[Optional[tuple]] = [None] * (len(args) + 1)
+        self.error: Optional[BaseException] = None
+
+    def run(self) -> None:
+        """The worker's side: host memory only, no CUDA call."""
+        try:
+            with span("stage.worker", self.base):
+                for r, args in enumerate(self.args, 1):
+                    try:
+                        self.results[r] = self.pack(*args)
+                    except BaseException as e:  # raised again by take(r)
+                        self.error = e
+                        return
+                    finally:
+                        self.ready[r].set()
+        finally:
+            self.pack = self.args = None
+
+    def take(self, r: int) -> tuple:
+        """Row r's (stats, revive) once its pack is done, its copy issued;
+        a `stage.wire_wait` span while it is not."""
+        if not self.ready[r].is_set():
+            with span("stage.wire_wait", self.base + r):
+                self.ready[r].wait()
+        if self.results[r] is None:
+            raise self.error
+        self.send(r)
+        return self.results[r]
+
 
 class Trainer:
     """Owns engine host state, table pools, dense module and optimizer."""
@@ -191,6 +276,8 @@ class Trainer:
         self.loss_mean = StreamingMean()
         self._dev_metrics = None
         self._wires: Dict[tuple, _PinnedWires] = {}
+        self._worker: Optional[ThreadPoolExecutor] = None
+        self._prepared: Optional[Future] = None
 
     def _own_shard(self) -> Optional[int]:
         """The table shard this trainer serves, for its engine (None: the
@@ -255,20 +342,32 @@ class Trainer:
             out[off] = stepno
         return stats, revive
 
-    def _pack_block(self, pairs, ts: int) -> Tuple[torch.Tensor, List[Dict],
-                                                    tuple, List]:
+    def _pack_block(self, pairs, ts: int, overlap: bool = False
+                    ) -> Tuple[torch.Tensor, List, tuple, List,
+                               Optional[_Prepares]]:
         """Pack K consecutive batches into one pinned [K, W] buffer and
-        start its upload (one non_blocking copy). Mutates the host stores
-        (admission, row assignment) exactly like K sequential packs, and
-        bakes in the step numbers self.step .. self.step + K - 1, so the
-        result must be dispatched before any other step runs. Returns
-        (wires [K, W] on the device, K stats, batch layout, K revives)."""
+        start its upload. Mutates the host stores (admission, row
+        assignment) exactly like K sequential packs, and bakes in the step
+        numbers self.step .. self.step + K - 1, so the result must be
+        dispatched before any other step runs. Returns (wires [K, W] on the
+        device, K stats, batch layout, K revives, prepares).
+
+        Without `overlap` every step is packed here and the buffer goes in
+        one non_blocking copy; prepares is None. With it (K >= 2,
+        `_stage_overlaps`) only step 0 is packed here and its row sent;
+        steps 1..K-1 are packed in order by the stage worker, and
+        `prepares.take(r)` hands each to the dispatch, which fills in its
+        stats and revive (None until then)."""
+        self._join_prepares()
         if len(pairs) > 1 and not self._block_capable():
             raise ValueError("blocks need the fused wire: a trainer on "
                              "the multi-array path, and a tiered trainer "
                              "(its revived rows are taken from the archive "
                              "at each step's prepare), steps one by one")
         layout = self._batch_layout(pairs[0][1])
+        if any(self._batch_layout(b) != layout for _, b in pairs[1:]):
+            raise ValueError("the batches of a block must share one "
+                             "layout (keys, dtypes, shapes)")
         words = self._full_wire_words(layout)
         key = (layout, len(pairs), words)
         if key not in self._wires:
@@ -276,18 +375,29 @@ class Trainer:
         staging = self._wires[key]
         with span("stage.wait", self.step):
             host = staging.host()
-        stats, revives = [], []
-        for i, (fid_batch, batch) in enumerate(pairs):
-            if i and self._batch_layout(batch) != layout:
-                raise ValueError("the batches of a block must share one "
-                                 "layout (keys, dtypes, shapes)")
-            st, revive = self._pack_full_wire(fid_batch, batch, layout, ts,
-                                              self.step + i, host[i])
-            stats.append(st)
-            revives.append(revive)
+        args = [(fb, b, layout, ts, self.step + i, host[i])
+                for i, (fb, b) in enumerate(pairs)]
+        n = 1 if overlap else len(args)
+        packed = [self._pack_full_wire(*a) for a in args[:n]]
+        stats = [p[0] for p in packed] + [None] * (len(args) - n)
+        revives = [p[1] for p in packed] + [None] * (len(args) - n)
         with span("stage.upload", self.step):
-            wires = staging.upload()
-        return wires, stats, layout, revives
+            if not overlap:
+                return staging.upload(), stats, layout, revives, None
+            wires, send = staging.upload_rows()
+            send(0)
+        prepares = _Prepares(self._pack_full_wire, args[1:], send, self.step)
+        if self._worker is None:    # the stage worker: one thread, lazily
+            self._worker = ThreadPoolExecutor(1, "mt-stage")
+        self._prepared = self._worker.submit(prepares.run)
+        return wires, stats, layout, revives, prepares
+
+    def _join_prepares(self) -> None:
+        """Wait until the stage worker holds no block of this trainer, so
+        that nothing else touches the host stores meanwhile."""
+        prepared, self._prepared = self._prepared, None
+        if prepared is not None:
+            prepared.result()
 
     def _decode(self, wire: torch.Tensor, layout):
         """Device-side split of one step's wire [W]: the engine's region,
@@ -311,7 +421,7 @@ class Trainer:
     def _upload(self, fid_batch, batch, ts):
         """Pack one step's wire and send it to the device; returns (decoded
         engine inputs, batch tensors, stats)."""
-        wires, stats, layout, revives = self._pack_block(
+        wires, stats, layout, revives, _ = self._pack_block(
             [(fid_batch, batch)], ts)
         inputs, batch_t = self._decode(wires[0], layout)
         self._attach_revive(inputs, self._upload_revive(revives[0]))
@@ -510,7 +620,7 @@ class Trainer:
         {"loss", "preds", "stats", "aux"} with loss/preds on the device."""
         ts = int(time.time()) if ts is None else ts
         with span("train.stage", self.step):
-            wires, stats, layout, revives = self._pack_block(
+            wires, stats, layout, revives, _ = self._pack_block(
                 [(fid_batch, batch)], ts)
             revive = self._upload_revive(revives[0])
         with span("train.step", self.step):
@@ -525,14 +635,26 @@ class Trainer:
     def stage_block(self, pairs, ts: Optional[int] = None) -> Dict:
         """Pack the NEXT block and start its host-to-device upload now, so
         that both overlap the device work of the block dispatched just
-        before. The staged block bakes in step numbers and admissions: it
-        MUST be the next thing dispatched (train_step_block checks)."""
+        before (on the fused wire: step 0 here, steps 1..K-1 on the stage
+        worker while the block dispatches). The staged block bakes in step
+        numbers and admissions: it MUST be the next thing dispatched
+        (train_step_block checks). Until then only the trainer's own packs
+        wait for the worker: touch the host stores in no other way in
+        between."""
         ts = int(time.time()) if ts is None else ts
         with span("train.stage", self.step):
-            wires, stats, layout, revives = self._pack_block(pairs, ts)
-            return {"wires": wires, "stats": stats, "base_step": self.step,
-                    "K": len(pairs), "layout": layout,
-                    "revives": [self._upload_revive(r) for r in revives]}
+            return self._stage(pairs, ts)
+
+    def _stage(self, pairs, ts: int) -> Dict:
+        """stage_block's body, inside its "train.stage" span. A block of
+        two or more steps whose pack `_stage_overlaps` leaves its steps
+        1..K-1 to the stage worker ("prepares"); the dispatch takes each
+        of their wires just before its step."""
+        wires, stats, layout, revives, prepares = self._pack_block(
+            pairs, ts, overlap=len(pairs) > 1 and self._stage_overlaps())
+        return {"wires": wires, "stats": stats, "base_step": self.step,
+                "K": len(pairs), "layout": layout, "prepares": prepares,
+                "revives": [self._upload_revive(r) for r in revives]}
 
     def train_step_block(self, pairs, ts: Optional[int] = None,
                          staged: Optional[Dict] = None) -> Dict:
@@ -550,28 +672,30 @@ class Trainer:
         whose predictions are a dict), "stats": list of K,
         "aux": {name: [K, ...]}} with the tensors on the device."""
         K = len(pairs)
-        if staged is not None:
-            if staged["base_step"] != self.step or staged["K"] != K:
+        try:
+            if staged is not None and (staged["base_step"] != self.step
+                                       or staged["K"] != K):
                 raise ValueError(
                     f"the staged block (steps {staged['base_step']}.."
                     f"{staged['base_step'] + staged['K'] - 1}) is not the "
                     f"next dispatch ({K} steps from {self.step}): "
                     f"stage_block must be followed by its own dispatch")
-        with span("train.dispatch", self.step):
-            return self._dispatch_block(pairs, ts, staged)
+            with span("train.dispatch", self.step):
+                return self._dispatch_block(pairs, ts, staged)
+        finally:
+            # returned or raised, the stage worker holds no block after
+            self._join_prepares()
 
     def _dispatch_block(self, pairs, ts, staged) -> Dict:
         """train_step_block's body, inside its "train.dispatch" span."""
         K, base = len(pairs), self.step
-        if staged is not None:
-            wires, stats, layout, revives = (
-                staged["wires"], staged["stats"], staged["layout"],
-                staged["revives"])
-        else:
+        if staged is None:
             ts = int(time.time()) if ts is None else ts
             with span("train.stage", base):
-                wires, stats, layout, revives = self._pack_block(pairs, ts)
-                revives = [self._upload_revive(r) for r in revives]
+                staged = self._stage(pairs, ts)
+        wires, stats, layout, revives, prepares = (
+            staged["wires"], staged["stats"], staged["layout"],
+            staged["revives"], staged["prepares"])
         # the 1-step-stale schedule runs on packed rows (as in the JAX
         # package); a structure-of-arrays block steps synchronously
         stale = self.config.engine.async_optimize and self.engine.packed
@@ -579,6 +703,9 @@ class Trainer:
         losses, preds, auxes = [], [], []
         for i in range(K):
             with span("train.step", base + i):
+                if prepares is not None and i:
+                    stats[i], revive = prepares.take(i)
+                    revives[i] = self._upload_revive(revive)
                 # the step number comes from the host, which knows it
                 with span("step.decode", base + i):
                     inputs, batch_t = self._decode(wires[i], layout)
@@ -711,6 +838,15 @@ class Trainer:
         overrides train_step_block either brings its own stage_block or
         returns False here, so that _train_blocked never hands it a block
         staged by another trainer's rules."""
+        return self.engine.fuse_wire
+
+    def _stage_overlaps(self) -> bool:
+        """Whether a block of two or more steps packs its steps 1..K-1 on
+        the stage worker while the steps before them dispatch: on the fused
+        wire, whose pack is this process's own host work (one native call
+        a step, which releases the interpreter lock). The sharded trainers,
+        whose packs run per-shard prepares and collectives, return False:
+        they pack on the calling thread."""
         return self.engine.fuse_wire
 
     def _block_eligible(self, batch) -> bool:

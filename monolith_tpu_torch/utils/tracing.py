@@ -18,13 +18,17 @@ thread): `start` and `end` on `time.perf_counter()`'s clock, `parent` the
 index of the enclosing span open on the same thread (-1 at the top), so
 that a span's self time is its duration less its children's; `step` the
 step number of a per-step span, the block's base step for a block span.
-Spans past the recording's `capacity` are counted in `dropped`, not kept.
-While a torch.profiler also runs, each span enters a `record_function`
-range "mt.<name>" too, which puts it in the profiler's trace beside the
-device's operations; outside a profiler no range is entered, so a traced
-step pays only the clock reads. A recording also keeps every garbage
-collection as a span "host.gc" (`arg` its generation), through a
-`gc.callbacks` entry that it removes when it closes.
+Spans open on more than one thread (the trainer's stage worker packs
+beside the dispatching thread), each with its own parents. Spans past the
+recording's `capacity` are counted in `dropped`, not kept. While a
+torch.profiler also runs, each span enters a `record_function` range
+"mt.<name>" too, which puts it in the profiler's trace beside the device's
+operations; the profiler keeps the ranges of the thread that started it
+only, so the stage worker's spans are in the recording alone. Outside a
+profiler no range is entered, so a traced step pays only the clock
+reads. A recording also keeps every garbage collection as a span
+"host.gc" (`arg` its generation), through a `gc.callbacks` entry that it
+removes when it closes.
 
 One recording is open at a time: the spans are the process's, as the
 profiler's ranges are.
@@ -114,6 +118,7 @@ class Recording:
         self.capacity = capacity
         self._items: List[Optional[list]] = [None] * capacity
         self._n = 0
+        self._taking = threading.RLock()
         self._stacks: Dict[int, List[int]] = {}
         self._gc_open: List[tuple] = []
 
@@ -144,10 +149,13 @@ class Recording:
     # -- spans -----------------------------------------------------------
 
     def _open(self, name: str, step: Optional[int], arg=None):
-        # no call between the read and the write of _n: a collection
-        # (whose callback opens a span) cannot take the same index
-        i = self._n
-        self._n = i + 1
+        # the lock keeps a second thread from taking the same index; no
+        # call between the read and the write of _n, so a collection
+        # (whose callback opens a span on the collecting thread) cannot
+        # either, and the lock is reentrant should one run inside it
+        with self._taking:
+            i = self._n
+            self._n = i + 1
         if i >= self.capacity:
             return -1, None
         rng = None
@@ -197,12 +205,14 @@ class Recording:
         return [Span(*item) for item in self._items[:min(self._n,
                                                           self.capacity)]]
 
-    def totals(self, before: float = math.inf) -> Dict[str, Total]:
+    def totals(self, before: float = math.inf,
+               thread: Optional[int] = None) -> Dict[str, Total]:
         """{name: (count, seconds, self seconds)} over the spans that closed
-        by `before` (perf_counter seconds); self seconds leave out the time
-        of the span's children."""
+        by `before` (perf_counter seconds), of one `thread` only if given;
+        self seconds leave out the time of the span's children."""
         spans = self.spans
-        closed = [s.end is not None and s.end <= before for s in spans]
+        closed = [s.end is not None and s.end <= before
+                  and thread in (None, s.thread) for s in spans]
         child_s = [0.0] * len(spans)
         for s, ok in zip(spans, closed):
             if ok and s.parent >= 0:

@@ -257,10 +257,67 @@ def test_async_block_launch_counts(card):
     assert torch.isfinite(out["loss"]).all() and tr.step == 6
 
 
+@pytest.mark.parametrize("stale", [False, True], ids=["sync", "async"])
+def test_overlapped_block_equals_the_serial_pack_on_the_card(card, stale):
+    """Two staged blocks of 8 whose steps 1..7 the stage worker packs,
+    step 5's pack slowed so that its row is sent after a wait, against a
+    trainer that packs every step on the calling thread: the device wires
+    and the stats equal bit for bit, each host store's map too; no
+    synchronisation inside a block; losses rtol 1e-4 and pool atol 1e-5
+    (the pooling backward's atomics)."""
+    import threading
+    import time
+
+    class Serial(Trainer):
+        def _stage_overlaps(self):
+            return False
+    data = SyntheticCTR(num_users=400, num_items=300, batch_size=256,
+                        seed=4)
+    batches = [data.batch() for _ in range(17)]
+    over = _small_deepfm(card, async_optimize=stale)
+    serial = Serial(over.task, over.config, device=card)
+    main, real = threading.get_ident(), over._pack_full_wire
+
+    def slowed(fid_batch, batch, layout, ts, stepno, out):
+        if stepno % 8 == 5 and threading.get_ident() != main:
+            time.sleep(0.05)
+        return real(fid_batch, batch, layout, ts, stepno, out)
+    over._pack_full_wire = slowed
+    outs = {}
+    for name, tr in (("over", over), ("serial", serial)):
+        tr.train_step(*batches[0], ts=3)
+        got = []
+        for blk in range(2):
+            pairs = batches[1 + 8 * blk:9 + 8 * blk]
+            staged = tr.stage_block(pairs, ts=4 + blk)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = tr.train_step_block(pairs, staged=staged)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            got.append((staged["wires"].cpu(), out))
+        outs[name] = got
+    for (wa, oa), (wb, ob) in zip(outs["over"], outs["serial"]):
+        assert torch.equal(wa, wb)
+        assert oa["stats"] == ob["stats"]
+        np.testing.assert_allclose(oa["loss"].cpu().numpy(),
+                                   ob["loss"].cpu().numpy(), rtol=1e-4)
+    for t in over.engine.tables:
+        for x, y in zip(over.engine.store_of(t).save(),
+                        serial.engine.store_of(t).save()):
+            np.testing.assert_array_equal(x, y)
+    np.testing.assert_allclose(
+        over.table_states["sparse"]["data"].cpu().numpy(),
+        serial.table_states["sparse"]["data"].cpu().numpy(), atol=1e-5,
+        rtol=0)
+
+
 def test_staged_buffer_is_refilled_only_after_its_copys_event(card):
     """Two pinned buffers per (layout, K), used in turn: staging block n+2
     refills the buffer block n was sent from, and `host()` waits for that
-    copy's event first. The device copy of block n keeps its content."""
+    block's copies' event first (recorded after each row's copy, the
+    stage worker filling rows 1..K-1 while the block dispatches). The
+    device copy of block n keeps its content."""
     data = SyntheticCTR(num_users=400, num_items=300, batch_size=64, seed=2)
     batches = [data.batch() for _ in range(9)]
     tr = _small_deepfm(card)
@@ -270,8 +327,8 @@ def test_staged_buffer_is_refilled_only_after_its_copys_event(card):
     staging = tr._wires[key]
     assert all(b.is_pinned() for b in staging.bufs)
     assert staging.events[0] is not None and staging.events[1] is None
-    sent = staging.bufs[0].clone()
     tr.train_step_block(batches[1:5], staged=a)
+    sent = staging.bufs[0].clone()
     b = tr.stage_block(batches[5:9])
     assert staging.events[1] is not None and staging.i == 0
     tr.train_step_block(batches[5:9], staged=b)

@@ -3,17 +3,19 @@
 Off: a trainer's block records nothing, registers no `gc.callbacks` entry
 and enters no `record_function`, under a profiler too; a disabled span
 costs about a function call. On: the span tree of the training step (names,
-parents, step ids, each child inside its parent) on the block path, the
-1-step-stale block, the per-step path and the structure-of-arrays step;
-garbage collections as `host.gc`; the `mt.` ranges a CPU torch.profiler
-shows, name for name and count for count; the capacity; one recording at a
-time; `ProfilerHook`'s Chrome trace. Small DeepFM (dim 8, hidden (16,),
-batch 32).
+parents, step ids, each child inside its parent) on the block path (the
+stage worker's spans on its own thread), the 1-step-stale block, the
+per-step path and the structure-of-arrays step; garbage collections as
+`host.gc`; the `mt.` ranges a CPU torch.profiler shows for the thread that
+started it, name for name and count for count; the capacity; one recording
+at a time; `ProfilerHook`'s Chrome trace. Small DeepFM (dim 8, hidden
+(16,), batch 32).
 """
 
 import collections
 import gc
 import json
+import threading
 import time
 
 import pytest
@@ -107,27 +109,40 @@ def test_off_records_nothing(monkeypatch):
 @pytest.mark.parametrize("stale", [False, True], ids=["sync", "async"])
 def test_block_span_tree(stale):
     """Two blocks of K = 4 through `train`: fetch, stage, dispatch, hooks
-    at the top; K train.step under each train.dispatch, each holding the
-    step's parts; the stage of block k + 1 holding its wait, K prepares and
-    copies, and its upload."""
+    at the top of the calling thread; K train.step under each
+    train.dispatch, each holding the step's parts (after a
+    `stage.wire_wait` where its wire was late); the stage of block k + 1
+    holding its wait, step 0's prepare and copy, and its upload. On the
+    stage worker's thread a `stage.worker` a block, holding the prepares
+    and copies of steps 1..K-1."""
     tr = trainer(async_optimize=True) if stale else trainer()
     spans = record(tr, batches(2 * K), 2 * K)
     check_nesting(spans)
     keep = without_gc(spans)
-    top = [i for i in keep if spans[i].parent == -1]
+    main = spans[keep[0]].thread
+    top = [i for i in keep if spans[i].parent == -1
+           and spans[i].thread == main]
     assert [(spans[i].name, spans[i].step) for i in top] == [
         ("train.fetch", 0), ("train.stage", 0), ("train.dispatch", 0),
         ("train.hooks", 0), ("train.fetch", K), ("train.stage", K),
         ("train.dispatch", K), ("train.hooks", K)]
+    worker = [i for i in keep if spans[i].parent == -1
+              and spans[i].thread != main]
+    assert [(spans[i].name, spans[i].step) for i in worker] == [
+        ("stage.worker", 0), ("stage.worker", K)]
+    for i in worker:
+        kids = [j for j in children(spans, i) if j in keep]
+        assert names(spans, kids) == ["stage.prepare",
+                                      "stage.copy_batch"] * (K - 1)
+        assert [spans[j].step for j in kids] == [
+            spans[i].step + s for s in range(1, K) for _ in range(2)]
     for i in top:
         kids = [j for j in children(spans, i) if j in keep]
         base = spans[i].step
         if spans[i].name == "train.stage":
-            assert names(spans, kids) == (["stage.wait"] + [
-                "stage.prepare", "stage.copy_batch"] * K + ["stage.upload"])
-            assert [spans[j].step for j in kids] == (
-                [base] + [base + s for s in range(K) for _ in range(2)]
-                + [base])
+            assert names(spans, kids) == ["stage.wait", "stage.prepare",
+                                          "stage.copy_batch", "stage.upload"]
+            assert {spans[j].step for j in kids} == {base}
         elif spans[i].name == "train.dispatch":
             steps = kids[:K]
             assert names(spans, steps) == ["train.step"] * K
@@ -140,6 +155,9 @@ def test_block_span_tree(stale):
                     for j in kids[K:]] == tail
             for n, j in enumerate(steps):
                 parts = [p for p in children(spans, j) if p in keep]
+                if names(spans, parts[:1]) == ["stage.wire_wait"]:
+                    assert n > 0
+                    parts = parts[1:]
                 want = list(STEP_PARTS)
                 if stale and n:
                     # the previous step's pending write-back, before the
@@ -192,8 +210,14 @@ def test_totals_and_self_time():
         assert totals[name].self_seconds == pytest.approx(dur - kids,
                                                           rel=1e-6)
         assert 0 <= totals[name].self_seconds < totals[name].seconds
+    # step.pool has no child but a garbage collection, which may fall
+    # anywhere (the stage worker's allocations count towards it too)
+    pool = {i for i, s in enumerate(spans) if s.name == "step.pool"}
+    assert {spans[j].name for i in pool for j in children(spans, i)} <= {
+        "host.gc"}
+    gc_s = sum(s.end - s.start for s in spans if s.parent in pool)
     assert totals["step.pool"].self_seconds == pytest.approx(
-        totals["step.pool"].seconds)
+        totals["step.pool"].seconds - gc_s)
     cut = spans[own_first(spans, "train.dispatch")].end
     early = rec.totals(before=cut)
     assert early["train.dispatch"].count == 1
@@ -218,8 +242,9 @@ def test_gc_is_recorded():
 
 
 def test_profiler_ranges_match_the_recording():
-    """Under a CPU torch.profiler every span is also an `mt.` range: the
-    same names, the same counts."""
+    """Under a CPU torch.profiler every span of the profiling thread is
+    also an `mt.` range: the same names, the same counts. The stage
+    worker's spans are in the recording alone."""
     tr = trainer()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -228,8 +253,11 @@ def test_profiler_ranges_match_the_recording():
     ranges = collections.Counter(
         e.name[len(tracing.PREFIX):] for e in prof.events()
         if e.name.startswith(tracing.PREFIX))
-    assert ranges == collections.Counter(s.name for s in rec.spans)
+    main = threading.get_ident()
+    assert ranges == collections.Counter(s.name for s in rec.spans
+                                         if s.thread == main)
     assert ranges["train.step"] == 2 * K and ranges["step.backward"] == 2 * K
+    assert sum(s.name == "stage.worker" for s in rec.spans) == 2
 
 
 def test_capacity_counts_dropped():
