@@ -3,7 +3,9 @@
 Two shared libraries with a plain C interface, both loaded with ctypes:
 
 - the host sparse core (`cpp/store.cc`, `batching.cc`, `batching2d.cc`),
-  compiled with g++ and the flags of `cpp/Makefile`;
+  compiled with g++ and the flags of `cpp/Makefile`, with the port's own
+  host source beside it (`csrc/prepare_wide.cc`: the fused prepare with
+  wide tables, over cpp/'s C entry points);
 - one library per CUDA source of `monolith_tpu_torch/csrc/` (`rows.cu`:
   the row gather/scatter; `rounding.cu`: stochastic rounding), each
   compiled by its own nvcc for `sm_90a`, so they can build in parallel.
@@ -80,16 +82,22 @@ def build_log(name: str) -> str:
         return f.read()
 
 
+#: the port's host sources, built into libmonolith_host.so beside cpp/'s
+HOST_SOURCES = ("prepare_wide.cc",)
+
+
 def build_host_library() -> str:
-    """libmonolith_host.so from cpp/ (cpp/Makefile's flags)."""
+    """libmonolith_host.so from cpp/ (cpp/Makefile's flags) and the port's
+    host sources."""
     srcs = [os.path.join(CPP_DIR, f)
             for f in ("store.cc", "batching.cc", "batching2d.cc")]
+    srcs += [os.path.join(CSRC_DIR, f) for f in HOST_SOURCES]
     deps = srcs + [os.path.join(CPP_DIR, "threadpool.h")]
     return build_shared(
         "libmonolith_host", deps,
         lambda out: ["g++", "-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
-                     "-march=native", "-DNDEBUG", "-shared", "-o", out,
-                     *srcs, "-lpthread"])
+                     "-march=native", "-DNDEBUG", "-shared", "-I", CPP_DIR,
+                     "-o", out, *srcs, "-lpthread"])
 
 
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"

@@ -3,7 +3,9 @@
 The port's single-shard fused path of the JAX package's engine. Each step:
 
   host (C++):  per table: concat feature fid streams -> dedup ->
-               HostStore map -> pack one int32 wire  (prepare_wire)
+               HostStore map -> pack one int32 wire  (prepare_wire; a
+               table whose unique cap is above 65535 carries int32 index
+               words, the others packed 16-bit pairs)
   device:      decode_wire -> gather the unique packed rows (K1) with
                new-row init as a select (fused_lookup) -> per-feature
                gather + pool (pool_features) -> model fwd/bwd -> per-segment
@@ -22,11 +24,14 @@ segments) and `scatter_rows` (the deferred write-back, one K2 per table, a
 step later).
 
 The multi-array path (`fuse_wire` False: the JAX package's other step
-path) takes what the 16-bit wire cannot carry: unique caps above 65535,
-`compact_wire=False` and the structure-of-arrays state of `packed="off"`
-(table.py). Its host side is `prepare_batch` (dedup and the id map in
-Python over the same C++), whose arrays `pack_arrays` lays into int32
-words and `decode_arrays` reads back on the device. A packed engine then
+path) takes what the wire does not carry: `compact_wire=False` and the
+structure-of-arrays state of `packed="off"` (table.py). The JAX package
+also sends unique caps above 65535 there; the port's wire carries them as
+a wide table (int32 index words, one a position), so that such a model
+runs blocks and the stage worker. Its host side is `prepare_batch`
+(dedup and the id map in Python over the same C++), whose arrays
+`pack_arrays` lays into int32 words and `decode_arrays` reads back on the
+device. A packed engine then
 steps with fused_lookup / fused_apply as on the wire; a
 structure-of-arrays engine with `admit_rows` (init of the new rows and the
 revive, one `index_copy_` an array), `lookup_unique` (`index_select`) and
@@ -67,9 +72,10 @@ the ranks that hold them. With `local_shards` (the multi-host trainer,
 parallel/multihost.py) the engine holds the host stores, and when tiered
 the archives, of those shards only (None for the others) and `shard` is
 the first of them; the trainer then maps ids in its own store. The
-sharded steps do not take the 16-bit wire, so their caps are not held to
-65535. `stores` and `archives` are the single-shard views (empty when S >
-1); `store_of` / `archive_of` give the engine's own shard's at any S.
+sharded steps do not take the wire, so their caps are not held to its
+rules. No path takes a unique cap above 2**31 - 1 (int32 indices).
+`stores` and `archives` are the single-shard views (empty when S > 1);
+`store_of` / `archive_of` give the engine's own shard's at any S.
 
 Decoded inputs and table states carry no shard axis (the JAX package's
 carry a leading one). Table states are updated in place by fused_apply,
@@ -184,6 +190,14 @@ class EngineConfig:
         return _index_dtype(self.compact_wire, 1, self.unique_cap)
 
 
+#: the largest unique cap whose wire indices travel as 16-bit words (they
+#: decode unsigned, with 0xFFFF the invalid sentinel); a table above it
+#: carries int32 index words (a wide table)
+NARROW_CAP = 65535
+#: the largest unique cap of any path: indices are int32
+MAX_CAP = 2 ** 31 - 1
+
+
 def _index_dtype(compact: bool, shards: int, cap: int):
     """int16 for values below shards * cap when that is <= 32768 and the
     compact wire is on; int32 otherwise (the JAX package's rule)."""
@@ -277,6 +291,9 @@ class EmbeddingEngine:
             raise ValueError("per-table unique_caps/new_caps require "
                              "num_shards == 1 (sharded paths use the "
                              "global caps)")
+        if config.max_ucap > MAX_CAP:
+            raise ValueError(f"unique caps above 2**31 - 1 ({MAX_CAP}) have "
+                             f"no int32 index (got {config.max_ucap})")
         if config.packed not in ("auto", "off"):
             raise ValueError(f"packed must be 'auto' or 'off' (got "
                              f"{config.packed!r})")
@@ -336,13 +353,33 @@ class EmbeddingEngine:
 
     @property
     def wire_capable(self) -> bool:
-        """Whether a step's engine inputs fit the 16-bit wire: packed
-        tables, compact_wire, one shard and unique caps <= 65535 (the
-        wire's feature indices decode unsigned with 0xFFFF the invalid
-        sentinel, so a larger cap would alias rows)."""
+        """Whether a step's engine inputs fit the wire: packed tables,
+        compact_wire and one shard. A table's indices travel as 16-bit
+        words up to a unique cap of NARROW_CAP (decoded unsigned, 0xFFFF
+        the invalid sentinel, so a larger cap would alias rows) and as
+        int32 words above it (`wide`)."""
         cfg = self.config
-        return (self.packed and cfg.compact_wire and cfg.num_shards == 1
-                and cfg.max_ucap <= 65535)
+        return self.packed and cfg.compact_wire and cfg.num_shards == 1
+
+    def wide(self, tname: str) -> bool:
+        """Whether a table's wire index words are int32 (its unique cap is
+        above NARROW_CAP) rather than packed 16-bit pairs."""
+        return self.config.ucap(tname) > NARROW_CAP
+
+    def _width(self, tname: str) -> int:
+        """A table's `host_store.prepare_wire_multi` width. A wide table's
+        ids are mapped as `prepare_batch` maps them (the JAX package's
+        path for such caps): with each id's occurrences in the step where
+        the table has admission, else counted once a step."""
+        if not self.wide(tname):
+            return host_store.NARROW
+        if self.tables[tname].admission.kind != "none":
+            return host_store.WIDE_COUNTED
+        return host_store.WIDE
+
+    def _index_words(self, tname: str, n: int) -> int:
+        """Wire words of a feature's n index entries in table `tname`."""
+        return n if self.wide(tname) else (n + 1) // 2
 
     @property
     def fuse_wire(self) -> bool:
@@ -372,7 +409,7 @@ class EmbeddingEngine:
             if not feats:
                 continue
             total += (self.config.ucap(tname)
-                      + sum((batch_size * f.max_length + 1) // 2
+                      + sum(self._index_words(tname, batch_size * f.max_length)
                             for f in feats))
         return total
 
@@ -383,21 +420,22 @@ class EmbeddingEngine:
         pack for ALL tables. Layout per table (sorted name order):
 
           [ucap(table) words]  row | (new << 30); -1 for invalid rows
-          per feature (declared order): ceil(B*L/2) words of 16-bit indices
+          per feature (declared order): ceil(B*L/2) words of 16-bit indices,
+            or, in a wide table (`wide`), B*L int32 words (-1 invalid)
 
         Bit-identical to the JAX package's wire for the same store state and
-        batch. Pass `out` (contiguous int32, exactly the engine wire length)
-        to write into a larger caller-owned transfer buffer."""
+        batch where no table is wide (the JAX package has no wide table).
+        Pass `out` (contiguous int32, exactly the engine wire length) to
+        write into a larger caller-owned transfer buffer."""
         cfg = self.config
         if cfg.num_shards != 1:
             raise ValueError("prepare_wire packs one shard's wire; a sharded "
                              "engine prepares with prepare_shards or "
                              "prepare_batch_a2a")
-        if cfg.max_ucap > 65535 or not cfg.compact_wire or not self.packed:
+        if not cfg.compact_wire or not self.packed:
             raise ValueError(
-                f"prepare_wire requires packed tables, compact_wire and "
-                f"unique caps <= 65535 (got packed={self.packed}, "
-                f"compact_wire={cfg.compact_wire}, max cap {cfg.max_ucap}); "
+                f"prepare_wire requires packed tables and compact_wire (got "
+                f"packed={self.packed}, compact_wire={cfg.compact_wire}); "
                 f"use prepare_batch (the multi-array path)")
         names, streams_per_table = [], []
         offsets = [0]
@@ -410,7 +448,8 @@ class EmbeddingEngine:
             names.append(tname)
             streams_per_table.append(streams)
             offsets.append(offsets[-1] + cfg.ucap(tname)
-                           + sum((s.size + 1) // 2 for s in streams))
+                           + sum(self._index_words(tname, s.size)
+                                 for s in streams))
         offsets = np.asarray(offsets, dtype=np.int64)
         total = int(offsets[-1])
         if out is not None:
@@ -425,7 +464,8 @@ class EmbeddingEngine:
             [self.stores[t] for t in names],
             streams_per_table, ts,
             [cfg.ucap(t) for t in names], [cfg.ncap(t) for t in names],
-            cfg.record_touch, wire, offsets)
+            cfg.record_touch, wire, offsets,
+            widths=[self._width(t) for t in names])
         stats = {"overflow": {}, "new": {}, "unique": {}, "filtered": {},
                  "new_rejected": {}}
         for i, tname in enumerate(names):
@@ -678,7 +718,8 @@ class EmbeddingEngine:
     def pack_wire(self, inputs: Dict) -> np.ndarray:
         """prepare_batch's arrays as the int32 wire that prepare_wire writes
         (layout in its docstring), byte for byte. Indices travel as 16-bit
-        words, decoded unsigned: values up to 65534 keep their bits."""
+        words, decoded unsigned: values up to 65534 keep their bits; a
+        wide table's as int32 words."""
         parts = []
         for tname in sorted(inputs):
             tin = inputs[tname]
@@ -687,6 +728,10 @@ class EmbeddingEngine:
                           where=tin["new_mask"].astype(bool))
             parts.append(rows)
             for f in self.table_features[tname]:
+                if self.wide(tname):
+                    parts.append(np.asarray(tin["index"][f.name],
+                                            np.int32).ravel())
+                    continue
                 idx = np.asarray(tin["index"][f.name]).astype(np.int16).ravel()
                 if idx.size % 2:
                     idx = np.concatenate([idx, np.full(1, -1, np.int16)])
@@ -904,9 +949,12 @@ class EmbeddingEngine:
             index = {}
             for f in feats:
                 n = batch_size * f.max_length
-                words = (n + 1) // 2
+                words = self._index_words(tname, n)
                 chunk = wire[off:off + words]
                 off += words
+                if self.wide(tname):    # int32 words, -1 invalid
+                    index[f.name] = chunk.reshape(batch_size, f.max_length)
+                    continue
                 # 16-bit index words decode UNSIGNED (0xFFFF is the invalid
                 # sentinel): view as int16, widen, mask to 16 bits
                 idx = chunk.contiguous().view(torch.int16)[:n].to(torch.int32)

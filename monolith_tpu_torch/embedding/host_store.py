@@ -355,17 +355,28 @@ class Batcher2D:
                          bucket_cap, True)
 
 
+#: a table's index words on the wire (`prepare_wire_multi`'s `widths`):
+#: packed int16 pairs; int32 words, each unique id counted once a step by
+#: the store's admission; int32 words, each id's occurrences in the step
+#: counted (prepare_batch's two ways of mapping ids)
+NARROW, WIDE, WIDE_COUNTED = 0, 1, 2
+
+
 def prepare_wire_multi(batchers, stores, table_streams, ts: int,
                        unique_caps, new_caps, record_touch: bool,
-                       wire_out: np.ndarray, wire_offsets: np.ndarray
-                       ) -> np.ndarray:
+                       wire_out: np.ndarray, wire_offsets: np.ndarray,
+                       widths=NARROW) -> np.ndarray:
     """Multi-table fused host prepare: ONE native call for ALL tables, each
-    table's dedup+map+pack running as one task on the native thread pool.
+    table's dedup+map+pack running as one task on the native thread pool
+    (largest table first), with the interpreter lock released.
     `table_streams` is a list of per-table stream lists (contiguous int64);
     `unique_caps`/`new_caps` are per-table step capacities (ints or [T]
-    sequences); `wire_offsets` [T+1] gives each table's word offset in
-    `wire_out` (contiguous int32). Returns stats as an int64 [T, 5] array
-    (overflow, new, unique, filtered, new_rejected per table)."""
+    sequences); `widths` (NARROW, WIDE or WIDE_COUNTED, or [T] of them)
+    lays a wide table's index words as one int32 a position in place of
+    packed int16 pairs; `wire_offsets` [T+1] gives each table's word
+    offset in `wire_out` (contiguous int32). Returns stats as an int64
+    [T, 5] array (overflow, new, unique, filtered, new_rejected per
+    table)."""
     T = len(batchers)
     flat = [s for streams in table_streams for s in streams]
     n = len(flat)
@@ -379,13 +390,14 @@ def prepare_wire_multi(batchers, stores, table_streams, ts: int,
     ucaps = np.broadcast_to(np.asarray(unique_caps, np.int64),
                             (T,)).copy()
     ncaps = np.broadcast_to(np.asarray(new_caps, np.int64), (T,)).copy()
+    widths = np.broadcast_to(np.asarray(widths, np.int32), (T,)).copy()
     stats = np.zeros((T, 5), dtype=np.int64)
     lib = batchers[0]._lib
-    words = lib.mt_prepare_wire_multi(
+    words = lib.mt_prepare_wire_multi_wide(
         T, bh, sh, ptrs, _ptr(sizes, ctypes.c_int64),
         _ptr(soffs, ctypes.c_int64), _ptr(wire_offsets, ctypes.c_int64),
         ts, _ptr(ucaps, ctypes.c_int64), _ptr(ncaps, ctypes.c_int64),
-        1 if record_touch else 0,
+        _ptr(widths, ctypes.c_int32), 1 if record_touch else 0,
         _ptr(wire_out, ctypes.c_int32), _ptr(stats, ctypes.c_int64))
     if words != wire_out.size:
         raise RuntimeError(f"prepare_wire_multi wrote {words} words into a "

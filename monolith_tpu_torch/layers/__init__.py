@@ -1,6 +1,6 @@
 from monolith_tpu_torch.layers import activations
 from monolith_tpu_torch.layers.mlp import MLP
-from monolith_tpu_torch.layers.cross import CrossNet, CIN
+from monolith_tpu_torch.layers.cross import CIN, CrossNet, LowRankCross
 from monolith_tpu_torch.layers.dense import AddBias, Dense
 from monolith_tpu_torch.layers.feature_cross import (FFM, CAN, CDot, DCN,
                                                      AllInt, GroupInt)

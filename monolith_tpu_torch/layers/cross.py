@@ -1,11 +1,14 @@
 """Feature-cross layers: DCN's CrossNet and xDeepFM's CIN (ref layers/dcn.py
-and layers/cin.py), the port of the JAX package's layers/cross.py."""
+and layers/cin.py), the port of the JAX package's layers/cross.py, and
+DCN V2's low-rank cross (Wang et al., arXiv:2008.13535), which the JAX
+package does not have."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from monolith_tpu_torch.layers import initializers as init
@@ -26,6 +29,31 @@ class CrossNet(nn.Module):
         x = x0
         for i in range(self.num_layers):
             x = x0 * getattr(self, f"cross_{i}")(x) + x
+        return x
+
+
+class LowRankCross(nn.Module):
+    """DCN V2's low-rank cross layers over [B, D], as MLPerf's DLRM-DCNv2
+    runs them: x_{l+1} = x0 * (W_l (V_l x_l) + b_l) + x_l, with `v_{l}`
+    [rank, D] and `w_{l}` [D, rank] glorot-uniform and `b_{l}` [D] zero."""
+
+    def __init__(self, dim: int, num_layers: int = 3, rank: int = 512,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            setattr(self, f"v_{i}", init.param(init.glorot_uniform,
+                                               (rank, dim), generator))
+            setattr(self, f"w_{i}", init.param(init.glorot_uniform,
+                                               (dim, rank), generator))
+            setattr(self, f"b_{i}", init.param(init.zeros, (dim,)))
+
+    def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        x = x0
+        for i in range(self.num_layers):
+            low = F.linear(x, getattr(self, f"v_{i}"))
+            x = x0 * F.linear(low, getattr(self, f"w_{i}"),
+                              getattr(self, f"b_{i}")) + x
         return x
 
 

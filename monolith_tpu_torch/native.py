@@ -81,11 +81,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.c_int64, c_i64_p, c_i32_p, c_i32_p, c_i32_p]
     d.mt_shard_of.restype = ctypes.c_int32
     d.mt_shard_of.argtypes = [ctypes.c_int64, ctypes.c_int32]
-    d.mt_prepare_wire_multi.restype = ctypes.c_int64
-    d.mt_prepare_wire_multi.argtypes = [
+    d.mt_prepare_wire_multi_wide.restype = ctypes.c_int64
+    d.mt_prepare_wire_multi_wide.argtypes = [
         ctypes.c_int32, ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(c_i64_p), c_i64_p,
-        c_i64_p, c_i64_p, ctypes.c_uint32, c_i64_p, c_i64_p,
+        c_i64_p, c_i64_p, ctypes.c_uint32, c_i64_p, c_i64_p, c_i32_p,
         ctypes.c_int32, c_i32_p, c_i64_p]
     d.mt_host_threads.restype = ctypes.c_int32
     d.mt_host_threads.argtypes = []

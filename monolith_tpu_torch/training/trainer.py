@@ -11,7 +11,11 @@ Per step:
           stochastic rounding for a bf16 pool that asks for it, K2
           scatter)
 
-The multi-array path (`engine.fuse_wire` False: unique caps above 65535,
+A table whose unique cap is above 65535 rides the same wire with int32
+index words (the engine's wide table), so it runs blocks and the stage
+worker as any other.
+
+The multi-array path (`engine.fuse_wire` False:
 `EngineConfig(compact_wire=False)`, or `packed="off"`, the
 structure-of-arrays state whose bf16 tables keep f32 optimizer slots)
 takes the same single upload: `prepare_batch` (Python over the same C++)
@@ -92,7 +96,10 @@ pinned buffer, per step `stage.prepare` and `stage.copy_batch`, then
 `stage.upload`), `train.dispatch` holding a `train.step` per step, itself
 holding `step.decode`, `step.lookup`, `step.pool`, `step.forward`,
 `step.backward`, `step.dense_update`, `step.metrics` and `step.apply`, and
-`train.hooks`. An overlapped stage holds step 0's prepare and copy; the
+`train.hooks`. Each `stage.prepare` counts (`tracing.count`) the step's
+ids (`prepare.ids`), unique ids (`prepare.unique`) and tables on int32
+index words (`prepare.wide_tables`). An overlapped stage holds step 0's
+prepare and copy; the
 stage worker's thread holds a `stage.worker` a block around the prepares
 and copies of steps 1..K-1, and a step whose row is not packed when it
 needs it opens `stage.wire_wait` first. The per-step path has a
@@ -135,6 +142,7 @@ from monolith_tpu_torch.metrics import (StreamingAUC, StreamingMean,
                                         device_metrics_update)
 from monolith_tpu_torch.ops.clip import clip_by_global_norm
 from monolith_tpu_torch.training.task import RecTask
+from monolith_tpu_torch.utils import tracing
 from monolith_tpu_torch.utils.tracing import span
 
 _WIRE_DTYPES = {np.dtype(np.float32).str: torch.float32,
@@ -332,6 +340,8 @@ class Trainer:
                     key = "revive_pos" if engine.packed else "revive_rows"
                     revive = {t: (tin[key], tin["revive_values"])
                               for t, tin in inputs.items()}
+            if tracing.active() is not None:
+                self._count_prepare(fid_batch, stats, stepno)
         with span("stage.copy_batch", stepno):
             off = ew
             for k, _, shape in layout:
@@ -341,6 +351,18 @@ class Trainer:
                 off += n
             out[off] = stepno
         return stats, revive
+
+    def _count_prepare(self, fid_batch, stats, stepno: int) -> None:
+        """The prepare's counters, in the open recording."""
+        engine = self.engine
+        tables = [t for t, f in engine.table_features.items() if f]
+        tracing.count("prepare.ids", sum(
+            np.asarray(fid_batch[f.name]).size for t in tables
+            for f in engine.table_features[t]), stepno)
+        tracing.count("prepare.unique", sum(stats["unique"].values()),
+                      stepno)
+        tracing.count("prepare.wide_tables", sum(
+            engine.wire_capable and engine.wide(t) for t in tables), stepno)
 
     def _pack_block(self, pairs, ts: int, overlap: bool = False
                     ) -> Tuple[torch.Tensor, List, tuple, List,

@@ -30,6 +30,12 @@ reads. A recording also keeps every garbage collection as a span
 "host.gc" (`arg` its generation), through a `gc.callbacks` entry that it
 removes when it closes.
 
+`count(name, value, step)` records a number beside the spans (the
+trainer's prepare counts its ids, unique ids and wide tables a step): a
+(name, value, step, thread, time) entry while a recording is open, and
+nothing, at the same cost as a span's, while none is. `rec.counters` lists
+them, `rec.counter_totals()` sums them by name.
+
 One recording is open at a time: the spans are the process's, as the
 profiler's ranges are.
 """
@@ -59,6 +65,14 @@ class Span(NamedTuple):
     step: Optional[int]
     thread: int
     arg: Optional[int] = None   # host.gc: the generation collected
+
+
+class Counter(NamedTuple):
+    name: str
+    value: float
+    step: Optional[int]
+    thread: int
+    time: float                 # perf_counter seconds when counted
 
 
 class Total(NamedTuple):
@@ -105,6 +119,14 @@ def span(name: str, step: Optional[int] = None):
     return _On(rec, name, step)
 
 
+def count(name: str, value: float, step: Optional[int] = None) -> None:
+    """Record `value` under `name` (of `step`) in the open recording;
+    nothing when none is open."""
+    rec = _active
+    if rec is not None:
+        rec._count(name, value, step)
+
+
 def active() -> Optional["Recording"]:
     """The open recording, or None."""
     return _active
@@ -121,6 +143,8 @@ class Recording:
         self._taking = threading.RLock()
         self._stacks: Dict[int, List[int]] = {}
         self._gc_open: List[tuple] = []
+        self._counts: List[Counter] = []
+        self.dropped_counts = 0
 
     # -- opening and closing -------------------------------------------
 
@@ -184,6 +208,15 @@ class Recording:
         if rng is not None:
             rng.__exit__(None, None, None)
 
+    def _count(self, name: str, value: float, step: Optional[int]) -> None:
+        c = Counter(name, value, step, threading.get_ident(),
+                    time.perf_counter())
+        with self._taking:
+            if len(self._counts) < self.capacity:
+                self._counts.append(c)
+            else:
+                self.dropped_counts += 1
+
     def _on_gc(self, phase: str, info: Dict) -> None:
         if phase == "start":
             self._gc_open.append(self._open("host.gc", None,
@@ -204,6 +237,25 @@ class Recording:
         position here)."""
         return [Span(*item) for item in self._items[:min(self._n,
                                                           self.capacity)]]
+
+    @property
+    def counters(self) -> List[Counter]:
+        """Every number counted and kept, in the order counted (at most
+        `capacity`; the rest in `dropped_counts`)."""
+        with self._taking:
+            return list(self._counts)
+
+    def counter_totals(self, after: float = -math.inf,
+                       before: float = math.inf) -> Dict[str, tuple]:
+        """{name: (count, sum)} over the numbers counted between `after`
+        and `before` (perf_counter seconds)."""
+        out: Dict[str, list] = {}
+        for c in self.counters:
+            if after <= c.time <= before:
+                t = out.setdefault(c.name, [0, 0.0])
+                t[0] += 1
+                t[1] += c.value
+        return {k: tuple(v) for k, v in out.items()}
 
     def totals(self, before: float = math.inf,
                thread: Optional[int] = None) -> Dict[str, Total]:

@@ -384,11 +384,13 @@ def test_per_table_caps_wire_is_bit_identical_to_jax():
 
 
 def test_caps_above_the_16_bit_wire_are_refused():
-    """The JAX package's contract (tests/test_engine.py,
-    test_prepare_wire_rejects_oversized_cap): an engine with a cap above
-    65535 builds, takes the multi-array path (fuse_wire False) and refuses
-    the wire; caps in (32768, 65535] ride the unsigned decode;
-    compact_wire=False turns the wire off."""
+    """Where the JAX package (tests/test_engine.py,
+    test_prepare_wire_rejects_oversized_cap) sends a cap above 65535 to
+    its multi-array path and refuses the wire, the port's wire carries the
+    table wide (int32 index words), so it keeps the fused wire; caps in
+    (32768, 65535] ride the unsigned decode of 16-bit words;
+    compact_wire=False turns the wire off; a cap above 2**31 - 1 has no
+    int32 index and is refused."""
     tables = [TableSpec(name="t", capacity_per_shard=256,
                         segments=(TableSegment(dim=4),))]
     feats = [FeatureConfig(name="f", table="t", max_length=2,
@@ -400,10 +402,15 @@ def test_caps_above_the_16_bit_wire_are_refused():
     for cfg in (dict(unique_cap=81920),
                 dict(unique_cap=64, unique_caps=(("t", 70000),))):
         eng = engine(**cfg)
-        assert not eng.fuse_wire and not eng.wire_capable
-        with pytest.raises(ValueError, match="65535"):
-            eng.prepare_wire({"f": np.zeros((2, 2), np.int64)}, ts=1)
+        assert eng.fuse_wire and eng.wire_capable and eng.wide("t")
+        wire, _ = eng.prepare_wire({"f": np.array([[3, -1], [5, 3]],
+                                                  np.int64)}, ts=1)
+        assert wire.size == eng.config.ucap("t") + 4
+        np.testing.assert_array_equal(wire[-4:], [0, -1, 1, 0])
+    with pytest.raises(ValueError, match="2147483647"):
+        engine(unique_cap=2 ** 31)
     assert engine(unique_cap=40960).fuse_wire
+    assert not engine(unique_cap=65535).wide("t")
     assert not engine(unique_cap=1024, compact_wire=False).fuse_wire
 
 

@@ -1,6 +1,7 @@
 """The structure-of-arrays table state and the multi-array step of
 monolith_tpu_torch against the JAX package's (`EngineConfig(packed="off")`,
-`compact_wire=False`, unique caps above 65535).
+`compact_wire=False`; unique caps above 65535, which the port carries on
+its wire as a wide table).
 
 - table: `create_state(packed=False)`, `init_rows` (Constants and
   init_scale 0.0: the two packages' PRNGs differ), `apply_gradients` (f32
@@ -10,11 +11,13 @@ monolith_tpu_torch against the JAX package's (`EngineConfig(packed="off")`,
   and host accessors, `state_from_np(packed=False)`, `zero_rows`;
 - engine: `prepare_batch`'s new-row channels (`new_pos`, `new_rows`,
   `revive_rows`) array for array with compact on and off and admission on
-  and off, `fuse_wire` over a grid of settings, `prepare_wire` refusing
-  what the 16-bit wire cannot carry, `pack_arrays` / `decode_arrays`;
+  and off, `fuse_wire` over a grid of settings (equal to JAX's but where
+  a cap above 65535 takes the port's wide wire), `prepare_wire` refusing
+  what the wire cannot carry, `pack_arrays` / `decode_arrays`;
 - trainer: a structure-of-arrays DeepFM (f32), a packed DeepFM without the
-  compact wire and one with a unique cap of 70000 against the JAX trainer
-  over carried steps (losses, preds, params, slots, eval);
+  compact wire (both on the multi-array path) and one with a unique cap of
+  70000 (the port's wide wire, the JAX package's multi-array path) against
+  the JAX trainer over carried steps (losses, preds, params, slots, eval);
   `steps_per_dispatch` steps one by one off the fused wire;
 - checkpoints and `convert` across layouts and packages.
 """
@@ -413,14 +416,22 @@ def test_fuse_wire_matches_jax_over_a_grid(table_dtype):
                        JaxEngineConfig(num_shards=1, **cfg))
         pe = EmbeddingEngine(ptask.tables(), ptask.features(),
                              EngineConfig(**cfg), device="cpu")
-        assert pe.fuse_wire == je.fuse_wire, cfg
+        # the JAX package sends a cap above 65535 to its multi-array
+        # path; the port's wire carries it as a wide table
+        wide = (pe.wire_capable and not cfg["tiered"]
+                and cfg["unique_cap"] > 65535)
+        assert pe.fuse_wire == (je.fuse_wire or wide), cfg
+        assert not (je.fuse_wire and wide), cfg
         assert pe.packed == je.packed, cfg
         assert pe.config.index_dtype == je.config.index_dtype, cfg
         assert pe.config.pos_dtype == je.config.pos_dtype, cfg
-    # per-table caps count too
+    # per-table caps count too: the table above 65535 is wide, the
+    # others keep 16-bit index words
     cfg = dict(unique_caps=(("merged_0", 70000),))
-    assert not EmbeddingEngine(ptask.tables(), ptask.features(),
-                               EngineConfig(**cfg), device="cpu").fuse_wire
+    pe = EmbeddingEngine(ptask.tables(), ptask.features(),
+                         EngineConfig(**cfg), device="cpu")
+    assert pe.fuse_wire and pe.wide("merged_0")
+    assert not any(pe.wide(t) for t in pe.tables if t != "merged_0")
     with pytest.raises(ValueError, match="packed"):
         EmbeddingEngine(ptask.tables(), ptask.features(),
                         EngineConfig(packed="on"), device="cpu")
@@ -430,12 +441,25 @@ def test_fuse_wire_matches_jax_over_a_grid(table_dtype):
                                  dict(unique_cap=70000, new_cap=70000)],
                          ids=["soa", "int32", "cap70000"])
 def test_prepare_wire_refuses_what_the_wire_cannot_carry(cfg):
-    """Above 65535 and without compact_wire both packages refuse; the
-    port refuses a structure-of-arrays engine too (the JAX package's
-    prepare_wire packs a wire that its multi-array step never reads)."""
+    """Without compact_wire both packages refuse; the port refuses a
+    structure-of-arrays engine too (the JAX package's prepare_wire packs
+    a wire that its multi-array step never reads). Above 65535 the JAX
+    package refuses and the port packs a wide table: int32 index words,
+    the wire `pack_wire` lays from prepare_batch's arrays."""
     je, pe = twin_engines(**cfg)
     fb = random_fids(np.random.default_rng(0))
-    assert not je.fuse_wire and not pe.fuse_wire
+    assert not je.fuse_wire
+    if cfg.get("unique_cap") == 70000:
+        with pytest.raises(ValueError, match="65535"):
+            je.prepare_wire(fb, ts=0)
+        _, twin = twin_engines(**cfg)
+        assert pe.fuse_wire and pe.wide("sparse")
+        wire, _ = pe.prepare_wire(fb, ts=0)
+        inputs, _ = twin.prepare_batch(fb, ts=0)
+        np.testing.assert_array_equal(wire, twin.pack_wire(inputs))
+        assert wire.size == pe.wire_words(6) == 70000 + 6 * (1 + 1 + 10)
+        return
+    assert not pe.fuse_wire
     for eng in (je, pe) if cfg.get("packed") != "off" else (pe,):
         with pytest.raises(ValueError, match="prepare_wire requires"):
             eng.prepare_wire(fb, ts=0)
@@ -536,8 +560,12 @@ def trained(request):
 
 
 def test_trainer_takes_the_multi_array_path(trained):
+    """Every configuration takes the JAX package's multi-array path; the
+    port's takes it too, but at a cap of 70000, which its wire carries as
+    a wide table."""
     name, jt, pt, *_ = trained
-    assert not jt.engine.fuse_wire and not pt.engine.fuse_wire
+    assert not jt.engine.fuse_wire
+    assert pt.engine.fuse_wire == (name == "cap70000")
     assert pt.engine.packed == jt.engine.packed == (not name.startswith("soa"))
     st = pt.table_states["sparse"]
     if name.startswith("soa"):

@@ -373,3 +373,31 @@ def test_span_indices_stay_distinct_under_threads():
             steps.setdefault(s.parent, []).append(s.step)
     assert len(steps) == n_threads
     assert all(v == list(range(per)) for v in steps.values())
+
+
+def test_wide_wire_block_is_packed_by_the_worker():
+    """A table whose unique cap is above 65535 rides the wire with int32
+    index words: its staged block's steps 1..K-1 are packed on the worker,
+    and the wires, outputs and state are the serial pack's byte for
+    byte."""
+    K = 4
+    data = batches(1 + K)
+    wide = dict(unique_caps=(("sparse", 70000),))
+    over, serial = make(K=K, **wide), make(SerialTrainer, K=K, **wide)
+    assert over.engine.wide("sparse") and over._stage_overlaps()
+    seen = packs_by_thread(over)
+    outs = {}
+    for name, tr in (("over", over), ("serial", serial)):
+        tr.train_step(*data[0], ts=20)
+        staged = tr.stage_block(data[1:], ts=21)
+        out = tr.train_step_block(data[1:], staged=staged)
+        outs[name] = (staged["wires"].clone(), out)
+        assert worker_idle(tr)
+    assert torch.equal(outs["over"][0], outs["serial"][0])
+    assert outs["over"][0].shape[1] > 70000 + 64 * (1 + 1 + 10)
+    assert_same_out(outs["over"][1], outs["serial"][1])
+    assert_same_state(over, serial)
+    main = threading.get_ident()
+    assert [s for s, _ in seen] == list(range(1 + K))
+    assert seen[1][1] == main
+    assert all(t != main for _, t in seen[2:])

@@ -312,3 +312,48 @@ def test_profiler_hook_trace_shows_spans(tmp_path):
     totals = hook.recording.totals()
     assert totals["train.dispatch"].count == 2
     assert totals["train.step"].count == 2 * K
+
+
+def test_counters_are_off_without_a_recording():
+    """`count` with no recording open keeps nothing, and a block's
+    prepares count nothing anywhere."""
+    tracing.count("prepare.ids", 5, 0)
+    tr = trainer()
+    tr.train(iter(batches(K)), steps=K)
+    with tracing.recording() as rec:
+        pass
+    assert rec.counters == [] and rec.counter_totals() == {}
+
+
+def test_counters_are_recorded_with_a_recording():
+    """Each step's prepare counts its ids, unique ids and wide tables,
+    with the step's number, on the thread that packed it; `count` keeps
+    what it is given, `counter_totals` sums by name within a time window,
+    and numbers past the capacity are counted as dropped."""
+    tr = trainer(unique_caps=(("sparse", 70000),))
+    pairs = batches(K)
+    with tracing.recording() as rec:
+        tracing.count("mine", 2.5, 7)
+        tr.train(iter(pairs), steps=K)
+    mine = [c for c in rec.counters if c.name == "mine"]
+    assert [(c.value, c.step) for c in mine] == [(2.5, 7)]
+    by = collections.defaultdict(list)
+    for c in rec.counters:
+        by[c.name].append(c)
+    assert [c.step for c in by["prepare.ids"]] == list(range(K))
+    ids = [sum(v.size for v in fb.values()) for fb, _ in pairs]
+    assert [c.value for c in by["prepare.ids"]] == ids
+    assert [c.value for c in by["prepare.wide_tables"]] == [1] * K
+    prepares = [s for s in rec.spans if s.name == "stage.prepare"]
+    assert {c.thread for c in by["prepare.unique"]} == {
+        s.thread for s in prepares}
+    assert all(0 < c.value <= ids[c.step] for c in by["prepare.unique"])
+    totals = rec.counter_totals()
+    assert totals["prepare.ids"] == (K, float(sum(ids)))
+    assert rec.counter_totals(after=time.perf_counter()) == {}
+    small = tracing.recording(capacity=2)
+    with small:
+        for i in range(3):
+            tracing.count("x", i)
+    assert [c.value for c in small.counters] == [0, 1]
+    assert small.dropped_counts == 1
