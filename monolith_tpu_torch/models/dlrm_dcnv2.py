@@ -11,7 +11,10 @@ goes through 3 low-rank cross layers of rank 512 (layers/cross.py
 sigmoid cross-entropy. Rows and tower train with Adagrad.
 
 Spans (utils/tracing.py) inside the trainer's `step.forward`: `step.bottom`,
-`step.cross` (the concatenation and the cross layers) and `step.top`.
+`step.cross` (the concatenation and the cross layers) and `step.top`. The
+module names the submodules they wrap in `graph_parts`, which the trainer
+captures as CUDA graphs one by one (training/graphs.py), so that each
+replay runs inside its span.
 """
 
 from __future__ import annotations
@@ -44,6 +47,9 @@ MLPERF_HOTNESS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1,
 class DLRMDCNv2Module(nn.Module):
     """The dense tower over the pooled bags of `feature_names` (each [B,
     embedding_dim]) and `batch["dense"]` [B, num_dense]."""
+
+    #: the submodules that the forward's spans wrap, in the order they run
+    graph_parts = ("bottom", "cross", "top")
 
     def __init__(self, feature_names: Sequence[str], embedding_dim: int = 128,
                  num_dense: int = 13, bottom: Sequence[int] = (512, 256, 128),

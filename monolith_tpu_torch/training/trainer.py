@@ -106,6 +106,15 @@ needs it opens `stage.wire_wait` first. The per-step path has a
 `train.stage` and a `train.step` a step; the sharded and multi-host
 trainers take the same names.
 
+On the card the autograd region of a training step (pooling, the tower's
+forward, the backward of both) is captured once as CUDA graphs and
+replayed at every later step of the same shapes (training/graphs.py;
+`_graph_capable` says which trainers may: the single-device one without
+drawing layers, model state or retrievers). The decode, the lookup, the
+loss, the dense update, the metrics and the apply stay eager, as do
+evaluate and predict. Counters `graph.replay`, `graph.eager` and
+`graph.capture` say what each step did.
+
 Loss and AUC accumulate on the device (metrics.device_metrics_update) and
 are read back only by `_drain_metrics`. A task whose batch carries no
 "label", or whose predictions are a dict, accumulates the loss alone.
@@ -141,6 +150,7 @@ from monolith_tpu_torch.metrics import (StreamingAUC, StreamingMean,
                                         device_metrics_init,
                                         device_metrics_update)
 from monolith_tpu_torch.ops.clip import clip_by_global_norm
+from monolith_tpu_torch.training import graphs
 from monolith_tpu_torch.training.task import RecTask
 from monolith_tpu_torch.utils import tracing
 from monolith_tpu_torch.utils.tracing import span
@@ -286,6 +296,8 @@ class Trainer:
         self._wires: Dict[tuple, _PinnedWires] = {}
         self._worker: Optional[ThreadPoolExecutor] = None
         self._prepared: Optional[Future] = None
+        # the step's captured graphs; None until captured, False: never
+        self._graphs = None
 
     def _own_shard(self) -> Optional[int]:
         """The table shard this trainer serves, for its engine (None: the
@@ -489,12 +501,16 @@ class Trainer:
         {"batch_stats": tree} ({} for a module without)."""
         return convert.model_state_tree(self.module)
 
-    def _forward(self, pooled, batch_t, step: int, training: bool):
-        """The module in train or eval mode, its drawing layers' generator
-        seeded for `step`: the new-row init's seed domain at table index
-        len(tables), which no table's init uses."""
+    def _forward(self, pooled, batch_t, step: int, training: bool,
+                 graphed: Optional[graphs.StepGraphs] = None):
+        """The module in train or eval mode (through the step's graphs when
+        `graphed`), its drawing layers' generator seeded for `step`: the
+        new-row init's seed domain at table index len(tables), which no
+        table's init uses."""
         if self.module.training != training:
             self.module.train(training)
+        if graphed is not None:
+            return graphed.forward(self.module, pooled, batch_t)
         if self._draws is not None:
             self._draws.manual_seed(_init_seed(
                 self.config.seed, step, len(self.engine.tables)))
@@ -517,17 +533,24 @@ class Trainer:
     def _dense_step(self, inputs, batch_t, unique, step: int):
         """Forward and backward on the gathered unique rows, the global-norm
         clip and the dense update. Returns (loss, preds, aux, gradients wrt
-        the unique rows {table: [U, dim]})."""
+        the unique rows {table: [U, dim]}). Pooling and the tower replay
+        their captured graphs where `_step_graphs` has them."""
         engine, task = self.engine, self.task
+        graphed, capture = self._step_graphs(unique, inputs, batch_t, step)
         with span("step.pool", step):
             # differentiate wrt the gathered unique rows (after the
             # exchange, which stays outside autograd), not the pool
             leaves = {t: u.detach().requires_grad_()
                       for t, u in self._exchange(unique, inputs).items()}
-            pooled = engine.pool_features(
-                engine.retrieve_unique(leaves, step), inputs)
+            if graphed is not None:
+                pooled = graphed.pool(leaves, inputs)
+            else:
+                pooled = engine.pool_features(
+                    engine.retrieve_unique(leaves, step), inputs)
         with span("step.forward", step):
-            out = self._forward(pooled, batch_t, step, training=True)
+            with graphs.recording(capture):
+                out = self._forward(pooled, batch_t, step, training=True,
+                                    graphed=graphed)
             loss, aux = task.loss(out, batch_t)
         with span("step.backward", step):
             named = list(self.module.named_parameters())
@@ -544,7 +567,36 @@ class Trainer:
         with span("step.metrics", step):
             preds = self._gather(_detach(task.predictions(out)))
             self._metrics_update(loss, preds, batch_t)
-        return loss, preds, _detach(aux), gu
+        aux = _detach(aux)
+        if graphed is not None:
+            # what outlives the step must not be a graph's static buffer
+            loss, preds, aux = graphed.own((loss, preds, aux), out)
+        elif capture is not None:
+            # the eager step's autograd graph goes first: its nodes run on
+            # the default stream, which a capture's backward must not reach
+            del out, pooled
+            self._graphs = capture.finish(engine, leaves, inputs, step)
+        return loss, preds, aux, gu
+
+    def _step_graphs(self, unique, inputs, batch_t, step: int
+                     ) -> Tuple[Optional[graphs.StepGraphs],
+                                Optional[graphs.Capture]]:
+        """(graphs to replay, capture to finish) of a training step: the
+        graphs where they hold this step's shapes and the module's
+        parameters; else the step runs eager, and the first step of an
+        eligible trainer records its parts' arguments for the capture."""
+        held = self._graphs
+        if held is None and not self._graph_capable():
+            return None, None
+        if held and not held.holds(self.module):
+            held = self._graphs = None      # a parameter was rebound
+        sig = graphs.signature(unique, inputs, batch_t)
+        if held and held.signature == sig:
+            tracing.count("graph.replay", 1, step)
+            return held, None
+        tracing.count("graph.eager", 1, step)
+        return None, (graphs.Capture(self.module, sig) if held is None
+                      else None)
 
     # the sharded trainer's seams (parallel/sharded.py); identities here
 
@@ -870,6 +922,24 @@ class Trainer:
         whose packs run per-shard prepares and collectives, return False:
         they pack on the calling thread."""
         return self.engine.fuse_wire
+
+    def _graph_capable(self) -> bool:
+        """Whether the training step's pooling and tower may run as
+        captured CUDA graphs (training/graphs.py): on the card, with the
+        Trainer's own seams (the sharded trainers' run collectives), no
+        drawing layers (their generator is reseeded from the host each
+        step), no model state (the capture's warm-up would move batch
+        statistics) and no retriever (it takes the host's step)."""
+        cls = type(self)
+        return (self.device.type == "cuda"
+                and all(getattr(cls, n) is getattr(Trainer, n)
+                        for n in ("_exchange", "_exchange_back",
+                                  "_reduce_dense", "_gather"))
+                and self._draws is None
+                and next(self.module.buffers(), None) is None
+                and all(seg.retriever is None
+                        for spec in self.engine.tables.values()
+                        for seg in spec.segments))
 
     def _block_eligible(self, batch) -> bool:
         """Whether this batch's arrays can ride the wire (all 4-byte)."""

@@ -185,8 +185,8 @@ def test_multislot_bf16_card_steps_match_cpu(card):
 # block dispatch on the card
 # ----------------------------------------------------------------------
 
-def _small_deepfm(device, **engine):
-    return Trainer(DeepFMTask(capacity_per_shard=4096, hidden=(32, 16),
+def _small_deepfm(device, cls=Trainer, **engine):
+    return cls(DeepFMTask(capacity_per_shard=4096, hidden=(32, 16),
                               init_scale=0.0),
                    TrainerConfig(engine=EngineConfig(
                        unique_cap=512, new_cap=512, **engine),
@@ -216,6 +216,9 @@ def test_card_block_matches_sequential_steps(card, stale):
         batches = [data.batch() for _ in range(5)]
     seq, blk = _small_deepfm(card), _small_deepfm(card, async_optimize=stale)
     seq.train_step(*batches[0], ts=0)
+    # the training step's one-time graph capture synchronises: blk takes
+    # it here, outside the guarded block; the state is then seq's
+    blk.train_step(*batches[0], ts=0)
     convert.load_state(blk, convert.export_state(seq))
     ls = [seq.train_step(*b, ts=1)["loss"].item() for b in batches[1:]]
     torch.cuda.set_sync_debug_mode("error")
@@ -310,6 +313,116 @@ def test_overlapped_block_equals_the_serial_pack_on_the_card(card, stale):
         over.table_states["sparse"]["data"].cpu().numpy(),
         serial.table_states["sparse"]["data"].cpu().numpy(), atol=1e-5,
         rtol=0)
+
+
+# ----------------------------------------------------------------------
+# the training step's captured graphs (training/graphs.py)
+# ----------------------------------------------------------------------
+
+class _Eager(Trainer):
+    def _graph_capable(self):
+        return False
+
+
+def _graph_pair(card, model, stale, n):
+    """(graphed trainer, eager trainer, n batches) of the small DeepFM or
+    of DLRM-DCNv2 at portbench/tests/small_dcnv2.py's widths (26 tables,
+    C21 on the wide wire), both from one seed."""
+    if model == "deepfm":
+        data = SyntheticCTR(num_users=400, num_items=300, batch_size=64,
+                            seed=2)
+        return (_small_deepfm(card, async_optimize=stale),
+                _small_deepfm(card, _Eager, async_optimize=stale),
+                [data.batch() for _ in range(n)])
+    from portbench.models import dlrm_dcnv2
+    from portbench.streams import criteo_multihot
+    from portbench.tests import small_dcnv2
+    cfg = small_dcnv2.files()["cfg"]
+    caps = tuple(sorted(cfg["unique_caps"].items()))
+    top = max(dict(caps).values())
+    trainers = [cls(dlrm_dcnv2.build_task(cfg), TrainerConfig(
+        engine=EngineConfig(unique_cap=top, new_cap=top, unique_caps=caps,
+                            new_caps=caps, async_optimize=stale),
+        seed=5, log_every=0), device=card) for cls in (Trainer, _Eager)]
+    world = criteo_multihot.World(cfg, (1 << 35) + 7)
+    return (*trainers, [world.batch(i, cfg["batch_size"]) for i in range(n)])
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["sync", "async"])
+@pytest.mark.parametrize("model", ["deepfm", "dcnv2"])
+def test_graphed_block_matches_the_eager_block(card, model, stale):
+    """Step 0 (eager: the capture's own step) and a staged block of 8 that
+    replays, against a trainer whose `_graph_capable` is False, from one
+    seed: losses rtol 1e-4, rows and dense parameters atol 1e-5 (the
+    pooling backward's atomics sum in a varying order). The graphed block
+    runs under the synchronisation check and counts 8 replays and no
+    eager step; its 8 rows of predictions differ from one another (what
+    the block stacks is no replay's static buffer)."""
+    from monolith_tpu_torch.utils import tracing
+    graphed, eager, batches = _graph_pair(card, model, stale, 9)
+    outs = {}
+    for name, tr in (("graphed", graphed), ("eager", eager)):
+        with tracing.recording() as rec:
+            first = tr.train_step(*batches[0], ts=1)
+        assert rec.counter_totals().get("graph.capture", (0,))[0] == (
+            name == "graphed")
+        staged = tr.stage_block(batches[1:], ts=2)
+        with tracing.recording() as rec:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = tr.train_step_block(batches[1:], staged=staged)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        graph = {k: v[0] for k, v in rec.counter_totals().items()
+                 if k.startswith("graph.")}
+        assert graph == ({"graph.replay": 8} if name == "graphed" else {})
+        outs[name] = (first, out)
+    (gf, go), (ef, eo) = outs["graphed"], outs["eager"]
+    np.testing.assert_allclose(gf["loss"].item(), ef["loss"].item(),
+                               rtol=1e-4)
+    np.testing.assert_allclose(go["loss"].cpu().numpy(),
+                               eo["loss"].cpu().numpy(), rtol=1e-4)
+    np.testing.assert_allclose(go["preds"].cpu().numpy(),
+                               eo["preds"].cpu().numpy(), atol=1e-5)
+    preds = go["preds"]
+    assert all(not torch.equal(preds[i], preds[j])
+               for i in range(8) for j in range(i))
+    for t in graphed.table_states:
+        for a, b in zip(torch.utils._pytree.tree_leaves(
+                graphed.table_states[t]),
+                torch.utils._pytree.tree_leaves(eager.table_states[t])):
+            np.testing.assert_allclose(a.float().cpu().numpy(),
+                                       b.float().cpu().numpy(), atol=1e-5,
+                                       rtol=0, err_msg=t)
+    for (n, p), (_, q) in zip(graphed.module.named_parameters(),
+                              eager.module.named_parameters()):
+        np.testing.assert_allclose(p.detach().cpu().numpy(),
+                                   q.detach().cpu().numpy(), atol=1e-5,
+                                   rtol=0, err_msg=n)
+
+
+def test_graphs_replay_the_captured_shapes_only(card):
+    """A capture at step 0; a block of 4 replays 4 times; a step and a
+    block of another batch size run eager; the first size replays again."""
+    from monolith_tpu_torch.utils import tracing
+    tr = _small_deepfm(card)
+    big = SyntheticCTR(num_users=400, num_items=300, batch_size=64, seed=2)
+    small = SyntheticCTR(num_users=400, num_items=300, batch_size=48, seed=3)
+    with tracing.recording() as rec:
+        tr.train_step(*big.batch(), ts=1)
+        tr.train_step_block([big.batch() for _ in range(4)], ts=1)
+        tr.train_step(*small.batch(), ts=1)
+        tr.train_step_block([small.batch() for _ in range(4)], ts=1)
+        out = tr.train_step(*big.batch(), ts=1)
+    got = [(c.name, c.step) for c in rec.counters
+           if c.name in ("graph.replay", "graph.eager")]
+    assert got == ([("graph.eager", 0)]
+                   + [("graph.replay", s) for s in range(1, 5)]
+                   + [("graph.eager", s) for s in range(5, 10)]
+                   + [("graph.replay", 10)])
+    (capture,) = [c for c in rec.counters if c.name == "graph.capture"]
+    assert capture.step == 0 and capture.value > 0
+    assert torch.isfinite(out["loss"])
 
 
 def test_staged_buffer_is_refilled_only_after_its_copys_event(card):
