@@ -818,23 +818,22 @@ def phase_multislot_path():
 
 def drive_block_path(name, trainer, data, expect, per_step_losses, same,
                      rtol, falling):
-    """One train_step, then BLOCKS blocks of BLOCK_K through stage_block +
-    train_step_block in bench.py's order, then 1 eval batch, with every
-    kernel's launch count set to 0 just before and read just after. Every
-    train_step_block runs with PyTorch's synchronisation check set to
-    raise, so a host-device synchronisation inside a block fails the
-    phase. The losses must be finite, agree over their first `same` steps
-    with `per_step_losses` (the per-step path's on the same stream, from a
-    trainer of the same seed) to `rtol`, and fall (`falling`: the mean of
-    the last block under the mean of the first 8 steps) or, on a stream
-    whose ids hardly repeat within 25 steps, stay within 0.01 of where
-    they began. The blocks run under a recording of the program's spans,
-    whose host prepare, batch copy and upload start are logged. Then,
-    outside the counted run: a staged block dispatched out of turn must
-    raise; the per-step path's time in the same trainer."""
+    """One train_step, then BLOCKS blocks of BLOCK_K through `train` (each
+    block staged while the one before it dispatches), then 1 eval batch,
+    with every kernel's launch count set to 0 just before and read just
+    after. Every train_step_block runs with PyTorch's synchronisation
+    check set to raise, so a host-device synchronisation inside a block
+    fails the phase. The losses must be finite, agree over their first
+    `same` steps with `per_step_losses` (the per-step path's on the same
+    stream, from a trainer of the same seed) to `rtol`, and fall
+    (`falling`: the mean of the last block under the mean of the first 8
+    steps) or, on a stream whose ids hardly repeat within 25 steps, stay
+    within 0.01 of where they began. The blocks run under a recording of
+    the program's spans, whose host prepare, batch copy and upload start
+    are logged. Then, outside the counted run: a staged block dispatched
+    out of turn must raise; the per-step path's time in the same trainer."""
     import torch
     from monolith_tpu_torch import ops
-    from monolith_tpu_torch.profile_step import run_blocks
     from monolith_tpu_torch.utils import tracing
     K, n = BLOCK_K, BLOCK_K * BLOCKS
     batches = [data.batch() for _ in range(1 + n + 1)]
@@ -854,8 +853,10 @@ def drive_block_path(name, trainer, data, expect, per_step_losses, same,
     first = trainer.train_step(*batches[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    outs = []
     with tracing.recording() as rec:
-        outs = run_blocks(trainer, batches[1:1 + n], K)
+        trainer.train(iter(batches[1:1 + n]), steps=n,
+                      hooks=(lambda _, out: outs.append(out),))
     torch.cuda.synchronize()
     block_ms = (time.perf_counter() - t0) / n * 1e3
     spans = rec.totals()

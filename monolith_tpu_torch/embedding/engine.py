@@ -12,6 +12,15 @@ The port's single-shard fused path of the JAX package's engine. Each step:
                row optimize -> [bf16 pools: narrow, stochastically by K3]
                -> ONE scatter per table (K2, fused_apply)
 
+A training step reaches the engine through its step entry points alone:
+`step_words`, `pack_step` (with `revive_of`), `decode_step`,
+`attach_revive`, `lookup_step` and `apply_step`. They are the one place
+that knows the step's wire format (the 16-bit wire, a wide table's int32
+index words, the multi-array path's int32 arrays) and the table layout
+(packed pools or the structure-of-arrays state): each picks its path from
+`packed`, `wire_capable`, `config.tiered` and `wide`, so the trainer's
+wire and step branch on none of them.
+
 Autograd through the per-feature gather produces the per-unique-row summed
 gradients (an index-add into the unique buffer). Per-step shapes are fixed:
 `unique_cap` unique ids per table, -1 padded; overflow ids read zeros and
@@ -397,6 +406,91 @@ class EmbeddingEngine:
     def archive_of(self, tname: str) -> RowArchive:
         """The archive of this engine's own shard (a tiered engine)."""
         return self.shard_archives[tname][self.shard]
+
+    # ------------------------------------------------------------------
+    # a training step's entry points: each picks the wire format and the
+    # table layout's path itself
+    # ------------------------------------------------------------------
+
+    def step_words(self, batch_size: int) -> int:
+        """Words of the engine's region of a step's wire: the 16-bit wire
+        (`wire_capable`) or the multi-array path's int32 arrays."""
+        if self.wire_capable:
+            return self.wire_words(batch_size)
+        return self.array_words(batch_size)
+
+    def pack_step(self, fid_batch: Dict[str, np.ndarray], ts: int,
+                  out: np.ndarray) -> Tuple[Dict, Optional[Dict]]:
+        """A step's host prepare into its engine region `out`
+        ([step_words(B)] int32): `prepare_wire` on the fused wire, else
+        `prepare_batch` packed by `pack_wire` or `pack_arrays`. Returns
+        (stats, revive): revive as `revive_of` gives it."""
+        if self.fuse_wire:
+            _, stats = self.prepare_wire(fid_batch, ts=ts, out=out)
+            return stats, None
+        inputs, stats = self.prepare_batch(fid_batch, ts=ts)
+        if self.wire_capable:
+            out[:] = self.pack_wire(inputs)
+        else:
+            self.pack_arrays(inputs, out)
+        return stats, self.revive_of(inputs)
+
+    def revive_of(self, inputs: Dict, shard: Optional[int] = None
+                  ) -> Optional[Dict]:
+        """A tiered engine's revived rows of prepared inputs (row `shard`
+        of a sharded engine's), {table: (positions or rows, values)}, which
+        travel beside the wire; None when not tiered."""
+        if not self.config.tiered:
+            return None
+        key = self._revive_key()
+        if shard is None:
+            return {t: (tin[key], tin["revive_values"])
+                    for t, tin in inputs.items()}
+        return {t: (tin[key][shard], tin["revive_values"][shard])
+                for t, tin in inputs.items()}
+
+    def _revive_key(self) -> str:
+        """Where this layout's revived rows go: positions into the step's
+        rows (packed) or the rows themselves (structure of arrays)."""
+        return "revive_pos" if self.packed else "revive_rows"
+
+    def attach_revive(self, inputs: Dict, uploaded: Dict) -> None:
+        """Lay a step's uploaded revived rows ({table: (positions or rows,
+        values)} on the device) into its decoded inputs."""
+        key = self._revive_key()
+        for tname, (pos, values) in uploaded.items():
+            inputs[tname][key] = pos
+            inputs[tname]["revive_values"] = values
+
+    def decode_step(self, words: torch.Tensor, batch_size: int) -> Dict:
+        """Device side of `pack_step`: `decode_wire` or `decode_arrays`."""
+        if self.wire_capable:
+            return self.decode_wire(words, batch_size)
+        return self.decode_arrays(words, batch_size)
+
+    def lookup_step(self, states: Dict, inputs: Dict, seed: int, step: int
+                    ) -> Tuple[Optional[Dict], Dict[str, torch.Tensor]]:
+        """A synchronous step's rows: (held, unique {table: [U, dim]}).
+        Packed: `fused_lookup` (held: the gathered packed rows). Structure
+        of arrays: `admit_rows` (the new rows initialised, and revived,
+        before the forward reads them), then `lookup_unique` (held:
+        None)."""
+        if self.packed:
+            return self.fused_lookup(states, inputs, seed, step)
+        self.admit_rows(states, inputs, seed, step)
+        return None, self.lookup_unique(states, inputs)
+
+    @torch.no_grad()
+    def apply_step(self, states: Dict, inputs: Dict, held: Optional[Dict],
+                   unique_grads: Dict[str, torch.Tensor], step: int,
+                   seed: int = 0) -> Dict:
+        """A synchronous step's row update, in place: `fused_apply` of the
+        rows `lookup_step` held, or `apply_gradients`."""
+        if self.packed:
+            return self.fused_apply(states, inputs, held, unique_grads, step,
+                                    seed=seed)
+        return self.apply_gradients(states, inputs, unique_grads, step,
+                                    seed=seed)
 
     # ------------------------------------------------------------------
     # host side

@@ -365,9 +365,6 @@ class MultiHostTrainer(ShardedTrainer):
         its own pack, in step order."""
         return True
 
-    def _stage_capable(self) -> bool:
-        return True
-
     def _attach_revive(self, inputs, revive) -> None:
         """The owner's revived rows travel as positions into its rows in
         either layout (a structure-of-arrays engine's admit_rows reads the

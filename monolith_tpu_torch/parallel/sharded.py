@@ -165,19 +165,15 @@ class ShardedTrainer(Trainer):
             off += a.size
 
         r, b = self.mesh.rank, self._slice_rows(layout)
-        revive = None
         with span("stage.prepare", stepno):
             if self._a2a_wire():
                 inputs, stats = self.engine.prepare_batch_a2a(fid_batch,
                                                               ts=ts)
             else:
                 inputs, stats = self.engine.prepare_shards(fid_batch, ts=ts)
-            if self.config.engine.tiered:
-                key = "revive_pos" if self.engine.packed else "revive_rows"
-                # the engine holds this rank's archive alone, so only row
-                # r revives: its n rows padded to a power of two
-                revive = {t: (tin[key][r], tin["revive_values"][r])
-                          for t, tin in inputs.items()}
+            # the engine holds this rank's archive alone, so only row r
+            # revives: its n rows padded to a power of two
+            revive = self.engine.revive_of(inputs, shard=r)
             for tname in self._tables():
                 tin = inputs[tname]
                 put(tin["rows"][r])
@@ -331,8 +327,10 @@ class ShardedTrainer(Trainer):
         runs them (a structure-of-arrays block steps synchronously)."""
         return True
 
-    def _stage_capable(self) -> bool:
-        return True
+    def _graph_capable(self) -> bool:
+        """No captured graphs: the step's seams (the exchanges, the dense
+        mean, the gather) run collectives."""
+        return False
 
     def _stage_overlaps(self) -> bool:
         """Every step packed on the calling thread: the pack runs every

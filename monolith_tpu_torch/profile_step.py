@@ -31,20 +31,20 @@ fresh batches:
 3. cProfile: host time by Python function (tottime), largest first;
 4. prepare_wire alone (the C++ dedup + map + pack), ms per batch.
 
-With `--block K` the windows run the block path instead, in the order the
-JAX package's bench.py runs it: block k+1 is packed and its upload started
-(`stage_block`) right after block k is dispatched (`train_step_block`);
-`--steps` is rounded down to whole blocks; after window 1 the per-step path
-(`train_step`, always synchronous) and the block path run in turns in the
-same trainer (per-step, block, block, per-step). `--async` turns on
-`EngineConfig.async_optimize` (the 1-step-stale block; it needs `--block`).
-The block path also reports the device operations (kernels and copies)
-per step, and a fifth window under a recording of the program's spans
-(utils/tracing.py): calls, ms and self ms per step of each span, the
-host prepare (`stage.prepare`), the batch copy and the upload's start
-among them, the calling thread's spans first, then the stage worker's
-(steps 1..K-1 of each block), with the share of the worker's prepares
-whose wire was ready when its step took it.
+With `--block K` the windows run the block path instead, through
+`Trainer.train` (steps_per_dispatch K): block k+1 is packed and its upload
+started (`stage_block`) right after block k is dispatched
+(`train_step_block`); `--steps` is rounded down to whole blocks; after
+window 1 the per-step path (`train_step`, always synchronous) and the
+block path run in turns in the same trainer (per-step, block, block,
+per-step). `--async` turns on `EngineConfig.async_optimize` (the
+1-step-stale block; it needs `--block`). The block path also reports the
+device operations (kernels and copies) per step, and a fifth window under
+a recording of the program's spans (utils/tracing.py): calls, ms and self
+ms per step of each span, the host prepare (`stage.prepare`), the batch
+copy and the upload's start among them, the calling thread's spans first,
+then the stage worker's (steps 1..K-1 of each block), with the share of
+the worker's prepares whose wire was ready when its step took it.
 
 With `--serve` it measures a serving replica instead: the trainer takes 25
 full-width steps, is exported, and a `ServingModel` loads the export on the
@@ -174,23 +174,6 @@ PORT_KERNELS = ("gather_rows_kernel", "scatter_rows_kernel",
                 "stochastic_round_bf16_kernel")
 
 
-def run_blocks(trainer, batches, K):
-    """len(batches) // K blocks in the order bench.py's end-to-end window
-    runs them: block k+1 is staged (packed, its upload started) right
-    after block k is dispatched, while block k's work drains on the card.
-    Returns the blocks' outputs."""
-    n = len(batches) // K
-    staged = trainer.stage_block(batches[:K])
-    outs = []
-    for blk in range(n):
-        outs.append(trainer.train_step_block(batches[blk * K:(blk + 1) * K],
-                                             staged=staged))
-        staged = None
-        if blk + 1 < n:
-            staged = trainer.stage_block(batches[(blk + 1) * K:(blk + 2) * K])
-    return outs
-
-
 def serve_main(args):
     """The --serve windows (see the module docstring)."""
     from torch.profiler import ProfilerActivity, profile
@@ -291,13 +274,13 @@ def main(argv=None):
     n = args.steps // K * K
     windows = [[data.batch() for _ in range(n)] for _ in range(4)]
     if K > 1:  # sizes the block's pinned buffers outside the windows
-        run_blocks(trainer, [data.batch() for _ in range(K)], K)
+        trainer.train(iter([data.batch() for _ in range(K)]), steps=K)
 
     def run(batches, blocks=K > 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if blocks:
-            run_blocks(trainer, batches, K)
+            trainer.train(iter(batches), steps=len(batches))
         else:
             for fb, b in batches:
                 trainer.train_step(fb, b)

@@ -1,123 +1,86 @@
 """Single-device trainer on the card (the port's `Trainer`).
 
-Per step:
+Layers, from the entry point down:
 
-  host:   prepare_wire (C++ dedup + id map + pack) writes the engine wire,
-          the batch arrays' raw 4-byte words and the step number into ONE
-          pinned int32 buffer, sent to the card with one non_blocking copy
-  device: decode -> fused_lookup (K1 gather + new-row init select) ->
-          pool -> dense fwd/bwd -> [global-norm clip] -> the task's dense
-          optimizer (optax form) -> fused_apply (per-row optimize, K3
-          stochastic rounding for a bf16 pool that asks for it, K2
-          scatter)
+  loop      `train` -> `_train_blocked`: batches in groups of K
+            (`steps_per_dispatch`; 1 where blocks are not allowed), each
+            group of two or more staged while the one before it
+            dispatches, then the hooks and, at log steps, the metrics'
+            readback. Exactly `steps` batches are read.
+  stage     `stage_block` / `_pack_block`: the group's wires packed into
+            one pinned int32 buffer [K, W] and uploaded; a step's wire
+            (`_pack_full_wire`) is the engine's region (`engine.pack_step`:
+            the host prepare), the batch arrays' raw 4-byte words and the
+            step number. Where `_stage_overlaps`, the stage packs step 0
+            and a second host thread, the stage worker, packs steps
+            1..K-1 while the steps before them dispatch.
+  dispatch  `train_step_block` (a group of K) and `train_step` (a group of
+            one) run each step's one body, `_step`: decode
+            (`engine.decode_step`), the revived rows attached, then the
+            synchronous step (`_step_core`: `engine.lookup_step`, the dense
+            step, `engine.apply_step`) or the 1-step-stale one
+            (`_step_async`).
+  dense     `_dense_step`: pooling, the tower's forward and backward, the
+            global-norm clip, the dense optimizer and the metrics, on the
+            card as captured CUDA graphs where `_graph_capable`
+            (training/graphs.py).
+  engine    embedding/engine.py: the one place that knows the step's wire
+            format and table layout, and the kernels (K1 gather, K2
+            scatter, K3 rounding) under it.
 
-A table whose unique cap is above 65535 rides the same wire with int32
-index words (the engine's wide table), so it runs blocks and the stage
-worker as any other.
+Three rules decide the paths, each a method that the sharded trainers
+override:
 
-The multi-array path (`engine.fuse_wire` False:
-`EngineConfig(compact_wire=False)`, or `packed="off"`, the
-structure-of-arrays state whose bf16 tables keep f32 optimizer slots)
-takes the same single upload: `prepare_batch` (Python over the same C++)
-and `engine.pack_arrays` fill the pinned buffer's engine region with int32
-words, which `engine.decode_arrays` reads on the device. A packed engine
-then steps as above; a structure-of-arrays one runs `admit_rows` (new rows
-initialised, and revived, before the forward reads them) ->
-`lookup_unique` (`index_select`) -> forward and backward -> the dense
-update -> `engine.apply_gradients` (per-array update; K3 narrows a bf16
-table's params), as the JAX trainer's multi-array step does. As in the
-JAX package, only the fused wire runs blocks.
+  `_block_capable`   whether `train` runs blocks: on the fused wire
+                     (`engine.fuse_wire`); a tiered or multi-array engine
+                     steps one by one, as in the JAX package.
+  `_stage_overlaps`  whether a block's steps 1..K-1 pack on the stage
+                     worker: on the fused wire, whose pack is one native
+                     call a step that releases the interpreter lock.
+  `_graph_capable`   whether pooling and the tower run as captured CUDA
+                     graphs: on the card, without drawing layers, model
+                     state or retrievers.
 
-The module runs in `train()` mode in every training step (per step and in
-blocks of either kind) and in `eval()` mode in `predict`, `evaluate` and
-every other forward-only pass, as the JAX trainer passes `training=True`
-or `False`. Its non-parameter state (BatchNorm's running statistics,
-buffers updated in place by the forward) is `model_state`, in flax's
-`{"batch_stats": ...}` form. Layers that draw (DCN's dropout, SNR's gate;
-layers/draws.py) draw from one generator on the trainer's device, seeded
-from (config.seed, step) before each forward, so a restored trainer's
-next step draws what the original's would have. (The JAX trainer passes
-no `rngs`, so such a layer cannot train there: ROADMAP fault R3.)
+With `EngineConfig.async_optimize` a block of packed tables runs the
+1-step-stale schedule (`_step_async`): step i's forward gathers its rows
+before step i-1's write-back has landed, the optimize runs on freshly
+gathered rows so that no update is lost, and DC segments get the stale
+rows to compensate.
 
-Block dispatch (`TrainerConfig.steps_per_dispatch = K > 1`): `stage_block`
-packs K consecutive batches into one pinned [K, W] buffer and starts its
-upload; `train_step_block` then launches the K steps' device work from
-that buffer with no host-device synchronisation between them.
-`_train_blocked` stages block k+1 right after dispatching block k, so the
-host's pack and the upload run while the card drains block k's launches.
-The host still makes every launch: a block saves K - 1 uploads' worth of
-bookkeeping, not the launches. On the CPU a block equals K sequential
-steps bit for bit (the host's id -> row mapping never depends on device
-values).
-
-On the fused wire (`_stage_overlaps`) the stage packs only step 0 and
-sends its row; the trainer's stage worker, a second host thread started
-at the first such block, packs steps 1..K-1 in order into their rows
-while the calling thread dispatches the steps before them (the native
-prepare releases the interpreter lock), and the dispatch of step i waits
-for row i, then sends it: one copy a row, on the stream, before the step's
-decode. The worker touches host memory alone (the host stores, the pinned
-rows); every CUDA call stays on the calling thread. The prepares run in
-the serial pack's order with the same timestamps and step numbers, so the
-wires are the serial pack's byte for byte. Nothing is packed past the
-block being dispatched, and `train_step_block` returns (or raises) only
-once the worker holds nothing, so hooks see the host stores as with the
-serial pack. A pack that raises at step j raises at step j's dispatch,
-after steps 0..j-1 were dispatched; no later step is packed. The sharded
-and multi-host trainers pack every step on the calling thread (their
-packs run collectives), as do the per-step path, evaluate and predict.
-
-With `EngineConfig.async_optimize` the block runs the 1-step-stale
-schedule (`_step_async`): step i's forward gathers its rows before step
-i-1's write-back has landed, the optimize runs on freshly gathered rows so
-that no update is lost, and DC segments get the stale rows to compensate.
+A block equals its steps bit for bit on the CPU (the host's id -> row
+mapping never depends on device values). The stage worker touches host
+memory alone and packs in the serial pack's order, so its wires are the
+serial pack's byte for byte; `train_step_block` returns (or raises) only
+once the worker holds nothing. A staged block bakes in its step numbers
+and admissions: it must be the next thing dispatched.
 
 State is updated in place: the table pools by the K2 scatter, the dense
-parameters and accumulators by the optimizer. (The JAX program donates
-them to each step instead.) Dense parameters are created at construction
-from a CPU generator seeded with `config.seed`, so a trainer on the card
-and one on the CPU start from identical weights; every step, the first
-included, takes the fused wire path.
+parameters and accumulators by the optimizer (the JAX program donates
+them instead). Dense parameters come from a CPU generator seeded with
+`config.seed`, so a trainer on the card and one on the CPU start alike.
+The module runs in `train()` mode in training steps and in `eval()` mode
+in `predict` and `evaluate`; its non-parameter state is `model_state`, in
+flax's `{"batch_stats": ...}` form. Layers that draw (layers/draws.py)
+draw from one generator seeded from (config.seed, step) before each
+forward (the JAX trainer passes no `rngs`: ROADMAP fault R3). Loss and
+AUC accumulate on the device and are read back only by `_drain_metrics`.
 
-Expiry: `evict_expired` frees the expired ids' rows in the host stores and
-zeroes them on the device (one K2 a table). A tiered trainer
-(`EngineConfig.tiered`) spills them instead (`spill_expired`: one K1 a
-table gathers just those rows into the host archive, then the zeroing K2)
-and revives them when their ids come back. Its steps take the engine's
-host path (`prepare_batch` + `pack_wire` write the same wire), with the
-revived rows as a second small upload beside it, and it steps one by one:
-as in the JAX package, a tiered trainer runs no blocks (the sharded and
-multi-host trainers' do: their revived rows are taken at each step's
-pack).
+Expiry: `evict_expired` frees the expired ids' rows in the host stores
+and zeroes them on the device; a tiered trainer `spill_expired`s them to
+the host archive and revives them when their ids come back, the revived
+rows uploaded beside the step's wire.
 
-Spans (utils/tracing.py; kept only while a recording is open) mark the
-layers of the loop: `train.fetch`, `train.stage` (its `stage.wait` for the
-pinned buffer, per step `stage.prepare` and `stage.copy_batch`, then
-`stage.upload`), `train.dispatch` holding a `train.step` per step, itself
-holding `step.decode`, `step.lookup`, `step.pool`, `step.forward`,
-`step.backward`, `step.dense_update`, `step.metrics` and `step.apply`, and
-`train.hooks`. Each `stage.prepare` counts (`tracing.count`) the step's
-ids (`prepare.ids`), unique ids (`prepare.unique`) and tables on int32
-index words (`prepare.wide_tables`). An overlapped stage holds step 0's
-prepare and copy; the
-stage worker's thread holds a `stage.worker` a block around the prepares
-and copies of steps 1..K-1, and a step whose row is not packed when it
-needs it opens `stage.wire_wait` first. The per-step path has a
-`train.stage` and a `train.step` a step; the sharded and multi-host
-trainers take the same names.
-
-On the card the autograd region of a training step (pooling, the tower's
-forward, the backward of both) is captured once as CUDA graphs and
-replayed at every later step of the same shapes (training/graphs.py;
-`_graph_capable` says which trainers may: the single-device one without
-drawing layers, model state or retrievers). The decode, the lookup, the
-loss, the dense update, the metrics and the apply stay eager, as do
-evaluate and predict. Counters `graph.replay`, `graph.eager` and
-`graph.capture` say what each step did.
-
-Loss and AUC accumulate on the device (metrics.device_metrics_update) and
-are read back only by `_drain_metrics`. A task whose batch carries no
-"label", or whose predictions are a dict, accumulates the loss alone.
+Spans (utils/tracing.py; kept only while a recording is open):
+`train.fetch`, `train.stage` (`stage.wait`, per step `stage.prepare` and
+`stage.copy_batch`, then `stage.upload`), `train.dispatch` holding a
+`train.step` per step (a group of one has its `train.stage` and
+`train.step` alone), each holding `step.decode`, `step.lookup`,
+`step.pool`, `step.forward`, `step.backward`, `step.dense_update`,
+`step.metrics` and `step.apply`, and `train.hooks`. The stage worker's
+thread holds a `stage.worker` a block around the prepares and copies of
+steps 1..K-1; a step whose wire is not packed when it needs it opens
+`stage.wire_wait`. Counters `graph.replay`, `graph.eager` and
+`graph.capture` say what each step's graphs did.
 
 The sharded and multi-host trainers (parallel/) run these same steps on
 each rank, with their own wires and six seams that are identities here:
@@ -320,40 +283,18 @@ class Trainer:
             items.append((k, v.dtype.str, v.shape))
         return tuple(items)
 
-    def _engine_words(self, batch_size: int) -> int:
-        """Words of the engine's region of a step's wire: the 16-bit wire
-        (`wire_capable`) or the multi-array path's int32 arrays."""
-        if self.engine.wire_capable:
-            return self.engine.wire_words(batch_size)
-        return self.engine.array_words(batch_size)
-
     def _full_wire_words(self, layout) -> int:
-        return (self._engine_words(layout[0][2][0])
+        return (self.engine.step_words(layout[0][2][0])
                 + sum(int(np.prod(s)) for _, _, s in layout) + 1)
 
     def _pack_full_wire(self, fid_batch, batch, layout, ts, stepno, out):
         """Host side of _decode, into the int32 buffer `out` [W]. Returns
         (stats, revive): revive is None, or for a tiered engine the step's
-        revived rows {table: (positions or rows, values)} (`prepare_batch`'s
-        arrays), which travel beside the wire."""
-        engine = self.engine
-        ew = self._engine_words(layout[0][2][0])
-        revive = None
+        revived rows {table: (positions or rows, values)}, which travel
+        beside the wire."""
+        ew = self.engine.step_words(layout[0][2][0])
         with span("stage.prepare", stepno):
-            if engine.fuse_wire:
-                _, stats = engine.prepare_wire(fid_batch, ts=ts, out=out[:ew])
-            else:
-                inputs, stats = engine.prepare_batch(fid_batch, ts=ts)
-                if engine.wire_capable:
-                    out[:ew] = engine.pack_wire(inputs)
-                else:
-                    engine.pack_arrays(inputs, out[:ew])
-                if engine.config.tiered:
-                    key = "revive_pos" if engine.packed else "revive_rows"
-                    revive = {t: (tin[key], tin["revive_values"])
-                              for t, tin in inputs.items()}
-            if tracing.active() is not None:
-                self._count_prepare(fid_batch, stats, stepno)
+            stats, revive = self.engine.pack_step(fid_batch, ts, out[:ew])
         with span("stage.copy_batch", stepno):
             off = ew
             for k, _, shape in layout:
@@ -363,18 +304,6 @@ class Trainer:
                 off += n
             out[off] = stepno
         return stats, revive
-
-    def _count_prepare(self, fid_batch, stats, stepno: int) -> None:
-        """The prepare's counters, in the open recording."""
-        engine = self.engine
-        tables = [t for t, f in engine.table_features.items() if f]
-        tracing.count("prepare.ids", sum(
-            np.asarray(fid_batch[f.name]).size for t in tables
-            for f in engine.table_features[t]), stepno)
-        tracing.count("prepare.unique", sum(stats["unique"].values()),
-                      stepno)
-        tracing.count("prepare.wide_tables", sum(
-            engine.wire_capable and engine.wide(t) for t in tables), stepno)
 
     def _pack_block(self, pairs, ts: int, overlap: bool = False
                     ) -> Tuple[torch.Tensor, List, tuple, List,
@@ -439,11 +368,8 @@ class Trainer:
         word, the step number, stays unread: the host knows it. Returns
         (decoded engine inputs, batch tensors)."""
         bsz = layout[0][2][0]
-        off = self._engine_words(bsz)
-        if self.engine.wire_capable:
-            inputs = self.engine.decode_wire(wire[:off], bsz)
-        else:
-            inputs = self.engine.decode_arrays(wire[:off], bsz)
+        off = self.engine.step_words(bsz)
+        inputs = self.engine.decode_step(wire[:off], bsz)
         batch_t = {}
         for k, dstr, shape in layout:
             n = int(np.prod(shape))
@@ -463,12 +389,9 @@ class Trainer:
 
     def _attach_revive(self, inputs, revive) -> None:
         """Lay a step's uploaded revived rows ({table: (positions or rows,
-        values)}, `_upload_revive`) into its decoded inputs, as
-        "revive_pos" (packed) or "revive_rows" (structure of arrays)."""
-        key = "revive_pos" if self.engine.packed else "revive_rows"
-        for tname, (pos, values) in revive.items():
-            inputs[tname][key] = pos
-            inputs[tname]["revive_values"] = values
+        values)}, `_upload_revive`) into its decoded inputs, where the
+        engine's layout takes them."""
+        self.engine.attach_revive(inputs, revive)
 
     def _upload_revive(self, revive) -> Dict[str, Tuple[torch.Tensor,
                                                         torch.Tensor]]:
@@ -631,25 +554,13 @@ class Trainer:
         backward, dense update, row optimize and write-back (K2).
         Nothing here waits for the device. Returns (loss, preds, aux)."""
         engine, seed = self.engine, self.config.seed
-        if not engine.packed:
-            # structure of arrays: init (and revive) the new rows first, so
-            # that the forward reads them initialised
-            with span("step.lookup", step):
-                engine.admit_rows(self.table_states, inputs, seed, step)
-                unique = engine.lookup_unique(self.table_states, inputs)
-            loss, preds, aux, gu = self._dense_step(inputs, batch_t, unique,
-                                                    step)
-            with span("step.apply", step):
-                engine.apply_gradients(self.table_states, inputs, gu, step,
-                                       seed=seed)
-            return loss, preds, aux
         with span("step.lookup", step):
-            prows, unique = engine.fused_lookup(self.table_states, inputs,
-                                                seed, step)
+            held, unique = engine.lookup_step(self.table_states, inputs,
+                                              seed, step)
         loss, preds, aux, gu = self._dense_step(inputs, batch_t, unique, step)
-        with span("step.apply", step), torch.no_grad():
-            engine.fused_apply(self.table_states, inputs, prows, gu, step,
-                               seed=seed)
+        with span("step.apply", step):
+            engine.apply_step(self.table_states, inputs, held, gu, step,
+                              seed=seed)
         return loss, preds, aux
 
     def _step_async(self, inputs, batch_t, step: int, pending):
@@ -698,13 +609,24 @@ class Trainer:
                 [(fid_batch, batch)], ts)
             revive = self._upload_revive(revives[0])
         with span("train.step", self.step):
-            with span("step.decode", self.step):
-                inputs, batch_t = self._decode(wires[0], layout)
-                self._attach_revive(inputs, revive)
-            loss, preds, aux = self._step_core(inputs, batch_t, self.step)
-        stats = stats[0]
+            loss, preds, aux, _ = self._step(wires[0], layout, revive,
+                                             self.step)
         self.step += 1
-        return {"loss": loss, "preds": preds, "stats": stats, "aux": aux}
+        return {"loss": loss, "preds": preds, "stats": stats[0], "aux": aux}
+
+    def _step(self, wire, layout, revive, step: int, stale: bool = False,
+              pending=None):
+        """The body of every training step, inside its "train.step" span:
+        decode the step's wire (the step number comes from the host, which
+        knows it), attach its uploaded revived rows, then the synchronous
+        step or, `stale`, the 1-step-stale one. Returns (loss, preds, aux,
+        pending write-back: None for a synchronous step)."""
+        with span("step.decode", step):
+            inputs, batch_t = self._decode(wire, layout)
+            self._attach_revive(inputs, revive)
+        if stale:
+            return self._step_async(inputs, batch_t, step, pending)
+        return (*self._step_core(inputs, batch_t, step), None)
 
     def stage_block(self, pairs, ts: Optional[int] = None) -> Dict:
         """Pack the NEXT block and start its host-to-device upload now, so
@@ -780,15 +702,8 @@ class Trainer:
                 if prepares is not None and i:
                     stats[i], revive = prepares.take(i)
                     revives[i] = self._upload_revive(revive)
-                # the step number comes from the host, which knows it
-                with span("step.decode", base + i):
-                    inputs, batch_t = self._decode(wires[i], layout)
-                    self._attach_revive(inputs, revives[i])
-                if stale:
-                    loss, p, aux, pending = self._step_async(
-                        inputs, batch_t, base + i, pending)
-                else:
-                    loss, p, aux = self._step_core(inputs, batch_t, base + i)
+                loss, p, aux, pending = self._step(
+                    wires[i], layout, revives[i], base + i, stale, pending)
             losses.append(loss)
             preds.append(p)
             auxes.append(aux)
@@ -907,13 +822,6 @@ class Trainer:
         multi-array path. The sharded trainers override this."""
         return self.engine.fuse_wire
 
-    def _stage_capable(self) -> bool:
-        """Whether this trainer implements stage_block(). A subclass that
-        overrides train_step_block either brings its own stage_block or
-        returns False here, so that _train_blocked never hands it a block
-        staged by another trainer's rules."""
-        return self.engine.fuse_wire
-
     def _stage_overlaps(self) -> bool:
         """Whether a block of two or more steps packs its steps 1..K-1 on
         the stage worker while the steps before them dispatch: on the fused
@@ -925,26 +833,17 @@ class Trainer:
 
     def _graph_capable(self) -> bool:
         """Whether the training step's pooling and tower may run as
-        captured CUDA graphs (training/graphs.py): on the card, with the
-        Trainer's own seams (the sharded trainers' run collectives), no
+        captured CUDA graphs (training/graphs.py): on the card, with no
         drawing layers (their generator is reseeded from the host each
         step), no model state (the capture's warm-up would move batch
-        statistics) and no retriever (it takes the host's step)."""
-        cls = type(self)
+        statistics) and no retriever (it takes the host's step). The
+        sharded trainers override this."""
         return (self.device.type == "cuda"
-                and all(getattr(cls, n) is getattr(Trainer, n)
-                        for n in ("_exchange", "_exchange_back",
-                                  "_reduce_dense", "_gather"))
                 and self._draws is None
                 and next(self.module.buffers(), None) is None
                 and all(seg.retriever is None
                         for spec in self.engine.tables.values()
                         for seg in spec.segments))
-
-    def _block_eligible(self, batch) -> bool:
-        """Whether this batch's arrays can ride the wire (all 4-byte)."""
-        return all(np.asarray(v).dtype.str in _WIRE_DTYPES
-                   for v in batch.values())
 
     def _log(self, t0: float, examples: int) -> None:
         self._drain_metrics()
@@ -964,35 +863,24 @@ class Trainer:
         Each hook is called as h(trainer, out) after every step; a hook
         that raises StopIteration asks for a clean stop.
 
-        With config.steps_per_dispatch > 1 steps run in blocks of K
-        (_train_blocked) and hooks fire once per block."""
+        With config.steps_per_dispatch = K > 1 on a trainer that
+        `_block_capable` admits, steps run in blocks of K and hooks fire
+        once per block; otherwise in groups of one, each a `train_step`.
+        Exactly `steps` batches are read from `data`."""
         K = max(1, self.config.steps_per_dispatch)
-        if K > 1 and self._block_capable():
-            return self._train_blocked(data, steps, hooks, K)
-        t0 = time.time()
-        examples = 0
-        for i, (fid_batch, batch) in enumerate(data):
-            if steps is not None and i >= steps:
-                break
-            out = self.train_step(fid_batch, batch)
-            examples += len(next(iter(batch.values())))
-            with span("train.hooks", self.step - 1):
-                stop = _call_hooks(hooks, self, out)
-            if stop:
-                break
-            if self.config.log_every and (self.step % self.config.log_every == 0):
-                self._log(t0, examples)
-        return self._result(t0, examples)
+        return self._train_blocked(data, steps, hooks,
+                                   K if K > 1 and self._block_capable() else 1)
 
     def _train_blocked(self, data: Iterator, steps: Optional[int],
                        hooks, K: int) -> Dict[str, float]:
-        """The block-dispatch loop. Batches come in groups of K, so groups
-        end at steps K, 2K, ... and at the last step, as in the JAX
-        package; every group of more than one batch runs as a block (the
-        short tail too), staged (packed and uploading) while the block
-        before it runs; a group of one runs as a step. Hooks fire once per
-        group, with the group's last output; metrics drain at the same
-        steps as the per-step loop's log."""
+        """The training loop. Batches come in groups of K, so groups end at
+        steps K, 2K, ... and at the last step, as in the JAX package; every
+        group of more than one batch runs as a block (the short tail too),
+        staged (packed and uploading) while the block before it runs; a
+        group of one runs as a step. Hooks fire once per group, with the
+        group's last output; a group that reaches a multiple of
+        `log_every` drains the metrics and prints its line, the stopping
+        group too."""
         t0 = time.time()
         examples = 0
         done = 0
@@ -1008,25 +896,19 @@ class Trainer:
                         break
             return pairs
 
-        def blockable(pairs):
-            return len(pairs) > 1 and self._block_eligible(pairs[0][1])
-
         def stage(pairs):
             # only a group that will be dispatched as a block may be
             # staged: the pack bakes in step numbers and host-store
             # admissions
-            if blockable(pairs) and self._stage_capable():
-                return self.stage_block(pairs)
-            return None
+            return self.stage_block(pairs) if len(pairs) > 1 else None
 
         pairs = fetch(K if steps is None else min(K, steps))
         staged = stage(pairs)
         while pairs:
-            if blockable(pairs):
+            if len(pairs) > 1:
                 out = self.train_step_block(pairs, staged=staged)
             else:
-                for fb, b in pairs:
-                    out = self.train_step(fb, b)
+                out = self.train_step(*pairs[0])
             staged = None
             done += len(pairs)
             examples += sum(len(next(iter(b.values()))) for _, b in pairs)

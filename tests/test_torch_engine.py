@@ -188,3 +188,111 @@ def test_synthetic_batches_identical(seed):
         for k in ba:
             np.testing.assert_array_equal(ba[k], bb[k])
     assert a.bayes_auc(2000) == b.bayes_auc(2000)
+
+
+# ----------------------------------------------------------------------
+# a training step's entry points against the per-layout calls
+# ----------------------------------------------------------------------
+
+#: the engine layouts a step can take: the fused wire with 16-bit index
+#: words, a wide table's int32 index words, the tiered host pack (a
+#: table's revived rows beside the wire), the multi-array path of packed
+#: tables and of the structure-of-arrays state
+STEP_LAYOUTS = {
+    "narrow_wire": {},
+    "wide_table": {"unique_caps": (("sparse", 70000),)},
+    "tiered": {"tiered": True},
+    "compact_wire_off": {"compact_wire": False},
+    "structure_of_arrays": {"packed": "off"},
+}
+
+
+def _step_engine(layout):
+    """An engine of DeepFM's one table (ttl 3600 s) in `layout`, its host
+    stores empty."""
+    task = DeepFMTask(capacity_per_shard=CAP, hidden=(8,), ttl_seconds=3600)
+    return EmbeddingEngine(task.tables(), task.features(), EngineConfig(
+        unique_cap=U, new_cap=U, **STEP_LAYOUTS[layout]), seed=3,
+        device="cpu")
+
+
+def _per_layout_step(engine, fid_batch, ts):
+    """(words, stats, revive) by the calls each layout takes."""
+    if engine.fuse_wire:
+        words, stats = engine.prepare_wire(fid_batch, ts=ts)
+        assert words.size == engine.wire_words(B)
+        return words, stats, None
+    inputs, stats = engine.prepare_batch(fid_batch, ts=ts)
+    if engine.wire_capable:
+        words = engine.pack_wire(inputs)
+        assert words.size == engine.wire_words(B)
+    else:
+        words = np.empty(engine.array_words(B), np.int32)
+        engine.pack_arrays(inputs, words)
+    if not engine.config.tiered:
+        return words, stats, None
+    key = "revive_pos" if engine.packed else "revive_rows"
+    return words, stats, {t: (tin[key], tin["revive_values"])
+                          for t, tin in inputs.items()}
+
+
+def _assert_same_tree(got, want):
+    assert type(got) is type(want)
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            _assert_same_tree(got[k], want[k])
+    else:
+        assert torch.equal(got, want)
+
+
+def _spill_all(engine, ts):
+    """Every id leaves the host store for the archive, with made-up
+    values."""
+    for t in engine.tables:
+        rows, fids = engine.store_of(t).evict_expired(ts, return_fids=True)
+        width = engine.archive_of(t).width
+        values = np.arange(len(fids) * width, dtype=np.float32).reshape(
+            len(fids), width)
+        engine.archive_of(t).spill(fids, values, ts=ts)
+
+
+@pytest.mark.parametrize("layout", sorted(STEP_LAYOUTS))
+def test_step_entry_points_equal_the_per_layout_calls(layout):
+    """step_words / pack_step / decode_step (and attach_revive) against
+    the calls they choose among, on two engines fed alike: words byte for
+    byte, stats and revives equal, decoded inputs equal by torch.equal.
+    The tiered engine spills every id after three steps, so that the
+    fourth revives."""
+    mine, theirs = _step_engine(layout), _step_engine(layout)
+    data = SyntheticCTR(num_users=300, num_items=200, batch_size=B, seed=5)
+    fids = [data.batch()[0] for _ in range(3)]
+    revived = 0
+    for i, fb in enumerate(fids + fids[:1]):
+        if i == 3 and mine.config.tiered:
+            for e in (mine, theirs):
+                _spill_all(e, TS + 3)
+        words = np.empty(mine.step_words(B), np.int32)
+        stats, revive = mine.pack_step(fb, TS + i, words)
+        want, want_stats, want_revive = _per_layout_step(theirs, fb, TS + i)
+        assert words.tobytes() == want.tobytes()
+        assert stats == want_stats
+        assert (revive is None) == (want_revive is None)
+        for t, (pos, values) in (revive or {}).items():
+            np.testing.assert_array_equal(pos, want_revive[t][0])
+            np.testing.assert_array_equal(values, want_revive[t][1])
+            revived += int((pos >= 0).sum())
+        got = mine.decode_step(torch.from_numpy(words), B)
+        want_in = (theirs.decode_wire if theirs.wire_capable
+                   else theirs.decode_arrays)(torch.from_numpy(want), B)
+        _assert_same_tree(got, want_in)
+        if revive is not None:
+            mine.attach_revive(got, {t: (torch.from_numpy(p),
+                                         torch.from_numpy(v))
+                                     for t, (p, v) in revive.items()})
+            key = "revive_pos" if mine.packed else "revive_rows"
+            for t, (p, v) in revive.items():
+                assert torch.equal(got[t][key], torch.from_numpy(p))
+                assert torch.equal(got[t]["revive_values"],
+                                   torch.from_numpy(v))
+    assert (revived > 0) == mine.config.tiered

@@ -171,10 +171,13 @@ def world_of_one():
 
 @pytest.mark.parametrize("kind", ["sharded", "multihost"])
 def test_sharded_trainers_are_not_capable(world_of_one, kind):
+    """ShardedTrainer's override refuses (its seams run collectives) where
+    the Trainer's rules alone would admit the same trainer."""
     from monolith_tpu_torch.parallel import MultiHostTrainer, ShardedTrainer
     cls = MultiHostTrainer if kind == "multihost" else ShardedTrainer
     tr = on_card(cls(deepfm_task(), config(num_shards=1), world_of_one))
     assert not tr._graph_capable()
+    assert Trainer._graph_capable(tr)
 
 
 def test_dcnv2_parts_are_the_submodules_its_spans_wrap():

@@ -608,7 +608,7 @@ def test_multi_array_path_steps_one_by_one():
     _, b = _twins(packed="off", unique_cap=512, new_cap=512)
     b.config.steps_per_dispatch = 4
     batches = _batches(6, seed=3)
-    assert not b._block_capable() and not b._stage_capable()
+    assert not b._block_capable()
     for fb, bt in batches:
         a.train_step(fb, bt, ts=7)
     import monolith_tpu_torch.training.trainer as trainer_mod

@@ -391,7 +391,7 @@ def test_tiered_trainer_steps_one_by_one():
     data = iter([ids_batch(np.arange(i, i + 4)) for i in range(1, 7)])
     pt.train(data, steps=6)
     assert pt.step == 6 and not blocks
-    assert not pt._block_capable() and not pt._stage_capable()
+    assert not pt._block_capable()
     with pytest.raises(ValueError, match="steps one by one"):
         pt.stage_block([ids_batch([1]), ids_batch([2])], ts=1)
 

@@ -172,8 +172,9 @@ def test_block_span_tree(stale):
 @pytest.mark.parametrize("packed", ["auto", "off"],
                          ids=["packed", "structure_of_arrays"])
 def test_per_step_span_tree(packed):
-    """The per-step path (K = 1), and the structure-of-arrays step: a
-    train.stage and a train.step per step, the same parts."""
+    """The per-step path (K = 1), and the structure-of-arrays step: the
+    loop's groups of one, a train.fetch, a train.stage, a train.step and
+    a train.hooks per step, the same parts."""
     tr = trainer(K=1, packed=packed)
     spans = record(tr, batches(3), 3)
     check_nesting(spans)
@@ -181,10 +182,12 @@ def test_per_step_span_tree(packed):
     top = [i for i in keep if spans[i].parent == -1]
     assert [(spans[i].name, spans[i].step) for i in top] == [
         (n, s) for s in range(3)
-        for n in ("train.stage", "train.step", "train.hooks")]
+        for n in ("train.fetch", "train.stage", "train.step",
+                  "train.hooks")]
     for i in top:
         kids = names(spans, [j for j in children(spans, i) if j in keep])
-        assert kids == {"train.stage": ["stage.wait", "stage.prepare",
+        assert kids == {"train.fetch": [],
+                        "train.stage": ["stage.wait", "stage.prepare",
                                         "stage.copy_batch", "stage.upload"],
                         "train.step": STEP_PARTS,
                         "train.hooks": []}[spans[i].name]
@@ -326,30 +329,36 @@ def test_counters_are_off_without_a_recording():
 
 
 def test_counters_are_recorded_with_a_recording():
-    """Each step's prepare counts its ids, unique ids and wide tables,
-    with the step's number, on the thread that packed it; `count` keeps
-    what it is given, `counter_totals` sums by name within a time window,
-    and numbers past the capacity are counted as dropped."""
-    tr = trainer(unique_caps=(("sparse", 70000),))
-    pairs = batches(K)
+    """`count` keeps what it is given, with its step, on the thread that
+    counted it; `counter_totals` sums by name within a time window, and
+    numbers past the capacity are counted as dropped."""
+    main = threading.get_ident()
+
+    def other():
+        for step in range(K):
+            tracing.count("worker", step + 1, step)
     with tracing.recording() as rec:
         tracing.count("mine", 2.5, 7)
-        tr.train(iter(pairs), steps=K)
-    mine = [c for c in rec.counters if c.name == "mine"]
-    assert [(c.value, c.step) for c in mine] == [(2.5, 7)]
+        tracing.count("mine", 1.5, 8)
+        worker = threading.Thread(target=other)
+        worker.start()
+        worker.join()
+        cut = time.perf_counter()
+        tracing.count("late", 3, 9)
     by = collections.defaultdict(list)
     for c in rec.counters:
         by[c.name].append(c)
-    assert [c.step for c in by["prepare.ids"]] == list(range(K))
-    ids = [sum(v.size for v in fb.values()) for fb, _ in pairs]
-    assert [c.value for c in by["prepare.ids"]] == ids
-    assert [c.value for c in by["prepare.wide_tables"]] == [1] * K
-    prepares = [s for s in rec.spans if s.name == "stage.prepare"]
-    assert {c.thread for c in by["prepare.unique"]} == {
-        s.thread for s in prepares}
-    assert all(0 < c.value <= ids[c.step] for c in by["prepare.unique"])
+    assert [(c.value, c.step) for c in by["mine"]] == [(2.5, 7), (1.5, 8)]
+    assert {c.thread for c in by["mine"]} == {main}
+    assert [(c.value, c.step) for c in by["worker"]] == [
+        (s + 1, s) for s in range(K)]
+    assert {c.thread for c in by["worker"]} == {worker.ident} != {main}
     totals = rec.counter_totals()
-    assert totals["prepare.ids"] == (K, float(sum(ids)))
+    assert totals["mine"] == (2, 4.0)
+    assert totals["worker"] == (K, float(sum(range(1, K + 1))))
+    assert rec.counter_totals(before=cut) == {
+        k: v for k, v in totals.items() if k != "late"}
+    assert rec.counter_totals(after=cut) == {"late": (1, 3.0)}
     assert rec.counter_totals(after=time.perf_counter()) == {}
     small = tracing.recording(capacity=2)
     with small:

@@ -114,6 +114,26 @@ def test_train_loop_drains_device_metrics():
     assert pt._dev_metrics is None
 
 
+def test_train_reads_exactly_steps_batches():
+    """Fault R10 of the reference, pinned: the JAX trainer's per-step
+    loop reads batch `steps + 1` from the caller's iterator and drops it
+    (its block loop reads `steps`). The port's one loop reads exactly
+    `steps` batches, in groups of one and in blocks, and leaves the rest
+    to the caller."""
+    data = SyntheticCTR(num_users=400, num_items=300, batch_size=B, seed=6)
+    batches = [data.batch() for _ in range(6)]
+    jt, pt = _trainers()
+    rest = iter(batches)
+    jt.train(rest, steps=3)
+    assert jt.step == 3 and next(rest) is batches[4]
+    for K in (1, 4):
+        _, pt = _trainers()
+        pt.config.steps_per_dispatch = K
+        rest = iter(batches)
+        pt.train(rest, steps=3)
+        assert pt.step == 3 and next(rest) is batches[3]
+
+
 def test_export_load_roundtrip_between_port_trainers():
     """A state moves between two port trainers (as card <-> CPU does) and
     the next step then agrees."""
